@@ -1,0 +1,139 @@
+"""The phase kernels' plain versions and wrappers (tpuvof_torch.kernels).
+
+On the CPU the plain versions are held against tpuvof's Pallas kernels,
+run in interpret mode as tests/test_pallas.py runs them, at 32^2 in f64,
+within 1e-12 of the field's scale: both sides do the same operations per
+element. The wrappers must route CPU tensors to the plain versions and
+count no launch. The ``cuda``-marked test holds the CUDA kernels against
+the plain versions on a card; it needs no jax, so on a machine without
+jax it runs with ``pytest tests/test_torch_kernels.py --noconftest -m cuda``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import tpuvof_torch as tt
+from tpuvof_torch.kernels import step_kernels as K
+
+N = 32
+TOL = 1e-12
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, np.float64))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """tpuvof (the reference), its Pallas phase kernels, and a developed,
+    perturbed, BC-consistent 32^2 dam-break state as numpy f64."""
+    import jax.numpy as jnp
+
+    import tpuvof as tv
+    from tpuvof import pallas_kernels as pk
+    from tpuvof.ops import apply_bc
+    from tpuvof_torch.convert import config_from_tpuvof
+
+    cfg = tv.dam_break_2d(N)
+    s0 = tv.State(*(jnp.asarray(a, jnp.float64) for a in tv.init_state(cfg, ic=1)))
+    s = tv.simulate(cfg, s0, 40)
+    rng = np.random.default_rng(10)
+    F, u, v, p = (np.asarray(a) + rng.uniform(-1e-3, 1e-3, a.shape) for a in s)
+    u, v, F, p = (np.asarray(a) for a in apply_bc(*map(jnp.asarray, (u, v, F, p))))
+    return cfg, config_from_tpuvof(cfg), pk, (F, u, v, p)
+
+
+def test_predict_plain_matches_pallas_predict(ref):
+    cfg, pc, pk, (F, u, v, p) = ref
+    want = pk.pallas_predict(cfg, u, v, F, interpret=True)
+    got = K.predict_plain(pc, _t(u), _t(v), _t(F))
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) <= TOL
+
+
+def test_project_plain_matches_pallas_project(ref):
+    cfg, pc, pk, (F, u, v, p) = ref
+    us, vs = (np.asarray(a) for a in pk.pallas_predict(cfg, u, v, F, interpret=True))
+    want = pk.project_pressure_and_correct(cfg, F, us, vs, p, u, v, interpret=True)
+    got = K.project_plain(pc, *map(_t, (F, us, vs, p, u, v)))
+    for name, g_, w_ in zip("puv", got, want):
+        assert _rel(g_, w_) <= TOL, name
+    # the returned p keeps the entry p's ghost ring; u, v keep the entry
+    # values off the corrected ranges (the wall faces and ghosts)
+    np.testing.assert_array_equal(got[0].numpy()[[0, -1], :], p[[0, -1], :])
+    np.testing.assert_array_equal(got[1].numpy()[1, :], u[1, :])
+    np.testing.assert_array_equal(got[2].numpy()[:, 1], v[:, 1])
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_fct_sweep_plain_matches_pallas_sweep(ref, axis):
+    cfg, pc, pk, (F, u, v, p) = ref
+    if axis == 0:
+        want = pk.pallas_fct_sweep_x(cfg, F, u, interpret=True)
+    else:
+        want = pk.pallas_fct_sweep_y(cfg, F, v, interpret=True)
+    got = K.fct_sweep_plain(pc, _t(F), _t(u if axis == 0 else v), axis)
+    assert _rel(got, want) <= TOL
+    np.testing.assert_array_equal(got.numpy()[0], F[0])  # ghosts kept
+
+
+def test_wrappers_route_cpu_tensors_to_plain_and_count_nothing(ref):
+    _, pc, _, arrays = ref
+    F, u, v, p = map(_t, arrays)
+    K.reset_launch_counts()
+    us, vs = K.predict(pc, u, v, F)
+    for g_, w_ in zip((us, vs), K.predict_plain(pc, u, v, F)):
+        assert torch.equal(g_, w_)
+    for g_, w_ in zip(K.project(pc, F, us, vs, p, u, v),
+                      K.project_plain(pc, F, us, vs, p, u, v)):
+        assert torch.equal(g_, w_)
+    for axis, vel in ((0, u), (1, v)):
+        assert torch.equal(K.fct_sweep(pc, F, vel, axis), K.fct_sweep_plain(pc, F, vel, axis))
+    assert K.LAUNCHES == {"predict": 0, "project": 0, "fct_sweep": 0}
+    with pytest.raises(ValueError):
+        K.fct_sweep(pc, F, u, 2)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """Each CUDA kernel against its plain version on the card, f64 and
+    f32, on a perturbed developed 64^2 state (bars as chip_smoke.py's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpuvof_torch.ops import apply_bc
+
+    n = 64
+    plain = tt.dam_break_2d(n)
+    s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), 30)
+    rng = np.random.default_rng(11)
+    F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape), device="cuda")
+                  for a in s)
+    u, v, F, p = apply_bc(u, v, F, p)
+    cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda"))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        Fd, ud, vd, pd = (a.to(dtype).contiguous() for a in (F, u, v, p))
+        K.reset_launch_counts()
+        us, vs = K.predict_plain(cfg, ud, vd, Fd)
+        pairs = [
+            (K.predict(cfg, ud, vd, Fd), (us, vs)),
+            (K.project(cfg, Fd, us, vs, pd, ud, vd),
+             K.project_plain(cfg, Fd, us, vs, pd, ud, vd)),
+            ((K.fct_sweep(cfg, Fd, ud, 0), K.fct_sweep(cfg, Fd, vd, 1)),
+             (K.fct_sweep_plain(cfg, Fd, ud, 0), K.fct_sweep_plain(cfg, Fd, vd, 1))),
+        ]
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {"predict": 1, "project": 1, "fct_sweep": 2}
+        for got, want in pairs:
+            for g_, w_ in zip(got, want):
+                assert g_.is_cuda and g_.dtype == dtype
+                assert _rel(g_.cpu(), w_.cpu()) <= tol
+    with pytest.raises(ValueError):
+        K.fct_sweep(cfg, F.T, u, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        K.predict(cfg, u[:-1], v, F)  # wrong shape

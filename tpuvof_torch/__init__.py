@@ -1,0 +1,46 @@
+"""tpuvof_torch: the PyTorch + CUDA port of tpuvof for NVIDIA Hopper.
+
+The 2-D forward step of the two-phase Navier-Stokes/VOF solver: staggered
+MAC grid, Youngs normals with Brackbill CSF surface tension, Chorin
+projection with the reference's fixed-iteration Jacobi, and Rudman/Zalesak
+flux-corrected VOF transport. ``backend='torch'`` runs plain torch ops;
+``backend='cuda'`` runs the hand-written phase kernels of ``csrc/``.
+
+tpuvof (JAX) stays the reference: module names mirror it, so each
+counterpart is found by path. This package never imports jax.
+"""
+from .config import (
+    FCT_DIFF,
+    FCT_FORWARD,
+    FCT_SCHEME_TEST,
+    FCTVariant,
+    Fluid,
+    Numerics,
+    SimConfig,
+    dam_break_2d,
+)
+from .grid import Grid2D
+from .metrics import Metrics, compute_metrics
+from .solver import simulate, step, step_pair
+from .state import State, find_area, init_state, initial_volume_fraction
+
+__all__ = [
+    "FCT_DIFF",
+    "FCT_FORWARD",
+    "FCT_SCHEME_TEST",
+    "FCTVariant",
+    "Fluid",
+    "Numerics",
+    "SimConfig",
+    "dam_break_2d",
+    "Grid2D",
+    "Metrics",
+    "compute_metrics",
+    "simulate",
+    "step",
+    "step_pair",
+    "State",
+    "find_area",
+    "init_state",
+    "initial_volume_fraction",
+]

@@ -1,0 +1,64 @@
+"""Carry states and configurations between tpuvof and the port.
+
+States cross as numpy arrays. ``config_from_tpuvof`` reads a tpuvof
+``SimConfig`` through ``dataclasses.asdict``, so this module needs no
+import of tpuvof (and so of jax).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import FCTVariant, Fluid, Numerics, SimConfig
+from .grid import Grid2D
+from .state import State
+
+__all__ = ["state_from_numpy", "state_to_numpy", "config_from_tpuvof"]
+
+# tpuvof backend -> port backend; the rest wait for their kernels
+_BACKENDS = {"xla": "torch", "pallas": "cuda", "pallas_mono": "cuda"}
+
+
+def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
+    """A port State from four (nx+2, ny+2) arrays."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    return State(F=t(F), u=t(u), v=t(v), p=t(p))
+
+
+def state_to_numpy(state: State) -> tuple[np.ndarray, ...]:
+    """(F, u, v, p) as numpy arrays on the host."""
+    return tuple(a.detach().cpu().numpy() for a in state)
+
+
+def config_from_tpuvof(cfg) -> SimConfig:
+    """The port's SimConfig for a tpuvof SimConfig.
+
+    tpuvof's solver-ladder and adjoint settings (sor_*, pressure_adjoint)
+    do not affect the fixed-Jacobi forward step and are not carried;
+    pressure_solver is, so the port's solver refuses what it cannot run."""
+    if not dataclasses.is_dataclass(cfg):
+        raise TypeError(f"expected a tpuvof SimConfig, got {type(cfg).__name__}")
+    d = dataclasses.asdict(cfg)
+    num = d["num"]
+    backend = num["backend"]
+    if backend not in _BACKENDS:
+        raise NotImplementedError(
+            f"tpuvof backend {backend!r} has no port yet; "
+            f"mapped: {sorted(_BACKENDS)} (ROADMAP Queue 2)")
+    gd = d["grid"]
+    return SimConfig(
+        grid=Grid2D(gd["nx"], gd["ny"], gd["Lx"], gd["Ly"]),
+        fluid=Fluid(**d["fluid"]),
+        num=Numerics(
+            dt=num["dt"],
+            n_jacobi=num["n_jacobi"],
+            fct=FCTVariant(**num["fct"]),
+            bc_between_sweeps=num["bc_between_sweeps"],
+            backend=_BACKENDS[backend],
+            pressure_solver=num["pressure_solver"],
+        ),
+    )

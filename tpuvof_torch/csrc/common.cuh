@@ -1,0 +1,59 @@
+// Shared device helpers of the 2-D phase kernels.
+//
+// Layout: a field is a row-major (nx+2, ny+2) array, axis 0 = i (x), axis 1 =
+// j (y), j contiguous. Every kernel runs one thread per cell of the padded
+// field with threadIdx.x along j, so the loads of a warp are one coalesced
+// row segment, and masks its own ragged edge.
+//
+// Each kernel takes its physical and grid constants as arguments of type T.
+// The host computes them in double, in the same expressions the JAX package
+// folds them in, and casts them once; nothing is baked in per grid.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tv {
+
+constexpr int kBlockX = 32;  // along j, the contiguous axis
+constexpr int kBlockY = 8;   // along i
+
+inline dim3 block2d() { return dim3(kBlockX, kBlockY); }
+
+// Covers an (n0, n1) field with block2d() blocks.
+inline dim3 grid2d(int n0, int n1) {
+  return dim3((n1 + kBlockX - 1) / kBlockX, (n0 + kBlockY - 1) / kBlockY);
+}
+
+// Strict-select clip to [0, 1], as tpuvof/ops/common.py:clamp01.
+template <typename T>
+__device__ __forceinline__ T clamp01(T x) {
+  return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
+}
+
+// max/min of two finite values (the JAX and torch versions propagate NaN
+// where these do not; the step's values are finite).
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) {
+  return a > b ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) {
+  return a < b ? a : b;
+}
+
+// Density and viscosity mixed from the clamped volume fraction
+// (tpuvof/ops/materials.py:mix_properties).
+template <typename T>
+__device__ __forceinline__ T mix_rho(T F, T rho_l, T rho_g) {
+  const T Fc = clamp01(F);
+  return rho_g * (T(1) - Fc) + rho_l * Fc;
+}
+
+template <typename T>
+__device__ __forceinline__ T mix_nu(T F, T nu_l, T nu_g) {
+  const T Fc = clamp01(F);
+  return nu_l * Fc + nu_g * (T(1) - Fc);
+}
+
+}  // namespace tv

@@ -1,0 +1,99 @@
+"""Simulation state and initial conditions (counterpart of tpuvof/state.py).
+
+The carried state is F, u, v, p, each a (nx+2, ny+2) tensor. The initial
+conditions are computed in numpy float32 exactly as tpuvof computes them,
+so F0 is bit-equal to tpuvof's before it is cast to the requested dtype.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+from .grid import Grid2D
+
+__all__ = ["State", "init_state", "initial_volume_fraction", "find_area"]
+
+
+class State(NamedTuple):
+    """2-D solver state; every tensor has shape (nx+2, ny+2)."""
+
+    F: torch.Tensor  # volume fraction (1 = liquid, 0 = gas)
+    u: torch.Tensor  # x-velocity on left cell faces
+    v: torch.Tensor  # y-velocity on bottom cell faces
+    p: torch.Tensor  # pressure at cell centers
+
+
+def find_area(g: Grid2D, cx: float, cy: float, r: float) -> np.ndarray:
+    """Smoothed per-cell liquid fraction of the complement of a circle.
+
+    Cells with all four corners outside the circle get 1.0, fully inside
+    get 0.0, and mixed cells get 0.5 + 0.5*(dist_center - r)/(sqrt(2)*dx)
+    clipped to [0, 1]. float32 on the host; returns (nx+2, ny+2).
+    """
+    dx = np.float32(g.dx)
+    xc = g.center_x()[:, None]
+    yc = g.center_y()[None, :]
+    cx = np.float32(cx)
+    cy = np.float32(cy)
+    r = np.float32(r)
+
+    def dist(ox, oy):
+        return np.sqrt((xc + ox - cx) ** 2 + (yc + oy - cy) ** 2, dtype=np.float32)
+
+    h = dx / np.float32(2.0)
+    d_ct = dist(np.float32(0.0), np.float32(0.0))
+    d_lu = dist(-h, h)
+    d_ld = dist(-h, -h)
+    d_ru = dist(h, h)
+    d_rd = dist(h, -h)
+
+    all_out = (d_lu > r) & (d_ld > r) & (d_ru > r) & (d_rd > r)
+    all_in = (d_lu < r) & (d_ld < r) & (d_ru < r) & (d_rd < r)
+    smooth = np.clip(
+        np.float32(0.5) + np.float32(0.5) * (d_ct - r) / (np.sqrt(np.float32(2.0)) * dx),
+        0.0,
+        1.0,
+    ).astype(np.float32)
+    out = np.where(all_out, np.float32(1.0), np.where(all_in, np.float32(0.0), smooth))
+    return out.astype(np.float32)
+
+
+def initial_volume_fraction(g: Grid2D, ic: int) -> np.ndarray:
+    """The three canonical initial conditions.
+
+    ic=1 dam break: liquid block x in [0, Lx/3], y in [0, Ly/2] (tested
+    against node coordinates). ic=2 rising bubble: gas circle of radius
+    Lx/12 centered (Lx/2, 2r). ic=3 dropping liquid: liquid circle at
+    (Lx/2, Ly - 3r) above a pool filling y < 0.37*Ly.
+    """
+    if ic == 1:
+        xn = g.node_x()[:, None]
+        yn = g.node_y()[None, :]
+        cond = (xn >= 0.0) & (xn <= g.Lx / 3) & (yn >= 0.0) & (yn <= g.Ly / 2)
+        return np.where(cond, np.float32(1.0), np.float32(0.0))
+    elif ic == 2:
+        r = g.Lx / 12
+        return find_area(g, g.Lx / 2, 2 * r, r)
+    elif ic == 3:
+        r = g.Lx / 12
+        F = (np.float32(1.0) - find_area(g, g.Lx / 2, g.Ly - 3 * r, r)).astype(
+            np.float32
+        )
+        yn = g.node_y()[None, :]
+        return np.where(yn < g.Ly * 0.37, np.float32(1.0), F).astype(np.float32)
+    raise ValueError(f"unknown initial condition {ic}; expected 1, 2 or 3")
+
+
+def init_state(cfg: SimConfig, ic: int, device, dtype: torch.dtype) -> State:
+    """The state with initial condition ``ic`` on ``device`` in ``dtype``."""
+    g = cfg.grid
+    F = torch.as_tensor(initial_volume_fraction(g, ic), device=device).to(dtype)
+    return State(
+        F=F,
+        u=torch.zeros(g.shape, device=device, dtype=dtype),
+        v=torch.zeros(g.shape, device=device, dtype=dtype),
+        p=torch.zeros(g.shape, device=device, dtype=dtype),
+    )
