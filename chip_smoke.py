@@ -7,17 +7,28 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit; TF32 off.
-  2. build: the kernels of tpuvof_torch/csrc, compiled from this checkout.
-  3. kernel vs plain: each phase kernel against its plain PyTorch version on
-     a perturbed, developed 512^2 dam-break state, in f64 and f32.
-  4. golden: the 64^2 dam break through the kernels in f64 against
+  2. build: the kernels of tpuvof_torch/csrc, compiled from this checkout
+     (one nvcc per source, in parallel).
+  3. kernel vs plain: every kernel against its plain PyTorch version on a
+     perturbed, developed 512^2 dam-break state, in f64 and f32: the phase
+     kernels; fullstep (both parities), fullstep_win (an interior and a
+     corner tile), fullstep_strips (NaN in the margins), predict_win and
+     fct_sweep_win (x and y). Then the whole-step engines against each
+     other in f64: mono == tiled == strips.
+  4. golden: the 64^2 dam break in f64 through the phase kernels ('cuda')
+     and through the whole-step kernel ('cuda_mono'), against
      tests/golden_dambreak_64_1000.npz at 300 and 1000 steps.
-  5. main path: the 512^2 dam break, f32, 1000 steps through the kernels;
-     launch counts, finiteness, 0 <= F <= 1, mass; the 64^2 f32 drift.
-  6. timing: the 512^2 x 1000 run on the kernel path and on the plain-torch
-     path (host clock), each path's step on the device alone (a replayed
-     CUDA graph), and each kernel's time per launch beside its plain
-     version's, on the device alone and per call from Python.
+  5. paths, each run with the launch counts set to 0 just before it and
+     read just after: the main path, 512^2 f32 x 1000 steps through
+     'cuda_mono' (1000 fullstep launches and no other); 100 steps each of
+     'cuda_tiled' and 'cuda_strips'; the phase path 'cuda' (1000 / 1000 /
+     2000); the hybrid, pressure_solver='auto' (mg)
+     over 100 steps on 'cuda'; a few hybrid steps tile by tile (predict_win,
+     fct_sweep_win). Finiteness, 0 <= F <= 1, mass; the 64^2 f32 drift.
+  6. timing: the 512^2 x 1000 run on the mono, phase and plain-torch paths
+     (host clock), each path's step on the device alone (a replayed CUDA
+     graph), and each kernel's time per launch beside its plain version's
+     and its bound.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -35,6 +46,8 @@ import torch
 
 N_MAIN = 512  # the size bench.py has always timed
 STEPS_MAIN = 1000
+STEPS_HYBRID = 100
+TILE = 128  # the tiled engines' tile in phases 3 and 5
 SEED = 0
 # |kernel - plain| / max|plain| bars. f64: both sides do the same IEEE
 # operations in the same order (the kernels are built with --fmad=false),
@@ -43,6 +56,23 @@ SEED = 0
 TOL_F64 = 1e-12
 TOL_F32 = {"p": 1e-4}
 TOL_F32_DEFAULT = 1e-5
+TOL_ENGINES = 1e-13  # mono == tiled == strips, f64 absolute (tpuvof's bar)
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
+# Arithmetic operations per cell of each function, counted from its body
+# in tpuvof_torch/csrc/step_cell.cuh once per cell (the kernels' own
+# recomputation, e.g. four normals per kappa, is not work the function
+# needs): normals 46, curvature 5, two momentum updates ~70, mixes 8; rhs 8,
+# Jacobi 9 a sweep, correction 14; one FCT sweep ~40; BCs and clamp 2.
+OPS_PER_CELL = {"predict": 129, "project": 8 + 9 * 10 + 14, "fct_sweep": 40,
+                "fullstep": 129 + 8 + 9 * 10 + 14 + 2 * 40 + 2}
+# Fields each function must read once and write once.
+FIELDS_MOVED = {"predict": 5, "project": 9, "fct_sweep": 3, "fullstep": 8}
+for _name, _of in (("predict_win", "predict"), ("fct_sweep_win", "fct_sweep"),
+                   ("fullstep_win", "fullstep"), ("fullstep_strips", "fullstep")):
+    OPS_PER_CELL[_name] = OPS_PER_CELL[_of]
+    FIELDS_MOVED[_name] = FIELDS_MOVED[_of]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -78,20 +108,57 @@ def perturbed_state(tt, n: int, steps: int):
     return tt.State(F=F, u=u, v=v, p=p)
 
 
+def pad(a, w, value=0.0):
+    return torch.nn.functional.pad(a, (w, w, w, w), value=value)
+
+
+def window(K, cfg, s, W, r0, c0, extent):
+    """Blocks of ``extent`` at (r0, c0) of the W-zero-padded fields, and
+    their global origin."""
+    return [pad(a, W)[r0:r0 + extent, c0:c0 + extent].contiguous() for a in s], \
+        (r0 - W, c0 - W)
+
+
 def kernel_cases(K, cfg, s):
     """(kernel name, outputs of the kernel, outputs of its plain version,
-    output names) for every phase kernel on state ``s``."""
+    output names, the region compared) for every kernel on state ``s``."""
     F, u, v, p = s
+    n = cfg.grid.nx
     us, vs = K.predict_plain(cfg, u, v, F)
-    return [
-        ("predict", K.predict(cfg, u, v, F), (us, vs), ("u*", "v*")),
+    cases = [
+        ("predict", K.predict(cfg, u, v, F), (us, vs), ("u*", "v*"), None),
         ("project", K.project(cfg, F, us, vs, p, u, v),
-         K.project_plain(cfg, F, us, vs, p, u, v), ("p", "u", "v")),
+         K.project_plain(cfg, F, us, vs, p, u, v), ("p", "u", "v"), None),
         ("fct_sweep", (K.fct_sweep(cfg, F, u, 0),),
-         (K.fct_sweep_plain(cfg, F, u, 0),), ("F(x)",)),
+         (K.fct_sweep_plain(cfg, F, u, 0),), ("F(x)",), None),
         ("fct_sweep", (K.fct_sweep(cfg, F, v, 1),),
-         (K.fct_sweep_plain(cfg, F, v, 1),), ("F(y)",)),
+         (K.fct_sweep_plain(cfg, F, v, 1),), ("F(y)",), None),
     ]
+    for even in (False, True):
+        cases.append(("fullstep", K.fullstep(cfg, F, u, v, p, even),
+                      K.fullstep_plain(cfg, F, u, v, p, even), "Fuvp", None))
+    W = K.STEP_HALO(cfg)
+    centre = (slice(W, -W), slice(W, -W))
+    for r0, c0 in ((n // 2, n // 4), (0, n - TILE)):  # an interior and a corner tile
+        blocks, (oi, oj) = window(K, cfg, s, W, r0, c0, TILE + 2 * W + 2)
+        cases.append(("fullstep", K.fullstep_win(cfg, *blocks, oi, oj, True),
+                      K.fullstep_win_plain(cfg, *blocks, oi, oj, True), "Fuvp", centre))
+    w2 = K.strips_halo(cfg)
+    nan_padded = [pad(a, w2, float("nan")) for a in s]
+    grid = (slice(w2, w2 + n + 2), slice(w2, w2 + n + 2))
+    cases.append(("fullstep", K.fullstep_strips(cfg, *nan_padded, False),
+                  K.fullstep_strips_plain(cfg, *nan_padded, False), "Fuvp", grid))
+    W = K.PHASE_HALO
+    centre = (slice(W, -W), slice(W, -W))
+    for r0, c0 in ((n // 2, n // 4), (n - TILE, 0)):
+        (ub, vb, Fb), (oi, oj) = window(K, cfg, (u, v, F), W, r0, c0, TILE + 2 * W + 2)
+        cases.append(("predict_win", K.predict_win(cfg, ub, vb, Fb, oi, oj),
+                      K.predict_win_plain(cfg, ub, vb, Fb, oi, oj), ("u*", "v*"), centre))
+        for axis, vel in ((0, ub), (1, vb)):
+            cases.append(("fct_sweep_win", (K.fct_sweep_win(cfg, Fb, vel, axis, oi, oj),),
+                          (K.fct_sweep_win_plain(cfg, Fb, vel, axis, oi, oj),),
+                          ("F(x)",) if axis == 0 else ("F(y)",), centre))
+    return cases
 
 
 def host_ms(fn, n: int) -> float:
@@ -114,7 +181,8 @@ def host_ms(fn, n: int) -> float:
 def device_ms(fn, n: int) -> float:
     """Milliseconds per call of ``fn`` on the device alone: CUDA events
     around the replay of a CUDA graph of ``n`` calls (best of 5), so no
-    host work sits between the launches."""
+    host work sits between the launches. The whole-step kernel's
+    cooperative launch is captured like any other."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -139,11 +207,39 @@ def device_ms(fn, n: int) -> float:
     return best
 
 
+def run_path(tt, K, label, cfg, s0, steps, want_launches, mass_bar=1e-3):
+    """Drive ``steps`` of ``cfg`` from ``s0`` with the counts set to 0 just
+    before and read just after; check the counts and the physics."""
+    mass0 = tt.compute_metrics(cfg, s0).mass.item()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_end = tt.simulate(cfg, s0, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: n for k, n in K.LAUNCHES.items() if n}
+    print(f"{label} launches: {launches} ({secs:.2f} s)")
+    check(launches == want_launches, f"{label} launch counts {launches} != {want_launches}")
+    m = tt.compute_metrics(cfg, s_end)
+    drift = abs(m.mass.item() - mass0) / mass0
+    Fmin, Fmax = s_end.F.min().item(), s_end.F.max().item()
+    n = cfg.grid.nx
+    print(f"{label} {n}^2 {str(s0.F.dtype)[6:]} x{steps}: finite={bool(m.finite)} "
+          f"F in [{Fmin:.3e}, {Fmax:.3e}] mass drift {drift:.3e} "
+          f"max|u| {m.max_u.item():.3e} max|v| {m.max_v.item():.3e} "
+          f"CFL ({m.cfl_u.item():.3e}, {m.cfl_v.item():.3e})")
+    check(bool(m.finite), f"{label}: non-finite fields")
+    check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
+    check(drift <= mass_bar, f"{label}: mass drift {drift:.3e} > {mass_bar:.0e}")
+    return launches, s_end
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     import tpuvof_torch as tt
+    from tpuvof_torch import solver as S
     from tpuvof_torch.kernels import build
     from tpuvof_torch.kernels import step_kernels as K
 
@@ -172,9 +268,11 @@ def main() -> int:
     results = {}
     for dtype in (torch.float64, torch.float32):
         s = tt.State(*(a.to(dtype).contiguous() for a in s64))
-        for name, got, want, outs in kernel_cases(K, cfg64, s):
+        for name, got, want, outs, region in kernel_cases(K, cfg64, s):
             torch.cuda.synchronize()
             for out_name, g_, w_ in zip(outs, got, want):
+                if region is not None:
+                    g_, w_ = g_[region], w_[region]
                 rel, diff = rel_err(g_, w_)
                 if dtype == torch.float64:
                     tol = TOL_F64
@@ -186,61 +284,93 @@ def main() -> int:
                 r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
                 if key == "f32":
                     r["abs_f32"] = max(r["abs_f32"], diff)
-                print(f"kernel vs plain {key} {name:9s} {out_name:5s} "
+                print(f"kernel vs plain {key} {name:13s} {out_name:5s} "
                       f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
                 check(rel <= tol, f"{name} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
+    cfg_mono64 = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda_mono"))
+    for even in (False, True):
+        mono = S._step_cuda_mono(cfg_mono64, s64, even)
+        for label, other in (("tiled", S._step_cuda_tiled(cfg_mono64, s64, even, tile=TILE)),
+                             ("strips", S._step_cuda_strips(cfg_mono64, s64, even))):
+            diff = max((a - b).abs().max().item() for a, b in zip(other, mono))
+            print(f"engines f64 mono == {label} (even={even}): max abs {diff:.3e} "
+                  f"(bar {TOL_ENGINES:.0e})")
+            check(diff <= TOL_ENGINES, f"mono vs {label}: {diff:.3e}")
 
-    # ---- 4. the slice in f64 against the golden ----
+    # ---- 4. the slice in f64 against the golden, phase and mono routes ----
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "golden_dambreak_64_1000.npz"))
     n_g = int(golden["n"])
-    cfg_g = tt.dam_break_2d(n_g, num=tt.Numerics(backend="cuda"))
-    s = tt.init_state(cfg_g, 1, "cuda", torch.float64)
-    s300 = tt.simulate(cfg_g, s, int(golden["checkpoint"]))
-    s1000 = tt.simulate(cfg_g, s300, int(golden["n_steps"]) - int(golden["checkpoint"]),
-                        istep0=int(golden["checkpoint"]))
-    errs = {
-        "F300": np.abs(s300.F.cpu().numpy() - golden["F300"]).max(),
-        "u300": np.abs(s300.u.cpu().numpy() - golden["u300"]).max(),
-        "F1000": np.abs(s1000.F.cpu().numpy() - golden["F"]).max(),
-        "u1000": np.abs(s1000.u.cpu().numpy() - golden["u"]).max(),
-    }
-    for key, err in errs.items():
-        bar = 1e-8 if key.endswith("300") else 1e-5
-        print(f"golden f64 {n_g}^2 {key}: {err:.3e} (bar {bar:.0e})")
-        check(err <= bar, f"golden {key} {err:.3e} > {bar:.0e}")
+    for backend in ("cuda", "cuda_mono"):
+        cfg_g = tt.dam_break_2d(n_g, num=tt.Numerics(backend=backend))
+        s = tt.init_state(cfg_g, 1, "cuda", torch.float64)
+        s300 = tt.simulate(cfg_g, s, int(golden["checkpoint"]))
+        s1000 = tt.simulate(cfg_g, s300, int(golden["n_steps"]) - int(golden["checkpoint"]),
+                            istep0=int(golden["checkpoint"]))
+        errs = {
+            "F300": np.abs(s300.F.cpu().numpy() - golden["F300"]).max(),
+            "u300": np.abs(s300.u.cpu().numpy() - golden["u300"]).max(),
+            "F1000": np.abs(s1000.F.cpu().numpy() - golden["F"]).max(),
+            "u1000": np.abs(s1000.u.cpu().numpy() - golden["u"]).max(),
+        }
+        for key, err in errs.items():
+            bar = 1e-8 if key.endswith("300") else 1e-5
+            print(f"golden f64 {n_g}^2 {backend} {key}: {err:.3e} (bar {bar:.0e})")
+            check(err <= bar, f"golden {backend} {key} {err:.3e} > {bar:.0e}")
 
-    # ---- 5. the main path: 512^2 f32, 1000 steps through the kernels ----
+    # ---- 5. the paths ----
+    cfg_mono = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda_mono"))
     cfg = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda"))
-    s0 = tt.init_state(cfg, 1, "cuda", torch.float32)
-    mass0 = tt.compute_metrics(cfg, s0).mass.item()
-    torch.cuda.synchronize()
+    s0 = tt.init_state(cfg)
+    path_launches = {}
+    launches, _ = run_path(tt, K, "main path (cuda_mono)", cfg_mono, s0, STEPS_MAIN,
+                           {"fullstep": STEPS_MAIN})
+    path_launches.update(launches)
+    for backend, name, per_step in (("cuda_tiled", "fullstep_win", N_MAIN // S.TILE_ROWS),
+                                    ("cuda_strips", "fullstep_strips", 1)):
+        launches, _ = run_path(tt, K, f"{backend} path", cfg_mono.replace(
+            num=tt.Numerics(backend=backend)), s0, STEPS_HYBRID,
+            {name: STEPS_HYBRID * per_step})
+        path_launches.update(launches)
+    launches, _ = run_path(tt, K, "phase path (cuda)", cfg, s0, STEPS_MAIN,
+                           {"predict": STEPS_MAIN, "project": STEPS_MAIN,
+                            "fct_sweep": 2 * STEPS_MAIN})
+    path_launches.update(launches)
+    # the hybrid, in the bounded-cost relative-tolerance mode (tpuvof's
+    # production setting of the upgraded solvers)
+    cfg_hyb = tt.dam_break_2d(N_MAIN, num=tt.Numerics(
+        backend="cuda", pressure_solver="auto", sor_tol_rel=1e-2))
+    check(S.resolve_auto(cfg_hyb).num.pressure_solver == "mg", "auto did not pick mg")
+    _, s_hyb = run_path(tt, K, "hybrid path (cuda, auto -> mg)", cfg_hyb, s0, STEPS_HYBRID,
+                        {"predict": STEPS_HYBRID, "fct_sweep": 2 * STEPS_HYBRID})
+    cfg_mg = S.resolve_auto(cfg_hyb)
     K.reset_launch_counts()
-    s_end = tt.simulate(cfg, s0, STEPS_MAIN)
+    tiled = whole = s_hyb
+    for k in range(3):
+        tiled = S._step_cuda_hybrid_tiled(cfg_mg, tiled, k % 2 == 1, tile=TILE, lean=True)
+        whole = S._step_cuda(cfg_mg, whole, k % 2 == 1, lean=True)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    print(f"main path launches: {launches}")
-    want = {"predict": STEPS_MAIN, "project": STEPS_MAIN, "fct_sweep": 2 * STEPS_MAIN}
-    check(launches == want, f"launch counts {launches} != {want}")
-    m = tt.compute_metrics(cfg, s_end)
-    drift = abs(m.mass.item() - mass0) / mass0
-    Fmin, Fmax = s_end.F.min().item(), s_end.F.max().item()
-    print(f"main path {N_MAIN}^2 f32 x{STEPS_MAIN}: finite={bool(m.finite)} "
-          f"F in [{Fmin:.3e}, {Fmax:.3e}] mass drift {drift:.3e} "
-          f"max|u| {m.max_u.item():.3e} max|v| {m.max_v.item():.3e} "
-          f"CFL ({m.cfl_u.item():.3e}, {m.cfl_v.item():.3e})")
-    check(bool(m.finite), "non-finite fields")
-    check(0.0 <= Fmin and Fmax <= 1.0, f"F outside [0, 1]: [{Fmin}, {Fmax}]")
-    check(drift <= 1e-3, f"mass drift {drift:.3e} > 1e-3")
-    s = tt.simulate(cfg_g, tt.init_state(cfg_g, 1, "cuda", torch.float32),
-                    int(golden["n_steps"]))
+    launches = {k: n for k, n in K.LAUNCHES.items() if n}
+    n_tiles = (N_MAIN // TILE) ** 2
+    print(f"hybrid tiled x3 (tile {TILE}) launches: {launches}")
+    check({k: launches.get(k) for k in ("predict_win", "fct_sweep_win")}
+          == {"predict_win": 3 * n_tiles, "fct_sweep_win": 6 * n_tiles},
+          f"hybrid tiled launch counts {launches}")
+    path_launches.update({k: launches[k] for k in ("predict_win", "fct_sweep_win")})
+    diff = max(rel_err(a, b)[0] for a, b in zip(tiled, whole))
+    print(f"hybrid tiled vs whole-field hybrid f32 x3: max rel {diff:.3e} (bar 1e-5)")
+    check(diff <= 1e-5, f"hybrid tiled vs whole {diff:.3e}")
+    cfg_g = tt.dam_break_2d(n_g, num=tt.Numerics(backend="cuda_mono"))
+    s = tt.simulate(cfg_g, tt.init_state(cfg_g), int(golden["n_steps"]))
     err32 = np.abs(s.F.double().cpu().numpy() - golden["F"]).max()
-    print(f"golden f32 {n_g}^2 x{int(golden['n_steps'])} F drift {err32:.3e} (bar 5e-3)")
+    print(f"golden f32 {n_g}^2 cuda_mono x{int(golden['n_steps'])} F drift {err32:.3e} "
+          f"(bar 5e-3)")
     check(err32 <= 5e-3, f"f32 golden drift {err32:.3e} > 5e-3")
 
     # ---- 6. timing ----
-    cfg_plain = cfg.replace(num=tt.Numerics(backend="torch"))
-    runs = {"kernel": [], "plain": []}
+    paths = {"mono": cfg_mono, "kernel": cfg,
+             "plain": cfg.replace(num=tt.Numerics(backend="torch"))}
+    runs = {path: [] for path in paths}
 
     def run(c):
         torch.cuda.synchronize()
@@ -249,15 +379,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run(cfg)  # warm-up
-    run(cfg_plain)
+    for c in paths.values():  # warm-up
+        run(c)
+    order = list(paths.items())
     for r in range(3):  # alternate which path goes first
-        order = (("kernel", cfg), ("plain", cfg_plain))
         for path, c in order if r % 2 == 0 else order[::-1]:
             runs[path].append(run(c))
     cells = N_MAIN * N_MAIN * STEPS_MAIN
     s32 = tt.State(*(a.to(torch.float32).contiguous() for a in s64))
-    for path, c in (("kernel", cfg), ("plain", cfg_plain)):
+    for path, c in paths.items():
         best = min(runs[path])
         step_ms = 1e3 * best / STEPS_MAIN
         # the device's own time per step: a CUDA graph of one step pair
@@ -269,41 +399,77 @@ def main() -> int:
 
     F, u, v, p = s32
     us, vs = K.predict_plain(cfg64, u, v, F)
+    (ub, vb, Fb), (oi, oj) = window(K, cfg64, (u, v, F), K.PHASE_HALO, N_MAIN // 2,
+                                    N_MAIN // 4, TILE + 2 * K.PHASE_HALO + 2)
+    # the whole-step kernel's blocks on its tiled and strips routes
+    W = K.STEP_HALO(cfg64)
+    wb = [pad(a, W)[N_MAIN // 2:N_MAIN // 2 + S.TILE_ROWS + 2 * W + 2].contiguous()
+          for a in s32]
+    strips = [pad(a, K.strips_halo(cfg64)) for a in s32]
     timed = {
         "predict": (lambda: K.predict(cfg64, u, v, F),
-                    lambda: K.predict_plain(cfg64, u, v, F)),
+                    lambda: K.predict_plain(cfg64, u, v, F), F.shape),
         "project": (lambda: K.project(cfg64, F, us, vs, p, u, v),
-                    lambda: K.project_plain(cfg64, F, us, vs, p, u, v)),
+                    lambda: K.project_plain(cfg64, F, us, vs, p, u, v), F.shape),
         "fct_sweep_x": (lambda: K.fct_sweep(cfg64, F, u, 0),
-                        lambda: K.fct_sweep_plain(cfg64, F, u, 0)),
+                        lambda: K.fct_sweep_plain(cfg64, F, u, 0), F.shape),
         "fct_sweep_y": (lambda: K.fct_sweep(cfg64, F, v, 1),
-                        lambda: K.fct_sweep_plain(cfg64, F, v, 1)),
+                        lambda: K.fct_sweep_plain(cfg64, F, v, 1), F.shape),
+        "fullstep": (lambda: K.fullstep(cfg64, F, u, v, p, False),
+                     lambda: K.fullstep_plain(cfg64, F, u, v, p, False), F.shape),
+        "predict_win": (lambda: K.predict_win(cfg64, ub, vb, Fb, oi, oj),
+                        lambda: K.predict_win_plain(cfg64, ub, vb, Fb, oi, oj), Fb.shape),
+        "fct_sweep_win_x": (lambda: K.fct_sweep_win(cfg64, Fb, ub, 0, oi, oj),
+                            lambda: K.fct_sweep_win_plain(cfg64, Fb, ub, 0, oi, oj),
+                            Fb.shape),
+        "fct_sweep_win_y": (lambda: K.fct_sweep_win(cfg64, Fb, vb, 1, oi, oj),
+                            lambda: K.fct_sweep_win_plain(cfg64, Fb, vb, 1, oi, oj),
+                            Fb.shape),
+        "fullstep_win": (lambda: K.fullstep_win(cfg64, *wb, N_MAIN // 2 - W, -W, False),
+                         lambda: K.fullstep_win_plain(cfg64, *wb, N_MAIN // 2 - W, -W, False),
+                         wb[0].shape),
+        "fullstep_strips": (lambda: K.fullstep_strips(cfg64, *strips, False),
+                            lambda: K.fullstep_strips_plain(cfg64, *strips, False),
+                            strips[0].shape),
     }
     times = {}
-    for name, (kern, plain) in timed.items():
+    for name, (kern, plain, shape) in timed.items():
         t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 20),
                            "host_ms": host_ms(kern, 200), "plain_host_ms": host_ms(plain, 20)}
-        print(f"{tag} {name:11s} {N_MAIN}^2 f32: kernel {1e3 * t['ms']:.2f} us/launch "
+        base = name.removesuffix("_x").removesuffix("_y")
+        cells_k = shape[0] * shape[1]
+        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells_k * 4 / HBM_BYTES_PER_S
+        ops_ms = 1e3 * OPS_PER_CELL[base] * cells_k / F32_OPS_PER_S
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"{tag} {name:15s} {tuple(shape)} f32: kernel {1e3 * t['ms']:.2f} us/launch "
               f"on the device ({1e3 * t['host_ms']:.2f} us per call from Python); plain "
               f"{1e3 * t['plain_ms']:.2f} us/call on the device "
-              f"({1e3 * t['plain_host_ms']:.2f} us from Python)")
-    # the main path runs both sweeps equally often: one entry, their mean
-    times["fct_sweep"] = {k: (times["fct_sweep_x"][k] + times["fct_sweep_y"][k]) / 2
-                          for k in times["fct_sweep_x"]}
+              f"({1e3 * t['plain_host_ms']:.2f} us from Python); bound "
+              f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
+    # the paths run both sweeps equally often: one entry, their mean
+    for name in ("fct_sweep", "fct_sweep_win"):
+        x, y = times.pop(f"{name}_x"), times.pop(f"{name}_y")
+        times[name] = {k: (x[k] + y[k]) / 2 if isinstance(x[k], float) else x[k] for k in x}
 
-    sources = {"predict": ("tpuvof_torch/csrc/predict.cu",
-                           "tpuvof/pallas_kernels/step_kernels.py:444"),
-               "project": ("tpuvof_torch/csrc/project.cu",
-                           "tpuvof/pallas_kernels/step_kernels.py:237"),
-               "fct_sweep": ("tpuvof_torch/csrc/fct_sweep.cu",
-                             "tpuvof/pallas_kernels/step_kernels.py:330")}
+    site = "tpuvof/pallas_kernels/step_kernels.py"
+    sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),
+               "project": ("tpuvof_torch/csrc/project.cu", f"{site}:237"),
+               "fct_sweep": ("tpuvof_torch/csrc/fct_sweep.cu", f"{site}:330"),
+               "predict_win": ("tpuvof_torch/csrc/predict.cu", f"{site}:506"),
+               "fct_sweep_win": ("tpuvof_torch/csrc/fct_sweep.cu", f"{site}:539"),
+               "fullstep": ("tpuvof_torch/csrc/fullstep.cu",
+                            f"{site}:669, {site}:1119, {site}:1089")}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": launches[name], "max_abs_err": r["abs_f32"],
+                        "launches": path_launches[name], "max_abs_err": r["abs_f32"],
                         "max_rel_err_f32": r["rel_f32"], "max_rel_err_f64": r["rel_f64"],
-                        **times[name]})
+                        "library_ms": None, **times[name]})
+    # fullstep.cu on its tiled and strips routes (tpuvof's :1119 and :1089)
+    kernels[-1]["variants"] = {name: {"launches": path_launches[name], **times[name]}
+                               for name in ("fullstep_win", "fullstep_strips")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

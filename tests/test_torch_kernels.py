@@ -95,7 +95,7 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_nothing(ref):
         assert torch.equal(g_, w_)
     for axis, vel in ((0, u), (1, v)):
         assert torch.equal(K.fct_sweep(pc, F, vel, axis), K.fct_sweep_plain(pc, F, vel, axis))
-    assert K.LAUNCHES == {"predict": 0, "project": 0, "fct_sweep": 0}
+    assert all(n == 0 for n in K.LAUNCHES.values())
     with pytest.raises(ValueError):
         K.fct_sweep(pc, F, u, 2)
 
@@ -128,7 +128,8 @@ def test_kernels_match_plain_on_card():
              (K.fct_sweep_plain(cfg, Fd, ud, 0), K.fct_sweep_plain(cfg, Fd, vd, 1))),
         ]
         torch.cuda.synchronize()
-        assert K.LAUNCHES == {"predict": 1, "project": 1, "fct_sweep": 2}
+        assert {k: n for k, n in K.LAUNCHES.items() if n} == {
+            "predict": 1, "project": 1, "fct_sweep": 2}
         for got, want in pairs:
             for g_, w_ in zip(got, want):
                 assert g_.is_cuda and g_.dtype == dtype

@@ -149,19 +149,31 @@ def test_convert_round_trips():
     pc = config_from_tpuvof(jcfg)
     assert pc == tt.SimConfig(grid=tt.Grid2D(40, 40, 0.2, 0.2),
                               fluid=tt.Fluid(rho_l=900.0, sigma=0.01),
-                              num=tt.Numerics(dt=2e-6, n_jacobi=7, fct=tt.FCT_DIFF))
-    for tpu_name, port_name in (("xla", "torch"), ("pallas", "cuda"), ("pallas_mono", "cuda")):
+                              num=tt.Numerics(dt=2e-6, n_jacobi=7, fct=tt.FCT_DIFF,
+                                              backend="torch"))
+    for tpu_name, port_name in (("xla", "torch"), ("pallas", "cuda"),
+                                ("pallas_mono", "cuda_mono"), ("pallas_tiled", "cuda_tiled"),
+                                ("pallas_strips", "cuda_strips")):
         num = dataclasses.replace(jcfg.num, backend=tpu_name)
         assert config_from_tpuvof(jcfg.replace(num=num)).num.backend == port_name
+    # the ladder's settings are carried
+    num = dataclasses.replace(jcfg.num, pressure_solver="mg", sor_omega=1.5, sor_tol=1e-5,
+                              sor_max_iter=77, sor_tol_rel=1e-2)
+    got = config_from_tpuvof(jcfg.replace(num=num)).num
+    assert (got.pressure_solver, got.sor_omega, got.sor_tol, got.sor_max_iter,
+            got.sor_tol_rel) == ("mg", 1.5, 1e-5, 77, 1e-2)
     with pytest.raises(NotImplementedError):
         config_from_tpuvof(jcfg.replace(num=dataclasses.replace(jcfg.num,
-                                                                backend="pallas_strips")))
+                                                                backend="pallas_dma")))
+    with pytest.raises(NotImplementedError):
+        config_from_tpuvof(jcfg.replace(num=dataclasses.replace(
+            jcfg.num, pressure_adjoint="selfadjoint")))
     with pytest.raises(TypeError):
         config_from_tpuvof({"grid": None})
 
 
 @pytest.mark.parametrize("num", [tt.Numerics(backend="pallas_mono"),
-                                 tt.Numerics(pressure_solver="mg"),
+                                 tt.Numerics(backend="cuda_mono", bc_between_sweeps=True),
                                  tt.Numerics(bc_between_sweeps=True)])
 def test_unported_settings_raise(num):
     cfg = tt.dam_break_2d(16, num=num)
@@ -199,7 +211,8 @@ def test_cases(case, ic):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpuvof_torch, tpuvof_torch.convert, tpuvof_torch.kernels, "
-            "tpuvof_torch.models, tpuvof_torch.metrics; "
+            "tpuvof_torch.kernels.build, tpuvof_torch.models, tpuvof_torch.metrics, "
+            "tpuvof_torch.solver, tpuvof_torch.ops.mg, tpuvof_torch.ops.window; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuvof')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

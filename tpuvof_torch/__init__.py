@@ -3,8 +3,10 @@
 The 2-D forward step of the two-phase Navier-Stokes/VOF solver: staggered
 MAC grid, Youngs normals with Brackbill CSF surface tension, Chorin
 projection with the reference's fixed-iteration Jacobi, and Rudman/Zalesak
-flux-corrected VOF transport. ``backend='torch'`` runs plain torch ops;
-``backend='cuda'`` runs the hand-written phase kernels of ``csrc/``.
+flux-corrected VOF transport, and the pressure-solver ladder (fixed Jacobi,
+red-black SOR, multigrid). ``backend='torch'`` runs plain torch ops; the
+``'cuda*'`` backends run the hand-written kernels of ``csrc/`` (see
+``solver``).
 
 tpuvof (JAX) stays the reference: module names mirror it, so each
 counterpart is found by path. This package never imports jax.
@@ -21,7 +23,7 @@ from .config import (
 )
 from .grid import Grid2D
 from .metrics import Metrics, compute_metrics
-from .solver import simulate, step, step_pair
+from .solver import make_step_fn, simulate, simulate_cfl, step, step_pair
 from .state import State, find_area, init_state, initial_volume_fraction
 
 __all__ = [
@@ -37,6 +39,8 @@ __all__ = [
     "Metrics",
     "compute_metrics",
     "simulate",
+    "simulate_cfl",
+    "make_step_fn",
     "step",
     "step_pair",
     "State",

@@ -1,9 +1,9 @@
 """Simulation configuration (counterpart of tpuvof/config.py:28-145).
 
 Frozen dataclasses, as in tpuvof. ``Numerics`` carries the fields the
-forward 2-D step reads; tpuvof's solver-ladder and adjoint settings
-(sor_*, pressure_adjoint) have no effect on the fixed-Jacobi forward step
-and arrive with the ladder (ROADMAP Queue 1 item 5).
+forward 2-D step reads, the pressure-solver ladder's settings included.
+tpuvof's ``pressure_adjoint`` belongs to the differentiable path, which is
+not ported yet (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -71,10 +71,25 @@ class Numerics:
     # the main solver does not
     bc_between_sweeps: bool = False
     # 'torch' = plain torch ops (tpuvof's 'xla'); 'cuda' = the hand-written
-    # phase kernels of tpuvof_torch/csrc (tpuvof's 'pallas')
-    backend: str = "torch"
-    # only the reference's fixed-iteration 'jacobi' is ported so far
+    # phase kernels of tpuvof_torch/csrc (tpuvof's 'pallas'); 'cuda_mono' =
+    # the whole-step kernel on the whole grid ('pallas_mono'); 'cuda_tiled'
+    # = the whole-step kernel tile by tile ('pallas_tiled'); 'cuda_strips' =
+    # the whole-step kernel on a padded resident layout ('pallas_strips').
+    # Every 'cuda*' backend with a residual-driven solver runs the hybrid
+    # step: phase kernels around the plain solve.
+    backend: str = "cuda"
+    # 'jacobi' = the reference's fixed n_jacobi sweeps; 'rbsor' = red-black
+    # SOR to a residual tolerance; 'mg' = residual-driven multigrid
+    # V-cycles (ops/mg.py); 'auto' = mg wherever the grid coarsens, else
+    # rbsor (solver.resolve_auto). sor_tol/sor_max_iter govern both
+    # residual-driven solvers (max_iter counts V-cycles under 'mg');
+    # sor_omega is rbsor's; sor_tol_rel > 0 raises each solve's tolerance
+    # to sor_tol_rel * max|rhs'| (ops.poisson.effective_tol).
     pressure_solver: str = "jacobi"
+    sor_omega: float = 1.7
+    sor_tol: float = 1e-3
+    sor_max_iter: int = 200
+    sor_tol_rel: float = 0.0
 
 
 @dataclass(frozen=True)

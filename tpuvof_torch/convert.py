@@ -17,8 +17,9 @@ from .state import State
 
 __all__ = ["state_from_numpy", "state_to_numpy", "config_from_tpuvof"]
 
-# tpuvof backend -> port backend; the rest wait for their kernels
-_BACKENDS = {"xla": "torch", "pallas": "cuda", "pallas_mono": "cuda"}
+# tpuvof backend -> port backend
+_BACKENDS = {"xla": "torch", "pallas": "cuda", "pallas_mono": "cuda_mono",
+             "pallas_tiled": "cuda_tiled", "pallas_strips": "cuda_strips"}
 
 
 def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
@@ -37,9 +38,9 @@ def state_to_numpy(state: State) -> tuple[np.ndarray, ...]:
 def config_from_tpuvof(cfg) -> SimConfig:
     """The port's SimConfig for a tpuvof SimConfig.
 
-    tpuvof's solver-ladder and adjoint settings (sor_*, pressure_adjoint)
-    do not affect the fixed-Jacobi forward step and are not carried;
-    pressure_solver is, so the port's solver refuses what it cannot run."""
+    The solver ladder's settings are carried. The port has no
+    differentiable path yet, so a ``pressure_adjoint`` other than
+    tpuvof's default 'unrolled' raises rather than be dropped."""
     if not dataclasses.is_dataclass(cfg):
         raise TypeError(f"expected a tpuvof SimConfig, got {type(cfg).__name__}")
     d = dataclasses.asdict(cfg)
@@ -49,6 +50,10 @@ def config_from_tpuvof(cfg) -> SimConfig:
         raise NotImplementedError(
             f"tpuvof backend {backend!r} has no port yet; "
             f"mapped: {sorted(_BACKENDS)} (ROADMAP Queue 2)")
+    if num["pressure_adjoint"] != "unrolled":
+        raise NotImplementedError(
+            f"pressure_adjoint={num['pressure_adjoint']!r} belongs to the "
+            "differentiable path, which is not ported yet (ROADMAP Queue 1 item 6)")
     gd = d["grid"]
     return SimConfig(
         grid=Grid2D(gd["nx"], gd["ny"], gd["Lx"], gd["Ly"]),
@@ -60,5 +65,9 @@ def config_from_tpuvof(cfg) -> SimConfig:
             bc_between_sweeps=num["bc_between_sweeps"],
             backend=_BACKENDS[backend],
             pressure_solver=num["pressure_solver"],
+            sor_omega=num["sor_omega"],
+            sor_tol=num["sor_tol"],
+            sor_max_iter=num["sor_max_iter"],
+            sor_tol_rel=num["sor_tol_rel"],
         ),
     )

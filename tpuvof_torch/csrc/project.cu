@@ -18,43 +18,15 @@
 // buffer and writes the other, as the TPU kernel's whole-array update does;
 // a single buffer updated in place would race and be a different method. A
 // grid-wide barrier inside one cooperative launch, or temporal blocking of
-// the sweeps in shared memory, removes the launches (ROADMAP Queue 2 item 1).
+// the sweeps in shared memory, removes the launches; fullstep.cu does the former for the whole step.
 //
 // The edge coefficients are zeroed on the global walls and ap_inv is picked
 // from four edge-class constants the host computes in double and casts, as
-// _inline_poisson_coeffs does. The library is built with --fmad=false, so
-// the f64 build agrees with kernels/step_kernels.py:project_plain to
-// rounding.
-#include "common.cuh"
+// _inline_poisson_coeffs does. The per-cell bodies are step_cell.cuh's
+// rhs_at, jacobi_at and correct_at, shared with fullstep.cu.
+#include "step_cell.cuh"
 
 namespace {
-
-template <typename T>
-struct ProjectParams {
-  int nx, ny;
-  T rho_l, rho_g, dt, dxi, dyi, dxi2, dyi2;
-  T ap_inv[2][2];  // [on an x-edge][on a y-edge]
-};
-
-// The order of c[] is kernels/step_kernels.py:_project_constants.
-template <typename T>
-ProjectParams<T> make_params(int nx, int ny, const double* c) {
-  ProjectParams<T> q;
-  q.nx = nx;
-  q.ny = ny;
-  q.rho_l = T(c[0]);
-  q.rho_g = T(c[1]);
-  q.dt = T(c[2]);
-  q.dxi = T(c[3]);
-  q.dyi = T(c[4]);
-  q.dxi2 = T(c[5]);
-  q.dyi2 = T(c[6]);
-  q.ap_inv[0][0] = T(c[7]);
-  q.ap_inv[0][1] = T(c[8]);
-  q.ap_inv[1][0] = T(c[9]);
-  q.ap_inv[1][1] = T(c[10]);
-  return q;
-}
 
 // Both ping-pong buffers <- p (whole field); rhs = rho/dt * div(u*) on the
 // interior, stored as an (nx, ny) array.
@@ -62,40 +34,27 @@ template <typename T>
 __global__ void rhs_kernel(const T* __restrict__ F, const T* __restrict__ us,
                            const T* __restrict__ vs, const T* __restrict__ p,
                            T* __restrict__ pa, T* __restrict__ pb,
-                           T* __restrict__ rhs, const ProjectParams<T> q) {
+                           T* __restrict__ rhs, const tv::Block b,
+                           const tv::ProjectParams<T> q) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i > q.nx + 1 || j > q.ny + 1) return;
-  const int n1 = q.ny + 2;
-  const int o = i * n1 + j;
+  if (i >= b.E0 || j >= b.E1) return;
+  const int o = i * b.E1 + j;
   const T pv = p[o];
   pa[o] = pv;
   pb[o] = pv;
-  if (i >= 1 && i <= q.nx && j >= 1 && j <= q.ny) {
-    const T rho = tv::mix_rho(F[o], q.rho_l, q.rho_g);
-    rhs[(i - 1) * q.ny + (j - 1)] =
-        rho / q.dt * ((us[o + n1] - us[o]) * q.dxi + (vs[o + 1] - vs[o]) * q.dyi);
-  }
+  if (b.interior(i, j)) rhs[(i - 1) * b.ny + (j - 1)] = tv::rhs_at(F, us, vs, b, i, j, q);
 }
 
 // One Jacobi sweep: dst's interior from src; dst's ghost ring is untouched.
 template <typename T>
 __global__ void jacobi_kernel(const T* __restrict__ src, T* __restrict__ dst,
-                              const T* __restrict__ rhs, const ProjectParams<T> q) {
+                              const T* __restrict__ rhs, const tv::Block b,
+                              const tv::ProjectParams<T> q) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i < 1 || i > q.nx || j < 1 || j > q.ny) return;
-  const int n1 = q.ny + 2;
-  const int o = i * n1 + j;
-  const T ae = i == q.nx ? T(0) : q.dxi2;
-  const T aw = i == 1 ? T(0) : q.dxi2;
-  const T an = j == q.ny ? T(0) : q.dyi2;
-  const T a_s = j == 1 ? T(0) : q.dyi2;
-  const int x_edge = i == 1 || i == q.nx;
-  const int y_edge = j == 1 || j == q.ny;
-  dst[o] = (rhs[(i - 1) * q.ny + (j - 1)] - ae * src[o + n1] - aw * src[o - n1] -
-            an * src[o + 1] - a_s * src[o - 1]) *
-           q.ap_inv[x_edge][y_edge];
+  if (!b.inside(i, j) || !b.interior(i, j)) return;
+  dst[i * b.E1 + j] = tv::jacobi_at(src, rhs[(i - 1) * b.ny + (j - 1)], b, i, j, q);
 }
 
 // u on rows 2..nx x cols 1..ny and v on rows 1..nx x cols 2..ny from u*, v*
@@ -105,27 +64,14 @@ __global__ void correct_kernel(const T* __restrict__ F, const T* __restrict__ us
                                const T* __restrict__ vs, const T* __restrict__ p,
                                const T* __restrict__ u, const T* __restrict__ v,
                                T* __restrict__ u_out, T* __restrict__ v_out,
-                               const ProjectParams<T> q) {
+                               const tv::Block b, const tv::ProjectParams<T> q) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i > q.nx + 1 || j > q.ny + 1) return;
-  const int n1 = q.ny + 2;
-  const int o = i * n1 + j;
-  T uo = u[o];
-  T vo = v[o];
-  if (i >= 1 && i <= q.nx && j >= 1 && j <= q.ny) {
-    const T rho_c = tv::mix_rho(F[o], q.rho_l, q.rho_g);
-    if (i >= 2) {
-      const T r_u = (rho_c + tv::mix_rho(F[o - n1], q.rho_l, q.rho_g)) * T(0.5);
-      uo = us[o] - q.dt / r_u * (p[o] - p[o - n1]) * q.dxi;
-    }
-    if (j >= 2) {
-      const T r_v = (rho_c + tv::mix_rho(F[o - 1], q.rho_l, q.rho_g)) * T(0.5);
-      vo = vs[o] - q.dt / r_v * (p[o] - p[o - 1]) * q.dyi;
-    }
-  }
-  u_out[o] = uo;
-  v_out[o] = vo;
+  if (i >= b.E0 || j >= b.E1) return;
+  T uo, vo;
+  tv::correct_at(F, us, vs, p, u, v, b, i, j, q, uo, vo);
+  u_out[i * b.E1 + j] = uo;
+  v_out[i * b.E1 + j] = vo;
 }
 
 template <typename T>
@@ -133,21 +79,22 @@ int launch_project(const T* F, const T* us, const T* vs, const T* p, const T* u,
                    const T* v, T* p_out, T* p_tmp, T* rhs, T* u_out, T* v_out,
                    int nx, int ny, int n_jacobi, const double* c,
                    cudaStream_t stream) {
-  const ProjectParams<T> q = make_params<T>(nx, ny, c);
+  const tv::ProjectParams<T> q = tv::project_params<T>(c);
+  const tv::Block b{nx + 2, ny + 2, 0, 0, nx, ny};
   const dim3 grid = tv::grid2d(nx + 2, ny + 2);
   rhs_kernel<T><<<grid, tv::block2d(), 0, stream>>>(F, us, vs, p, p_out, p_tmp,
-                                                    rhs, q);
+                                                    rhs, b, q);
   // start on the buffer that makes the last sweep write p_out
   T* src = n_jacobi % 2 ? p_tmp : p_out;
   T* dst = n_jacobi % 2 ? p_out : p_tmp;
   for (int it = 0; it < n_jacobi; ++it) {
-    jacobi_kernel<T><<<grid, tv::block2d(), 0, stream>>>(src, dst, rhs, q);
+    jacobi_kernel<T><<<grid, tv::block2d(), 0, stream>>>(src, dst, rhs, b, q);
     T* t = src;
     src = dst;
     dst = t;
   }
   correct_kernel<T><<<grid, tv::block2d(), 0, stream>>>(F, us, vs, p_out, u, v,
-                                                        u_out, v_out, q);
+                                                        u_out, v_out, b, q);
   return static_cast<int>(cudaGetLastError());
 }
 

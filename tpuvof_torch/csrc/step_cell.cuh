@@ -1,0 +1,383 @@
+// Per-cell bodies of the 2-D step, shared by the phase kernels (predict.cu,
+// project.cu, fct_sweep.cu) and the whole-step kernel (fullstep.cu).
+//
+// Every function computes one cell of one stage on a Block: a row-major
+// (E0, E1) array whose (0, 0) sits at global index (oi, oj) of a grid with
+// nx x ny interior cells. The phase kernels on the whole grid are the case
+// oi = oj = 0, (E0, E1) = (nx+2, ny+2). Masks are taken at global indices,
+// and ld() zeroes every value outside the global ghost-included domain
+// (tpuvof's load sanitizer, step_kernels.py:472-482, 836-851) and past the
+// block's own edges, whose values feed only the block's junk margin.
+//
+// The arithmetic follows the Pallas bodies (step_kernels.py:_predict_body,
+// _inline_poisson_coeffs, _project_kernel, _sweep_body) term by term and in
+// their order, and the library is built with --fmad=false, so every kernel
+// that evaluates these functions rounds as the plain PyTorch versions do.
+#pragma once
+
+#include "common.cuh"
+
+namespace tv {
+
+struct Block {
+  int E0, E1;  // the block's extents
+  int oi, oj;  // global index of its (0, 0)
+  int nx, ny;  // the grid's interior extents
+
+  __device__ __forceinline__ bool inside(int i, int j) const {
+    return i >= 0 && i < E0 && j >= 0 && j < E1;
+  }
+  // global box [r0, r1) x [c0, c1)
+  __device__ __forceinline__ bool region(int i, int j, int r0, int r1, int c0,
+                                         int c1) const {
+    const int gi = i + oi, gj = j + oj;
+    return gi >= r0 && gi < r1 && gj >= c0 && gj < c1;
+  }
+  __device__ __forceinline__ bool domain(int i, int j) const {
+    return region(i, j, 0, nx + 2, 0, ny + 2);
+  }
+  __device__ __forceinline__ bool interior(int i, int j) const {
+    return region(i, j, 1, nx + 1, 1, ny + 1);
+  }
+};
+
+// a[i, j], or 0 outside the block or outside the global domain.
+template <typename T>
+__device__ __forceinline__ T ld(const T* __restrict__ a, const Block& b, int i,
+                                int j) {
+  return b.inside(i, j) && b.domain(i, j) ? a[i * b.E1 + j] : T(0);
+}
+
+// Reads at +-1 around a cell of the global interior: they all lie in the
+// global domain, so where the cell is off the block's edge they are plain
+// loads, and ld() only serves the block's edge.
+template <typename T>
+struct Near {
+  const T* __restrict__ a;
+  const Block& b;
+  int i, j;
+  bool inner;
+  __device__ __forceinline__ Near(const T* __restrict__ a_, const Block& b_, int i_, int j_)
+      : a(a_), b(b_), i(i_), j(j_),
+        inner(i_ >= 1 && i_ < b_.E0 - 1 && j_ >= 1 && j_ < b_.E1 - 1) {}
+  __device__ __forceinline__ T operator()(int di, int dj) const {
+    return inner ? a[(i + di) * b.E1 + (j + dj)] : ld(a, b, i + di, j + dj);
+  }
+};
+
+// ---- predict: materials, Youngs normals, curvature, momentum ----
+
+template <typename T>
+struct PredictParams {
+  T rho_l, rho_g, nu_l, nu_g;
+  T neg_inv2dx, neg_inv2dy, inv2dx, inv2dy;
+  T dt, dxi, dyi, dxi2, dyi2;
+  T neg_sigma, dx, dy, gx, gy;
+};
+
+// The order of c[] is kernels/step_kernels.py:_predict_constants.
+template <typename T>
+PredictParams<T> predict_params(const double* c) {
+  PredictParams<T> q;
+  q.rho_l = T(c[0]);
+  q.rho_g = T(c[1]);
+  q.nu_l = T(c[2]);
+  q.nu_g = T(c[3]);
+  q.neg_inv2dx = T(c[4]);
+  q.neg_inv2dy = T(c[5]);
+  q.inv2dx = T(c[6]);
+  q.inv2dy = T(c[7]);
+  q.dt = T(c[8]);
+  q.dxi = T(c[9]);
+  q.dyi = T(c[10]);
+  q.dxi2 = T(c[11]);
+  q.dyi2 = T(c[12]);
+  q.neg_sigma = T(c[13]);
+  q.dx = T(c[14]);
+  q.dy = T(c[15]);
+  q.gx = T(c[16]);
+  q.gy = T(c[17]);
+  return q;
+}
+
+// Youngs normal of cell (i, j): the mean of the four corner gradients,
+// normalized unless both components are below 1e-10; zero off the global
+// interior.
+template <typename T>
+__device__ __forceinline__ void normal_at(const T* __restrict__ F, const Block& b,
+                                          int i, int j, const PredictParams<T>& q,
+                                          T& mx, T& my) {
+  if (!b.interior(i, j)) {
+    mx = T(0);
+    my = T(0);
+    return;
+  }
+  const Near<T> f(F, b, i, j);
+  const T mx1 = q.neg_inv2dx * (f(1, 1) + f(1, 0) - f(0, 1) - f(0, 0));
+  const T my1 = q.neg_inv2dy * (f(1, 1) - f(1, 0) + f(0, 1) - f(0, 0));
+  const T mx2 = q.neg_inv2dx * (f(1, 0) + f(1, -1) - f(0, 0) - f(0, -1));
+  const T my2 = q.neg_inv2dy * (f(1, 0) - f(1, -1) + f(0, 0) - f(0, -1));
+  const T mx3 = q.neg_inv2dx * (f(0, 0) + f(0, -1) - f(-1, 0) - f(-1, -1));
+  const T my3 = q.neg_inv2dy * (f(0, 0) - f(0, -1) + f(-1, 0) - f(-1, -1));
+  const T mx4 = q.neg_inv2dx * (f(0, 1) + f(0, 0) - f(-1, 1) - f(-1, 0));
+  const T my4 = q.neg_inv2dy * (f(0, 1) - f(0, 0) + f(-1, 1) - f(-1, 0));
+  const T mxsum = (mx1 + mx2 + mx3 + mx4) * T(0.25);
+  const T mysum = (my1 + my2 + my3 + my4) * T(0.25);
+  const bool degenerate = fabs(mxsum) < T(1e-10) && fabs(mysum) < T(1e-10);
+  const T mag_sq = mxsum * mxsum + mysum * mysum;
+  const T safe_mag = sqrt(degenerate ? T(1) : mag_sq);
+  mx = degenerate ? mxsum : mxsum / safe_mag;
+  my = degenerate ? mysum : mysum / safe_mag;
+}
+
+// kappa = -div(normal) on the global interior, 0 elsewhere.
+template <typename T>
+__device__ __forceinline__ T curvature_at(const T* __restrict__ F, const Block& b,
+                                          int i, int j, const PredictParams<T>& q) {
+  if (!b.interior(i, j)) return T(0);
+  T mx_e, my_e, mx_w, my_w, mx_n, my_n, mx_s, my_s;
+  normal_at(F, b, i + 1, j, q, mx_e, my_e);
+  normal_at(F, b, i - 1, j, q, mx_w, my_w);
+  normal_at(F, b, i, j + 1, q, mx_n, my_n);
+  normal_at(F, b, i, j - 1, q, mx_s, my_s);
+  return -(q.inv2dx * (mx_e - mx_w) + q.inv2dy * (my_n - my_s));
+}
+
+// u* on global rows [2, nx+1) x cols [1, ny+1), v* on [1, nx+1) x
+// [2, ny+1), 0 elsewhere; kappa is curvature_at's field.
+template <typename T>
+__device__ __forceinline__ void momentum_at(const T* __restrict__ u,
+                                            const T* __restrict__ v,
+                                            const T* __restrict__ F,
+                                            const T* __restrict__ kappa,
+                                            const Block& b, int i, int j,
+                                            const PredictParams<T>& q, T& us,
+                                            T& vs) {
+  us = T(0);
+  vs = T(0);
+  if (!b.interior(i, j)) return;
+  const Near<T> U(u, b, i, j), V(v, b, i, j), Fv(F, b, i, j), K(kappa, b, i, j);
+  const T rho_c = mix_rho(Fv(0, 0), q.rho_l, q.rho_g);
+  const T nu_c = mix_nu(Fv(0, 0), q.nu_l, q.nu_g);
+  if (i + b.oi >= 2) {
+    const T uc = U(0, 0);
+    const T v_here = T(0.25) * (V(-1, 0) + V(-1, 1) + V(0, 0) + V(0, 1));
+    const T dudx = uc > T(0) ? (uc - U(-1, 0)) * q.dxi : (U(1, 0) - uc) * q.dxi;
+    const T dudy = v_here > T(0) ? (uc - U(0, -1)) * q.dyi : (U(0, 1) - uc) * q.dyi;
+    const T kap_u = (K(0, 0) + K(-1, 0)) * T(0.5);
+    const T fx_kappa = q.neg_sigma * (Fv(0, 0) - Fv(-1, 0)) * kap_u / q.dx;
+    const T rho_w = mix_rho(Fv(-1, 0), q.rho_l, q.rho_g);
+    us = uc + q.dt * (nu_c * (U(-1, 0) - T(2) * uc + U(1, 0)) * q.dxi2 +
+                      nu_c * (U(0, -1) - T(2) * uc + U(0, 1)) * q.dyi2 -
+                      uc * dudx - v_here * dudy + q.gx +
+                      fx_kappa * T(2) / (rho_c + rho_w));
+  }
+  if (j + b.oj >= 2) {
+    const T vc = V(0, 0);
+    const T u_here = T(0.25) * (U(0, -1) + U(0, 0) + U(1, -1) + U(1, 0));
+    const T dvdx = u_here > T(0) ? (vc - V(-1, 0)) * q.dxi : (V(1, 0) - vc) * q.dxi;
+    const T dvdy = vc > T(0) ? (vc - V(0, -1)) * q.dyi : (V(0, 1) - vc) * q.dyi;
+    const T kap_v = (K(0, 0) + K(0, -1)) * T(0.5);
+    const T fy_kappa = q.neg_sigma * (Fv(0, 0) - Fv(0, -1)) * kap_v / q.dy;
+    const T rho_s = mix_rho(Fv(0, -1), q.rho_l, q.rho_g);
+    vs = vc + q.dt * (nu_c * (V(-1, 0) - T(2) * vc + V(1, 0)) * q.dxi2 +
+                      nu_c * (V(0, -1) - T(2) * vc + V(0, 1)) * q.dyi2 -
+                      u_here * dvdx - vc * dvdy + q.gy +
+                      fy_kappa * T(2) / (rho_c + rho_s));
+  }
+}
+
+// ---- projection: rhs, Jacobi, correction ----
+
+template <typename T>
+struct ProjectParams {
+  T rho_l, rho_g, dt, dxi, dyi, dxi2, dyi2;
+  T ap_inv[2][2];  // [on an x-edge][on a y-edge]
+};
+
+// The order of c[] is kernels/step_kernels.py:_project_constants.
+template <typename T>
+ProjectParams<T> project_params(const double* c) {
+  ProjectParams<T> q;
+  q.rho_l = T(c[0]);
+  q.rho_g = T(c[1]);
+  q.dt = T(c[2]);
+  q.dxi = T(c[3]);
+  q.dyi = T(c[4]);
+  q.dxi2 = T(c[5]);
+  q.dyi2 = T(c[6]);
+  q.ap_inv[0][0] = T(c[7]);
+  q.ap_inv[0][1] = T(c[8]);
+  q.ap_inv[1][0] = T(c[9]);
+  q.ap_inv[1][1] = T(c[10]);
+  return q;
+}
+
+// rhs = rho/dt * div(u*) at a cell of the global interior.
+template <typename T>
+__device__ __forceinline__ T rhs_at(const T* __restrict__ F, const T* __restrict__ us,
+                                    const T* __restrict__ vs, const Block& b, int i,
+                                    int j, const ProjectParams<T>& q) {
+  const T rho = mix_rho(ld(F, b, i, j), q.rho_l, q.rho_g);
+  return rho / q.dt *
+         ((ld(us, b, i + 1, j) - ld(us, b, i, j)) * q.dxi +
+          (ld(vs, b, i, j + 1) - ld(vs, b, i, j)) * q.dyi);
+}
+
+// One Jacobi update of a cell of the global interior; the edge
+// coefficients are zero on the global walls and ap_inv is picked from the
+// four edge-class constants (_inline_poisson_coeffs).
+template <typename T>
+__device__ __forceinline__ T jacobi_at(const T* __restrict__ src, T rhs,
+                                       const Block& b, int i, int j,
+                                       const ProjectParams<T>& q) {
+  const int gi = i + b.oi, gj = j + b.oj;
+  const T ae = gi == b.nx ? T(0) : q.dxi2;
+  const T aw = gi == 1 ? T(0) : q.dxi2;
+  const T an = gj == b.ny ? T(0) : q.dyi2;
+  const T a_s = gj == 1 ? T(0) : q.dyi2;
+  const int x_edge = gi == 1 || gi == b.nx;
+  const int y_edge = gj == 1 || gj == b.ny;
+  return (rhs - ae * ld(src, b, i + 1, j) - aw * ld(src, b, i - 1, j) -
+          an * ld(src, b, i, j + 1) - a_s * ld(src, b, i, j - 1)) *
+         q.ap_inv[x_edge][y_edge];
+}
+
+// u on global rows [2, nx+1) x cols [1, ny+1) and v on [1, nx+1) x
+// [2, ny+1) from u*, v* and grad p; elsewhere the (sanitized) entry u, v.
+template <typename T>
+__device__ __forceinline__ void correct_at(const T* __restrict__ F,
+                                           const T* __restrict__ us,
+                                           const T* __restrict__ vs,
+                                           const T* __restrict__ p,
+                                           const T* __restrict__ u,
+                                           const T* __restrict__ v, const Block& b,
+                                           int i, int j, const ProjectParams<T>& q,
+                                           T& uo, T& vo) {
+  uo = ld(u, b, i, j);
+  vo = ld(v, b, i, j);
+  if (!b.interior(i, j)) return;
+  const T rho_c = mix_rho(ld(F, b, i, j), q.rho_l, q.rho_g);
+  const T pc = ld(p, b, i, j);
+  if (i + b.oi >= 2) {
+    const T r_u = (rho_c + mix_rho(ld(F, b, i - 1, j), q.rho_l, q.rho_g)) * T(0.5);
+    uo = ld(us, b, i, j) - q.dt / r_u * (pc - ld(p, b, i - 1, j)) * q.dxi;
+  }
+  if (j + b.oj >= 2) {
+    const T r_v = (rho_c + mix_rho(ld(F, b, i, j - 1), q.rho_l, q.rho_g)) * T(0.5);
+    vo = ld(vs, b, i, j) - q.dt / r_v * (pc - ld(p, b, i, j - 1)) * q.dyi;
+  }
+}
+
+// ---- one Rudman/Zalesak FCT sweep ----
+
+template <typename T>
+struct SweepParams {
+  int n_ax, n_ot;  // global interior extents along and across the sweep
+  T dt, dx, dy, dxdy, dtdy, guard_eps, denom_eps;
+  int full_dv, clamp;
+};
+
+// The order of c[] is kernels/step_kernels.py:_sweep_constants. For the
+// y-sweep (dx, dy) are the grid's (dy, dx), as in pallas_fct_sweep_y.
+template <typename T>
+SweepParams<T> sweep_params(int n_ax, int n_ot, const double* c, int full_dv,
+                            int clamp) {
+  SweepParams<T> q;
+  q.n_ax = n_ax;
+  q.n_ot = n_ot;
+  q.dt = T(c[0]);
+  q.dx = T(c[1]);
+  q.dy = T(c[2]);
+  q.dxdy = T(c[3]);
+  q.dtdy = T(c[4]);
+  q.guard_eps = T(c[5]);
+  q.denom_eps = T(c[6]);
+  q.full_dv = full_dv;
+  q.clamp = clamp;
+  return q;
+}
+
+// F at cell (i, j) after one sweep along i (AXIS 0) or j (AXIS 1); off the
+// global interior the (sanitized) entry F. The output depends on F and the
+// velocity within +-3 along the axis: the thread loads that 7-cell line
+// and recomputes the face quantities it needs (fluxes on 6 faces, Ftd on
+// 5 cells, rp/rm on 3, c on 2). Ftd, rp, rm, a and c are zero off their
+// global ranges, as in _sweep_body.
+template <typename T, int AXIS>
+__device__ __forceinline__ T sweep_at(const T* __restrict__ F,
+                                      const T* __restrict__ vel, const Block& b,
+                                      int i, int j, const SweepParams<T>& q) {
+  const int k = AXIS == 0 ? i + b.oi : j + b.oj;  // global index along
+  const int m = AXIS == 0 ? j + b.oj : i + b.oi;  // and across the sweep
+  if (k < 1 || k > q.n_ax || m < 1 || m > q.n_ot) return ld(F, b, i, j);
+
+  // position r of the line holds global index k - 3 + r along the sweep
+  T Fw[7], uw[7];
+#pragma unroll
+  for (int r = 0; r < 7; ++r) {
+    const int ii = AXIS == 0 ? i + r - 3 : i;
+    const int jj = AXIS == 0 ? j : j + r - 3;
+    Fw[r] = ld(F, b, ii, jj);
+    uw[r] = ld(vel, b, ii, jj);
+  }
+
+  // low- and high-order fluxes on faces k-2 .. k+3 (r = 1..6); face r is
+  // the lower face of cell r, with donor cells r-1 below and r above
+  T fL[7], fH[7];
+#pragma unroll
+  for (int r = 1; r < 7; ++r) {
+    const T udt = uw[r] * q.dt;
+    fL[r] = udt * (uw[r] >= T(0) ? Fw[r - 1] : Fw[r]);
+    fH[r] = udt * (uw[r] <= T(0) ? Fw[r - 1] : Fw[r]);
+  }
+
+  // anti-diffusive flux on faces k-1 .. k+2 (r = 2..5), zero below face 1
+  T a[7];
+#pragma unroll
+  for (int r = 2; r < 6; ++r) a[r] = k - 3 + r >= 1 ? fH[r] - fL[r] : T(0);
+
+  // pass 1: Ftd on cells k-2 .. k+2 (r = 1..5), zero off the interior
+  T Ftd[7], dv[7];
+#pragma unroll
+  for (int r = 1; r < 6; ++r) {
+    const int kk = k - 3 + r;
+    dv[r] = q.dxdy - q.dtdy * (uw[r + 1] - uw[r]);
+    const T netflux = (fL[r] - fL[r + 1]) * q.dy / q.dxdy;
+    T ftd = q.full_dv ? (Fw[r] + netflux) * q.dx * q.dy / dv[r]
+                      : Fw[r] + netflux * q.dx * q.dy / dv[r];
+    if (q.clamp) ftd = clamp01(ftd);
+    Ftd[r] = kk >= 1 && kk <= q.n_ax ? ftd : T(0);
+  }
+
+  // pass 2: limiter ratios on cells k-1 .. k+1 (r = 2..4), zero off the
+  // interior and where the limiter does not fire
+  T rp[7], rm[7];
+#pragma unroll
+  for (int r = 2; r < 5; ++r) {
+    const int kk = k - 3 + r;
+    const bool cell = kk >= 1 && kk <= q.n_ax;
+    const T fmax = tmax(Ftd[r], tmax(Ftd[r - 1], Ftd[r + 1]));
+    const T fmin = tmin(Ftd[r], tmin(Ftd[r - 1], Ftd[r + 1]));
+    const T a_lo = a[r];      // flux through the cell's lower face
+    const T a_hi = a[r + 1];  // flux through its upper face
+    const T pp = tmax(T(0), a_lo) - tmin(T(0), a_hi);
+    const T qp = (fmax - Ftd[r]) * q.dx;
+    rp[r] = cell && pp > q.guard_eps ? tmin(T(1), qp / (pp + q.denom_eps)) : T(0);
+    const T pm = tmax(T(0), a_hi) - tmin(T(0), a_lo);
+    const T qm = (Ftd[r] - fmin) * q.dx;
+    rm[r] = cell && pm > q.guard_eps ? tmin(T(1), qm / (pm + q.denom_eps)) : T(0);
+  }
+
+  // pass 3: corrected flux factor on faces k and k+1 (r = 3, 4), both >= 1
+  const T c3 = a[3] >= T(0) ? tmin(rp[3], rm[2]) : tmin(rp[2], rm[3]);
+  const T c4 = a[4] >= T(0) ? tmin(rp[4], rm[3]) : tmin(rp[3], rm[4]);
+
+  // pass 4: the limited anti-diffusion
+  const T corr = (a[4] * c4 - a[3] * c3) / q.dy;
+  T f_new = Ftd[3] - corr * q.dx * q.dy / dv[3];
+  if (q.clamp) f_new = clamp01(f_new);
+  return f_new;
+}
+
+}  // namespace tv

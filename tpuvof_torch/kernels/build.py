@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of tpuvof_torch/csrc.
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes. The build happens at the first CUDA use,
+The sources are compiled with nvcc, one process per source, all at once,
+and linked into one shared library with a plain C interface, loaded with
+ctypes. The build happens at the first CUDA use,
 never at import: a machine without nvcc imports the package and runs the
 plain versions. The library's name carries a hash of the sources and the
 flags, so an edited source is rebuilt and never served stale.
@@ -21,20 +22,23 @@ __all__ = ["load_library", "build_seconds", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu")
+_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu", "fullstep.cu")
 # --fmad=false: no a*b+c is contracted, so the kernels round as their plain
 # PyTorch versions do (the f64 bars are 1e-12 and the dam-break flow
 # amplifies rounding differences step by step).
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_BLOCK = [_I] * 6  # E0, E1, oi, oj, nx, ny
 _SIGNATURES = {
-    "tv_predict": [_P, _P, _P, _P, _P, _P, _I, _I, _D, _P],
-    "tv_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P],
-    "tv_fct_sweep": [_P, _P, _P, _I, _I, _I, _D, _I, _I, _P],
+    "tv_predict": [_P] * 6 + _BLOCK + [_D, _P],
+    "tv_project": [_P] * 11 + [_I, _I, _I, _D, _P],
+    "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
+    "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -63,17 +67,43 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (command, process); raise on the first failure."""
+    log = ""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log += out + err
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out + err)
+    if failed:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{text}")
+    return log
+
+
 def _compile(target: Path) -> str:
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [target.with_name(f"{tag}.{Path(s).stem}.o") for s in _SOURCES]
+    tmp = target.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
+    try:
+        compiles = []
+        for src, obj in zip(_SOURCES, objs):
+            cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+            compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.PIPE, text=True)))
+        log = _run(compiles)
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-    return res.stdout + res.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
 
 
 def load_library() -> ctypes.CDLL:

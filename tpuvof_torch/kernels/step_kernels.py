@@ -1,15 +1,26 @@
-"""The three phase kernels of the 2-D step: wrappers and plain versions.
+"""The hand-written kernels of the 2-D step: wrappers and plain versions.
 
-Counterpart of tpuvof/pallas_kernels/step_kernels.py's phase kernels
-(the ``backend='pallas'`` route):
+Counterpart of tpuvof/pallas_kernels/step_kernels.py's ``pallas_call``
+sites (file:line of each site):
 
-  ============  ===============================  ==============================
-  wrapper       CUDA source                      replaces
-  ============  ===============================  ==============================
-  predict       csrc/predict.cu                  pallas_predict
-  project       csrc/project.cu                  project_pressure_and_correct
-  fct_sweep     csrc/fct_sweep.cu                pallas_fct_sweep_x / _y
-  ============  ===============================  ==============================
+  ================  ===================  ==============================================
+  wrapper           CUDA source          replaces
+  ================  ===================  ==============================================
+  predict           csrc/predict.cu      pallas_predict (:444)
+  project           csrc/project.cu      project_pressure_and_correct (:237)
+  fct_sweep         csrc/fct_sweep.cu    pallas_fct_sweep_x / _y (_pallas_sweep, :330)
+  predict_win       csrc/predict.cu      pallas_predict_win (:506)
+  fct_sweep_win     csrc/fct_sweep.cu    pallas_fct_sweep_win (:539)
+  fullstep          csrc/fullstep.cu     pallas_fullstep (:669)
+  fullstep_win      csrc/fullstep.cu     pallas_fullstep_win (:1119)
+  fullstep_strips   csrc/fullstep.cu     pallas_fullstep_strips (:1089)
+  ================  ===================  ==============================================
+
+The ``_win`` wrappers and ``fullstep_strips`` take blocks with a global
+origin (oi, oj): the index of the block's (0, 0) in the ghost-included
+grid. Their outputs are exact on the cells at least the phase's halo
+(PHASE_HALO, STEP_HALO) away from the block's edges; closer, they are
+junk by contract, and callers keep the centre.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
@@ -17,9 +28,9 @@ and scratch with ``torch.empty``, launches its kernel on the current
 stream without synchronising, adds one to its entry of ``LAUNCHES``, and
 raises if the launch is refused; it never falls back to the plain version.
 
-The plain versions are built from the ops of tpuvof_torch.ops. The CPU
-tests hold them against tpuvof's Pallas kernels; on the card they serve
-only as the comparison for the kernels.
+The plain versions are built from tpuvof_torch.ops (the windowed ones
+from ops/window.py). The CPU tests hold them against tpuvof's Pallas
+kernels; on the card they serve only as the comparison for the kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch
 
 from ..config import FCTVariant, SimConfig
 from ..ops import fct as _fct
+from ..ops import window as _win
 from ..ops.materials import mix_properties
 from ..ops.momentum import predict_velocity, update_velocity
 from ..ops.normals import young_normals_curvature
@@ -39,17 +51,49 @@ from .build import load_library
 
 __all__ = [
     "LAUNCHES",
+    "PHASE_HALO",
+    "STEP_HALO",
+    "strips_halo",
     "reset_launch_counts",
     "predict",
     "project",
     "fct_sweep",
+    "predict_win",
+    "fct_sweep_win",
+    "fullstep",
+    "fullstep_win",
+    "fullstep_strips",
     "predict_plain",
     "project_plain",
     "fct_sweep_plain",
+    "predict_win_plain",
+    "fct_sweep_win_plain",
+    "fullstep_plain",
+    "fullstep_win_plain",
+    "fullstep_strips_plain",
 ]
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
-LAUNCHES = {"predict": 0, "project": 0, "fct_sweep": 0}
+LAUNCHES = {name: 0 for name in ("predict", "project", "fct_sweep", "predict_win",
+                                 "fct_sweep_win", "fullstep", "fullstep_win",
+                                 "fullstep_strips")}
+
+#: Dependency radius of one phase kernel (predict, or one FCT sweep): a
+#: block widened by it beyond its ghost ring yields exact phase outputs on
+#: the ring and inside.
+PHASE_HALO = 3
+
+
+def STEP_HALO(cfg: SimConfig) -> int:  # noqa: N802 (tpuvof's step_halo_width)
+    """Dependency radius of one lean step: predict 3, rhs 1, n_jacobi
+    Jacobi sweeps, correction 1, two sweeps 3 + 3, BCs 1."""
+    return cfg.num.n_jacobi + 12
+
+
+def strips_halo(cfg: SimConfig) -> int:
+    """The strips engine's margin: STEP_HALO rounded up to a multiple of 8,
+    as tpuvof's resident layout has it (W2)."""
+    return -(-STEP_HALO(cfg) // 8) * 8
 
 
 def reset_launch_counts() -> None:
@@ -84,6 +128,40 @@ def fct_sweep_plain(cfg: SimConfig, F, vel, axis: int):
     """One FCT sweep along x (axis 0, vel = u) or y (axis 1, vel = v)."""
     sweep = _fct.fct_sweep_x if axis == 0 else _fct.fct_sweep_y
     return sweep(cfg.grid, cfg.num, F, vel)
+
+
+def predict_win_plain(cfg: SimConfig, u, v, F, oi: int, oj: int):
+    """(u*, v*) on a block with origin (oi, oj) (tpuvof's
+    _predict_win_kernel: the load sanitizer, then _predict_body)."""
+    u, v, F = _win.sanitize(cfg, oi, oj, u, v, F)
+    us, vs, _ = _win.predict_values(cfg, u, v, F, oi, oj)
+    return us, vs
+
+
+def fct_sweep_win_plain(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
+    """One FCT sweep on a block with origin (oi, oj) (tpuvof's
+    _sweep_win_kernel)."""
+    F, vel = _win.sanitize(cfg, oi, oj, F, vel)
+    return _win.sweep_values(cfg, F, vel, axis, oi, oj)
+
+
+def fullstep_win_plain(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):
+    """(F, u, v, p) after one lean step on a block with origin (oi, oj)
+    (tpuvof's _win_step_values)."""
+    return _win.step_values(cfg, F, u, v, p, oi, oj, even_step)
+
+
+def fullstep_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """(F, u, v, p) after one lean step on the whole grid (tpuvof's
+    _fullstep_kernel): fullstep_win_plain at the origin."""
+    return _win.step_values(cfg, F, u, v, p, 0, 0, even_step)
+
+
+def fullstep_strips_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """One lean step on the strips engine's padded layout: the grid at
+    offset (W2, W2) of (nx+2+2*W2, ny+2+2*W2) arrays, W2 = strips_halo."""
+    w2 = strips_halo(cfg)
+    return _win.step_values(cfg, F, u, v, p, -w2, -w2, even_step)
 
 
 # ----------------------------------------------------------------------
@@ -126,8 +204,9 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _checked(cfg: SimConfig, name: str, *tensors):
-    """Validate CUDA operands; returns (library, entry point, stream)."""
+def _checked(name: str, shape, *tensors):
+    """Validate CUDA operands of one shape; returns (library, entry point,
+    stream)."""
     ref = tensors[0]
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {ref.device} are neither CPU nor CUDA")
@@ -136,12 +215,12 @@ def _checked(cfg: SimConfig, name: str, *tensors):
     if ref.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors on {ref.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    shape = cfg.grid.shape
+    shape = tuple(shape)
     for t in tensors:
         if t.device != ref.device or t.dtype != ref.dtype:
             raise ValueError(f"{name}: operands must share one device and dtype")
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: operand shape {tuple(t.shape)} != grid shape {shape}")
+            raise ValueError(f"{name}: operand shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     lib = load_library()
@@ -151,27 +230,46 @@ def _checked(cfg: SimConfig, name: str, *tensors):
     return lib, fn, stream
 
 
+def _block_shape(name: str, t: torch.Tensor):
+    if t.dim() != 2 or min(t.shape) < 1:
+        raise ValueError(f"{name}: a block is a non-empty 2-D tensor, not {tuple(t.shape)}")
+    return tuple(t.shape)
+
+
 def _raise_on_error(lib, name: str, status: int) -> None:
     if status != 0:
         msg = lib.tv_error_string(status).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status} ({msg})")
 
 
-def predict(cfg: SimConfig, u, v, F):
-    """(u*, v*) of the step; counterpart of tpuvof's pallas_predict."""
-    if _on_cpu(F):
-        return predict_plain(cfg, u, v, F)
-    lib, fn, stream = _checked(cfg, "predict", u, v, F)
+def _launch_predict(name, cfg, u, v, F, shape, oi, oj):
+    lib, fn, stream = _checked("predict", shape, u, v, F)
     kappa = torch.empty_like(F)
     us = torch.empty_like(F)
     vs = torch.empty_like(F)
     g = cfg.grid
     status = fn(u.data_ptr(), v.data_ptr(), F.data_ptr(), kappa.data_ptr(),
-                us.data_ptr(), vs.data_ptr(), g.nx, g.ny,
+                us.data_ptr(), vs.data_ptr(), *shape, oi, oj, g.nx, g.ny,
                 _predict_constants(cfg), stream)
-    _raise_on_error(lib, "predict", status)
-    LAUNCHES["predict"] += 1
+    _raise_on_error(lib, name, status)
+    LAUNCHES[name] += 1
     return us, vs
+
+
+def predict(cfg: SimConfig, u, v, F):
+    """(u*, v*) of the step; counterpart of tpuvof's pallas_predict."""
+    if _on_cpu(F):
+        return predict_plain(cfg, u, v, F)
+    return _launch_predict("predict", cfg, u, v, F, cfg.grid.shape, 0, 0)
+
+
+def predict_win(cfg: SimConfig, u, v, F, oi: int, oj: int):
+    """(u*, v*) on a block with origin (oi, oj), exact at PHASE_HALO from
+    its edges; counterpart of tpuvof's pallas_predict_win."""
+    if _on_cpu(F):
+        return predict_win_plain(cfg, u, v, F, oi, oj)
+    shape = _block_shape("predict_win", F)
+    return _launch_predict("predict_win", cfg, u, v, F, shape, int(oi), int(oj))
 
 
 def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
@@ -179,8 +277,8 @@ def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
     project_pressure_and_correct."""
     if _on_cpu(F):
         return project_plain(cfg, F, u_star, v_star, p, u, v)
-    lib, fn, stream = _checked(cfg, "project", F, u_star, v_star, p, u, v)
     g = cfg.grid
+    lib, fn, stream = _checked("project", g.shape, F, u_star, v_star, p, u, v)
     p_out = torch.empty_like(p)
     p_tmp = torch.empty_like(p)
     rhs = torch.empty((g.nx, g.ny), dtype=p.dtype, device=p.device)
@@ -195,6 +293,25 @@ def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
     return p_out, u_out, v_out
 
 
+def _sweep_args(cfg: SimConfig, axis: int):
+    g, nm = cfg.grid, cfg.num
+    # the y-sweep passes (dy, dx), as pallas_fct_sweep_y does
+    dx, dy = (g.dx, g.dy) if axis == 0 else (g.dy, g.dx)
+    return _sweep_constants(dx, dy, nm.dt, nm.fct)
+
+
+def _launch_sweep(name, cfg, F, vel, axis, shape, oi, oj):
+    lib, fn, stream = _checked("fct_sweep", shape, F, vel)
+    g, fct = cfg.grid, cfg.num.fct
+    out = torch.empty_like(F)
+    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(), *shape, oi, oj,
+                g.nx, g.ny, axis, _sweep_args(cfg, axis), int(fct.full_dv),
+                int(fct.clamp), stream)
+    _raise_on_error(lib, name, status)
+    LAUNCHES[name] += 1
+    return out
+
+
 def fct_sweep(cfg: SimConfig, F, vel, axis: int):
     """F after one FCT sweep along x (axis 0, vel = u) or y (axis 1,
     vel = v); counterpart of tpuvof's pallas_fct_sweep_x / _y."""
@@ -202,14 +319,62 @@ def fct_sweep(cfg: SimConfig, F, vel, axis: int):
         raise ValueError(f"axis must be 0 or 1, not {axis}")
     if _on_cpu(F):
         return fct_sweep_plain(cfg, F, vel, axis)
-    lib, fn, stream = _checked(cfg, "fct_sweep", F, vel)
+    return _launch_sweep("fct_sweep", cfg, F, vel, axis, cfg.grid.shape, 0, 0)
+
+
+def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
+    """One FCT sweep on a block with origin (oi, oj), exact at PHASE_HALO
+    from its edges; counterpart of tpuvof's pallas_fct_sweep_win."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, not {axis}")
+    if _on_cpu(F):
+        return fct_sweep_win_plain(cfg, F, vel, axis, oi, oj)
+    shape = _block_shape("fct_sweep_win", F)
+    return _launch_sweep("fct_sweep_win", cfg, F, vel, axis, shape, int(oi), int(oj))
+
+
+def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step):
+    lib, fn, stream = _checked("fullstep", shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
-    # the y-sweep passes (dy, dx), as pallas_fct_sweep_y does
-    dx, dy = (g.dx, g.dy) if axis == 0 else (g.dy, g.dx)
-    out = torch.empty_like(F)
-    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(), g.nx, g.ny, axis,
-                _sweep_constants(dx, dy, nm.dt, nm.fct),
+    outs = [torch.empty_like(F) for _ in range(4)]
+    scratch = torch.empty((7,) + tuple(shape), dtype=F.dtype, device=F.device)
+    ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
+    out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
+    status = fn(ins, out_ptrs, scratch.data_ptr(), *shape, oi, oj, g.nx, g.ny,
+                nm.n_jacobi, int(bool(even_step)), _predict_constants(cfg),
+                _project_constants(cfg), _sweep_args(cfg, 0), _sweep_args(cfg, 1),
                 int(nm.fct.full_dv), int(nm.fct.clamp), stream)
-    _raise_on_error(lib, "fct_sweep", status)
-    LAUNCHES["fct_sweep"] += 1
-    return out
+    _raise_on_error(lib, name, status)
+    LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def fullstep(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """(F, u, v, p) after one lean step as one kernel launch; counterpart
+    of tpuvof's pallas_fullstep."""
+    if _on_cpu(F):
+        return fullstep_plain(cfg, F, u, v, p, even_step)
+    return _launch_fullstep("fullstep", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step)
+
+
+def fullstep_win(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):
+    """One lean step on a block with origin (oi, oj), exact at STEP_HALO
+    from its edges; counterpart of tpuvof's pallas_fullstep_win."""
+    if _on_cpu(F):
+        return fullstep_win_plain(cfg, F, u, v, p, oi, oj, even_step)
+    shape = _block_shape("fullstep_win", F)
+    return _launch_fullstep("fullstep_win", cfg, F, u, v, p, shape, int(oi), int(oj),
+                            even_step)
+
+
+def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """One lean step on the strips engine's padded resident layout
+    (fullstep_strips_plain), whose margins may hold anything, NaN
+    included; counterpart of tpuvof's pallas_fullstep_strips."""
+    if _on_cpu(F):
+        return fullstep_strips_plain(cfg, F, u, v, p, even_step)
+    w2 = strips_halo(cfg)
+    g = cfg.grid
+    shape = (g.nx + 2 + 2 * w2, g.ny + 2 + 2 * w2)
+    return _launch_fullstep("fullstep_strips", cfg, F, u, v, p, shape, -w2, -w2,
+                            even_step)

@@ -1,10 +1,14 @@
-"""Chorin pressure projection with the fixed-iteration Jacobi solve
-(counterpart of tpuvof/ops/poisson.py:38-109, 148-174).
+"""Chorin pressure projection and the pressure-solver ladder
+(counterpart of tpuvof/ops/poisson.py:38-109, 148-298).
 
 A 5-point stencil whose edge coefficients are zeroed on the pure-Neumann
-walls, iterated a fixed number of times with no residual check. The
-residual-driven solvers (rbsor, mg) and the self-adjoint backward arrive
-with ROADMAP Queue 1 items 5 and 6.
+walls. 'jacobi' iterates it a fixed number of times with no residual
+check (the reference); 'rbsor' and 'mg' (ops/mg.py) iterate to a residual
+tolerance. tpuvof runs those two as ``lax.while_loop``s on the device;
+here the exit test reads the residual on the host once per iteration, in
+the dtype tpuvof compares it in, so both take the same number of
+iterations. The adjoints of the ladder belong to the differentiable path
+(ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -21,6 +25,10 @@ __all__ = [
     "divergence_rhs",
     "jacobi_sweeps",
     "solve_pressure",
+    "residual",
+    "effective_tol",
+    "STALL_ITERS",
+    "PLATEAU_FACTOR",
 ]
 
 
@@ -105,10 +113,108 @@ def jacobi_sweeps(g: Grid2D, n_iter: int, p, rhs):
 
 
 def solve_pressure(g: Grid2D, nm: Numerics, p, u_star, v_star, rho):
-    """rhs assembly and the fixed Jacobi iteration; returns a new p."""
-    if nm.pressure_solver != "jacobi":
-        raise NotImplementedError(
-            f"pressure_solver={nm.pressure_solver!r} is not ported yet "
-            "(ROADMAP Queue 1 item 5); only 'jacobi' runs")
+    """rhs assembly and the configured solver; returns a new p."""
     rhs = divergence_rhs(g, nm, u_star, v_star, rho)
+    if nm.pressure_solver == "rbsor":
+        return _rbsor(g, nm, p, rhs)
+    if nm.pressure_solver == "mg":
+        from .mg import mg_solve
+
+        return mg_solve(p, rhs, (g.dxi**2, g.dyi**2), nm.sor_tol,
+                        nm.sor_max_iter, tol_rel=nm.sor_tol_rel)
+    if nm.pressure_solver != "jacobi":
+        raise ValueError(
+            f"unknown pressure_solver {nm.pressure_solver!r} "
+            "(expected 'jacobi', 'rbsor' or 'mg'; resolve 'auto' first)")
     return jacobi_sweeps(g, nm.n_jacobi, p, rhs)
+
+
+def residual(g: Grid2D, p, rhs, project_nullspace: bool = True):
+    """max |A p - rhs| over the interior, as a 0-dim tensor. With
+    ``project_nullspace`` the mean is removed first, so the measure sees
+    only the part of the residual the pure-Neumann system can remove."""
+    ae, aw, an, a_s, ap_inv = poisson_coefficients(g, p.dtype, p.device)
+    ri = (1, g.nx + 1)
+    rj = (1, g.ny + 1)
+    ap = 1.0 / ap_inv
+    r = (
+        rhs
+        - ae * win(p, ri, rj, 1, 0)
+        - aw * win(p, ri, rj, -1, 0)
+        - an * win(p, ri, rj, 0, 1)
+        - a_s * win(p, ri, rj, 0, -1)
+        - ap * win(p, ri, rj)
+    )
+    if project_nullspace:
+        r = r - torch.mean(r)
+    return torch.max(torch.abs(r))
+
+
+#: A residual-driven solve also stops when STALL_ITERS iterations in a row
+#: bring no new best residual while the residual sits within
+#: PLATEAU_FACTOR of that best: the dtype's floor can lie above the
+#: tolerance, and SOR near omega = 2 oscillates before it converges.
+STALL_ITERS = 25
+PLATEAU_FACTOR = 2.0
+
+
+def effective_tol(tol: float, tol_rel: float, rhs_projected):
+    """The stopping tolerance: ``tol``, raised to ``tol_rel * max|rhs'|``
+    when ``tol_rel > 0``; ``rhs_projected`` is mean-free. A 0-dim tensor
+    in the rhs's dtype, the type the solver compares the residual in."""
+    if tol_rel and tol_rel > 0.0:
+        return torch.maximum(_scalar(tol, rhs_projected),
+                             tol_rel * torch.max(torch.abs(rhs_projected)))
+    return _scalar(tol, rhs_projected)
+
+
+def _scalar(x: float, like):
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def keep_iterating(it: int, max_iter: int, r: float, tol: float, best: float,
+                   stall: int, stall_limit: int) -> bool:
+    """The while-loop condition of both residual-driven solvers, on host
+    floats that hold the dtype's values exactly (each comparison then
+    agrees with the dtype's; 2 * best is exact)."""
+    floored = stall >= stall_limit and r <= PLATEAU_FACTOR * best
+    return it < max_iter and r > tol and not floored
+
+
+def _rbsor(g: Grid2D, nm: Numerics, p, rhs):
+    """Red-black SOR against the mean-free rhs, until max|Ap - rhs'| <=
+    the tolerance, the iteration cap, or the stall exit."""
+    rhs = rhs - torch.mean(rhs)
+    tol = effective_tol(nm.sor_tol, nm.sor_tol_rel, rhs).item()
+    ae, aw, an, a_s, ap_inv = poisson_coefficients(g, p.dtype, p.device)
+    ri = (1, g.nx + 1)
+    rj = (1, g.ny + 1)
+    i = torch.arange(g.nx, device=p.device)[:, None]
+    j = torch.arange(g.ny, device=p.device)[None, :]
+    red = (i + j) % 2 == 0
+    omega = nm.sor_omega
+
+    def half_sweep(p, mask):
+        gs = (
+            rhs
+            - ae * win(p, ri, rj, 1, 0)
+            - aw * win(p, ri, rj, -1, 0)
+            - an * win(p, ri, rj, 0, 1)
+            - a_s * win(p, ri, rj, 0, -1)
+        ) * ap_inv
+        p_int = win(p, ri, rj)
+        upd = p_int + omega * (gs - p_int)
+        p = p.clone()
+        p[1:-1, 1:-1] = torch.where(mask, upd, p_int)
+        return p
+
+    r = best = residual(g, p, rhs).item()
+    it = stall = 0
+    while keep_iterating(it, nm.sor_max_iter, r, tol, best, stall, STALL_ITERS):
+        p = half_sweep(p, red)
+        p = half_sweep(p, ~red)
+        r = residual(g, p, rhs).item()
+        stall = 0 if r < best else stall + 1
+        best = min(best, r)
+        it += 1
+    return p

@@ -87,8 +87,10 @@ def initial_volume_fraction(g: Grid2D, ic: int) -> np.ndarray:
     raise ValueError(f"unknown initial condition {ic}; expected 1, 2 or 3")
 
 
-def init_state(cfg: SimConfig, ic: int, device, dtype: torch.dtype) -> State:
-    """The state with initial condition ``ic`` on ``device`` in ``dtype``."""
+def init_state(cfg: SimConfig, ic: int = 1, device="cuda",
+               dtype: torch.dtype = torch.float32) -> State:
+    """The state with initial condition ``ic`` on ``device`` in ``dtype``;
+    by default the dam break, on the card, in f32."""
     g = cfg.grid
     F = torch.as_tensor(initial_volume_fraction(g, ic), device=device).to(dtype)
     return State(
