@@ -29,6 +29,22 @@ Phases, each fatal on failure:
      (host clock), each path's step on the device alone (a replayed CUDA
      graph), and each kernel's time per launch beside its plain version's
      and its bound.
+  7. 3-D kernel vs plain: the four 3-D kernels against their plain versions
+     on a perturbed, developed 128^3 dam-break state, f64 and f32:
+     predict3d_rhs (csf off and on), correct3d, fct3d_sweep (x, y, z, with
+     and without mirror_out), jacobi3d, and each on an i-slab (gi_base != 0).
+  8. 3-D golden: 32^3 in f64 through 'cuda' against
+     tests/golden_dambreak3d_32_300.npz at steps 100 and 300 (resumed with
+     istep0); the f32 drift at 300.
+  9. 3-D paths, counts set to 0 before and read after each: the 3-D main
+     path, simulate_3d at 200^3 f32 x 1000 steps on 'cuda' (1000 / 10000 /
+     1000 / 3000 launches of predict3d_rhs / jacobi3d / correct3d /
+     fct3d_sweep and no other); csf=True, 100 steps at 200^3 (two
+     predict3d_rhs launches a step: the curvature pre-pass); the hybrid,
+     pressure_solver='auto' (mg) at 64^3 x 20. Finiteness, 0 <= F <= 1, mass.
+ 10. 3-D timing: the main path's host-clock ms/step (best of 3), its
+     device-alone step (a CUDA graph of a step triple), the plain-torch path,
+     and each 3-D kernel beside its plain version and its bound.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -73,6 +89,27 @@ for _name, _of in (("predict_win", "predict"), ("fct_sweep_win", "fct_sweep"),
                    ("fullstep_win", "fullstep"), ("fullstep_strips", "fullstep")):
     OPS_PER_CELL[_name] = OPS_PER_CELL[_of]
     FIELDS_MOVED[_name] = FIELDS_MOVED[_of]
+
+# 3-D: the reference's flagship size (3dvof.py:20-22) and the kernel check's
+N3_MAIN = 200
+STEPS3_MAIN = 1000
+STEPS3_CSF = 100
+N3_CHECK = 128
+N3_HYBRID = 64
+STEPS3_HYBRID = 20
+STEPS3_PLAIN = 30
+N3_SLAB = (40, 50)  # (gi_base, nloc) of the i-slab case
+DT3_SWEEP = 4e-4   # the sweeps' check: Courant numbers up to ~0.3, the limiter fires
+# Per cell, counted once from the bodies in tpuvof_torch/csrc (the kernels'
+# own recomputation of neighbours' u*, v*, w* and normals is not work the
+# function needs): predict3d_rhs three momentum updates ~150 with the mixes,
+# rhs 10; correct3d ~30; one sweep ~45; jacobi3d 13 an iteration, 10 of
+# them. Fields each must read once and write once: predict3d_rhs u, v, w,
+# F -> u*, v*, w*, rhs; correct3d u*, v*, w*, p, F -> u, v, w; a sweep F,
+# vel -> F; jacobi3d (all iterations) p, rhs -> p.
+OPS_PER_CELL.update({"predict3d_rhs": 160, "correct3d": 30, "fct3d_sweep": 45,
+                     "jacobi3d": 13 * 10})
+FIELDS_MOVED.update({"predict3d_rhs": 8, "correct3d": 8, "fct3d_sweep": 3, "jacobi3d": 3})
 
 
 def check(cond: bool, msg: str) -> None:
@@ -231,6 +268,93 @@ def run_path(tt, K, label, cfg, s0, steps, want_launches, mass_bar=1e-3):
     check(bool(m.finite), f"{label}: non-finite fields")
     check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
     check(drift <= mass_bar, f"{label}: mass drift {drift:.3e} > {mass_bar:.0e}")
+    return launches, s_end
+
+
+def perturbed_state_3d(tt, n: int, steps: int):
+    """The n^3 dam break advanced ``steps`` through the kernels in f64,
+    plus seeded uniform perturbations (F 1e-3, clipped to [0, 1]; u, v, w
+    0.5; p 1), each velocity's low ghost plane along its own axis zeroed
+    (the state invariant), BCs applied."""
+    from tpuvof_torch.ops import apply_bc_3d
+
+    g = tt.Grid3D(n, n, n)
+    s = tt.simulate_3d(g, tt.init_state_3d(g, 1, "cuda", torch.float64), steps)
+    rng = np.random.default_rng(SEED)
+
+    def noise(a, amp):
+        return a + torch.as_tensor(rng.uniform(-amp, amp, a.shape), device="cuda")
+
+    F = noise(s.F, 1e-3).clamp(0.0, 1.0)
+    u, v, w = (noise(a, 0.5) for a in (s.u, s.v, s.w))
+    p = noise(s.p, 1.0)
+    u[0] = 0.0
+    v[:, 0] = 0.0
+    w[:, :, 0] = 0.0
+    u, v, w, F, p = apply_bc_3d(u, v, w, F, p)
+    return g, tt.State3D(F=F, u=u, v=v, w=w, p=p)
+
+
+def kernel_cases_3d(K3, g, fl, s, dt):
+    """(kernel name, kernel outputs, plain outputs, output names) for every
+    3-D kernel on state ``s``, on the whole grid and on an i-slab."""
+    cases = []
+    gi0, nloc = N3_SLAB
+    slab = state_slab(s, gi0, nloc)
+    for gi_base, (F, u, v, w, p) in ((0, s), (gi0, slab)):
+        tag = "" if gi_base == 0 else f" slab@{gi_base}"
+        for csf in (False, True):
+            cases.append((f"predict3d_rhs{' csf' if csf else ''}{tag}",
+                          K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf, gi_base),
+                          K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, gi_base),
+                          ("u*", "v*", "w*", "rhs")))
+        us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, gi_base)
+        cases.append((f"correct3d{tag}", K3.correct3d(g, fl, dt, us, vs, ws, p, F, gi_base),
+                      K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, gi_base), "uvw"))
+        for axis, vel in enumerate((u, v, w)):
+            for mirror in (False, True):
+                cases.append((f"fct3d_sweep {'xyz'[axis]}{' mirror' if mirror else ''}{tag}",
+                              (K3.fct3d_sweep(g, DT3_SWEEP, F, vel, axis, mirror, gi_base),),
+                              (K3.fct3d_sweep_plain(g, DT3_SWEEP, F, vel, axis, mirror,
+                                                    gi_base),), ("F",)))
+        cases.append((f"jacobi3d{tag}", (K3.jacobi3d(g, 10, p, rhs, gi_base),),
+                      (K3.jacobi3d_plain(g, 10, p, rhs, gi_base),), ("p",)))
+    return cases
+
+
+def state_slab(s, gi_base: int, nloc: int):
+    """The i-slab of every field whose local plane l is global plane
+    gi_base + l, l = 0..nloc+1."""
+    return type(s)(*(a[gi_base:gi_base + nloc + 2].contiguous() for a in s))
+
+
+def run_path_3d(tt, counters, label, g, s0, steps, want_launches, **kw):
+    """Drive ``steps`` of simulate_3d from ``s0`` with every count set to 0
+    just before and read just after; check the counts and the physics."""
+    def mass(s):
+        return s.F[1:-1, 1:-1, 1:-1].double().sum().item()
+
+    mass0 = mass(s0)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_end = tt.simulate_3d(g, s0, steps, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: n for c in counters for k, n in c.LAUNCHES.items() if n}
+    print(f"{label} launches: {launches} ({secs:.2f} s)")
+    check(launches == want_launches, f"{label} launch counts {launches} != {want_launches}")
+    finite = all(bool(torch.isfinite(a).all()) for a in s_end)
+    drift = abs(mass(s_end) - mass0) / mass0
+    Fmin, Fmax = s_end.F.min().item(), s_end.F.max().item()
+    print(f"{label} {g.nx}^3 {str(s0.F.dtype)[6:]} x{steps}: finite={finite} "
+          f"F in [{Fmin:.3e}, {Fmax:.3e}] mass drift {drift:.3e} "
+          f"max|u| {s_end.u.abs().max().item():.3e} max|v| {s_end.v.abs().max().item():.3e} "
+          f"max|w| {s_end.w.abs().max().item():.3e}")
+    check(finite, f"{label}: non-finite fields")
+    check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
+    check(drift <= 1e-3, f"{label}: mass drift {drift:.3e} > 1e-3")
     return launches, s_end
 
 
@@ -452,6 +576,131 @@ def main() -> int:
         x, y = times.pop(f"{name}_x"), times.pop(f"{name}_y")
         times[name] = {k: (x[k] + y[k]) / 2 if isinstance(x[k], float) else x[k] for k in x}
 
+    # ---- 7. 3-D kernel vs plain on the card ----
+    from tpuvof_torch import solver3d as S3
+    from tpuvof_torch.kernels import step3d_kernels as K3
+
+    fl = tt.Fluid()
+    dt3 = 4e-6
+    g_chk, s3_64 = perturbed_state_3d(tt, N3_CHECK, 50)
+    results3 = {}
+    for dtype in (torch.float64, torch.float32):
+        key = "f64" if dtype == torch.float64 else "f32"
+        s = tt.State3D(*(a.to(dtype).contiguous() for a in s3_64))
+        for label, got, want, outs in kernel_cases_3d(K3, g_chk, fl, s, dt3):
+            torch.cuda.synchronize()
+            name = label.split()[0]
+            for out_name, g_, w_ in zip(outs, got, want):
+                rel, diff = rel_err(g_, w_)
+                tol = TOL_F64 if key == "f64" else TOL_F32.get(out_name, TOL_F32_DEFAULT)
+                r = results3.setdefault(name, {"rel_f64": 0.0, "rel_f32": 0.0, "abs_f32": 0.0})
+                r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
+                if key == "f32":
+                    r["abs_f32"] = max(r["abs_f32"], diff)
+                print(f"kernel vs plain {key} {N3_CHECK}^3 {label:28s} {out_name:4s} "
+                      f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
+                check(rel <= tol, f"{label} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
+    del s3_64
+
+    # ---- 8. the 3-D golden, f64 through 'cuda'; the f32 drift ----
+    golden3 = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "tests", "golden_dambreak3d_32_300.npz"))
+    n3g, ck3, n3s = int(golden3["n"]), int(golden3["checkpoint"]), int(golden3["n_steps"])
+    g3g = tt.Grid3D(n3g, n3g, n3g)
+    s100 = tt.simulate_3d(g3g, tt.init_state_3d(g3g, 1, "cuda", torch.float64), ck3)
+    s300 = tt.simulate_3d(g3g, s100, n3s - ck3, istep0=ck3)
+    for key, got, want in (("F100", s100.F, golden3["F100"]), ("u100", s100.u, golden3["u100"]),
+                           (f"F{n3s}", s300.F, golden3["F"]), (f"u{n3s}", s300.u, golden3["u"])):
+        err = np.abs(got.cpu().numpy() - want).max()
+        print(f"golden f64 {n3g}^3 cuda {key}: {err:.3e} (bar 1e-9)")
+        check(err <= 1e-9, f"3-D golden {key} {err:.3e} > 1e-9")
+    s = tt.simulate_3d(g3g, tt.init_state_3d(g3g), n3s)
+    err32 = np.abs(s.F.double().cpu().numpy() - golden3["F"]).max()
+    print(f"golden f32 {n3g}^3 cuda x{n3s} F drift {err32:.3e} (bar 5e-3)")
+    check(err32 <= 5e-3, f"3-D f32 golden drift {err32:.3e} > 5e-3")
+
+    # ---- 9. the 3-D paths ----
+    counters = (K, K3)
+    g3 = tt.Grid3D(N3_MAIN, N3_MAIN, N3_MAIN)
+    s3 = tt.init_state_3d(g3)
+    per_step = {"predict3d_rhs": 1, "jacobi3d": 10, "correct3d": 1, "fct3d_sweep": 3}
+    launches, _ = run_path_3d(tt, counters, "3-D main path (cuda)", g3, s3, STEPS3_MAIN,
+                              {k: n * STEPS3_MAIN for k, n in per_step.items()})
+    path_launches.update(launches)
+    # csf: predict3d_rhs launches the curvature pre-pass and the predictor
+    run_path_3d(tt, counters, "3-D csf path (cuda, csf=True)", g3, s3, STEPS3_CSF,
+                {k: n * STEPS3_CSF * (2 if k == "predict3d_rhs" else 1)
+                 for k, n in per_step.items()}, csf=True)
+    g3h = tt.Grid3D(N3_HYBRID, N3_HYBRID, N3_HYBRID)
+    check(S3._resolve_auto_3d(g3h) == "mg", "3-D auto did not pick mg")
+    run_path_3d(tt, counters, "3-D hybrid path (cuda, auto -> mg)", g3h, tt.init_state_3d(g3h),
+                STEPS3_HYBRID, {"predict3d_rhs": STEPS3_HYBRID, "correct3d": STEPS3_HYBRID,
+                                "fct3d_sweep": 3 * STEPS3_HYBRID},
+                pressure_solver="auto", sor_tol_rel=1e-2)
+
+    # ---- 10. 3-D timing ----
+    def run3(backend, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.simulate_3d(g3, s3, steps, backend=backend)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run3("cuda", STEPS3_MAIN)  # warm-up
+    runs3 = [run3("cuda", STEPS3_MAIN) for _ in range(3)]
+    run3("torch", 3)
+    plain3 = [run3("torch", STEPS3_PLAIN) for _ in range(2)]
+    s3dev = S3._with_bc(s3)
+    for backend, runs, steps in (("cuda", runs3, STEPS3_MAIN), ("torch", plain3, STEPS3_PLAIN)):
+        best = min(runs)
+        step_ms = 1e3 * best / steps
+        lean = S3._step_3d_cuda_lean if backend == "cuda" else S3._step_3d_torch
+
+        def triple(lean=lean):
+            for ph in (1, 2, 0):
+                lean(g3, fl, dt3, 10, s3dev, ph, "jacobi", 1.7, 1e-3, 200, False, 0.0)
+
+        dev_ms = device_ms(triple, 1 if backend == "torch" else 5) / 3
+        print(f"{tag} 3-D {backend} path {N3_MAIN}^3 x{steps} f32: best {best:.4f} s of "
+              f"{[round(t, 4) for t in runs]}, {N3_MAIN ** 3 * steps / best:.4e} "
+              f"cell-updates/s, {step_ms:.4f} ms/step; device alone {dev_ms:.4f} ms/step, "
+              f"idle {100 * (1 - dev_ms / step_ms):.1f}% of the host-clock step")
+
+    F3, u3, v3, w3, p3 = s3dev
+    us3, vs3, ws3, rhs3 = K3.predict3d_rhs_plain(g3, fl, dt3, u3, v3, w3, F3)
+    timed3 = {
+        "predict3d_rhs": (lambda: K3.predict3d_rhs(g3, fl, dt3, u3, v3, w3, F3),
+                          lambda: K3.predict3d_rhs_plain(g3, fl, dt3, u3, v3, w3, F3)),
+        "correct3d": (lambda: K3.correct3d(g3, fl, dt3, us3, vs3, ws3, p3, F3),
+                      lambda: K3.correct3d_plain(g3, fl, dt3, us3, vs3, ws3, p3, F3)),
+        "jacobi3d": (lambda: K3.jacobi3d(g3, 10, p3, rhs3),
+                     lambda: K3.jacobi3d_plain(g3, 10, p3, rhs3)),
+    }
+    for axis, vel in enumerate((u3, v3, w3)):
+        timed3[f"fct3d_sweep_{'xyz'[axis]}"] = (
+            lambda axis=axis, vel=vel: K3.fct3d_sweep(g3, dt3, F3, vel, axis),
+            lambda axis=axis, vel=vel: K3.fct3d_sweep_plain(g3, dt3, F3, vel, axis))
+    cells3 = F3.numel()
+    for name, (kern, plain) in timed3.items():
+        t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
+                           "host_ms": host_ms(kern, 50)}
+        base = name[:-2] if name.startswith("fct3d_sweep_") else name
+        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells3 * 4 / HBM_BYTES_PER_S
+        ops_ms = 1e3 * OPS_PER_CELL[base] * cells3 / F32_OPS_PER_S
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        per = " (10 launches)" if name == "jacobi3d" else ""
+        print(f"{tag} {name:15s} {tuple(F3.shape)} f32: kernel {1e3 * t['ms']:.2f} us/call"
+              f"{per} on the device ({1e3 * t['host_ms']:.2f} us per call from Python); "
+              f"plain {1e3 * t['plain_ms']:.2f} us/call on the device; bound "
+              f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
+    times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / 10
+    # the three sweep axes run equally often: one entry, their mean
+    xyz = [times.pop(f"fct3d_sweep_{a}") for a in "xyz"]
+    times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
+                            else xyz[0][k] for k in xyz[0]}
+    results.update(results3)
+
     site = "tpuvof/pallas_kernels/step_kernels.py"
     sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),
                "project": ("tpuvof_torch/csrc/project.cu", f"{site}:237"),
@@ -459,7 +708,17 @@ def main() -> int:
                "predict_win": ("tpuvof_torch/csrc/predict.cu", f"{site}:506"),
                "fct_sweep_win": ("tpuvof_torch/csrc/fct_sweep.cu", f"{site}:539"),
                "fullstep": ("tpuvof_torch/csrc/fullstep.cu",
-                            f"{site}:669, {site}:1119, {site}:1089")}
+                            f"{site}:669, {site}:1119, {site}:1089"),
+               "predict3d_rhs": ("tpuvof_torch/csrc/predict3d.cu",
+                                 "tpuvof/pallas_kernels/step3d.py:520"),
+               "correct3d": ("tpuvof_torch/csrc/correct3d.cu",
+                             "tpuvof/pallas_kernels/step3d.py:672"),
+               "fct3d_sweep": ("tpuvof_torch/csrc/fct3d.cu",
+                               "tpuvof/pallas_kernels/step3d.py:908, "
+                               "tpuvof/pallas_kernels/step3d.py:929"),
+               "jacobi3d": ("tpuvof_torch/csrc/jacobi3d.cu",
+                            "tpuvof/pallas_kernels/jacobi3d.py:456, "
+                            "tpuvof/pallas_kernels/jacobi3d.py:418")}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
@@ -468,8 +727,9 @@ def main() -> int:
                         "max_rel_err_f32": r["rel_f32"], "max_rel_err_f64": r["rel_f64"],
                         "library_ms": None, **times[name]})
     # fullstep.cu on its tiled and strips routes (tpuvof's :1119 and :1089)
-    kernels[-1]["variants"] = {name: {"launches": path_launches[name], **times[name]}
-                               for name in ("fullstep_win", "fullstep_strips")}
+    fullstep = next(k for k in kernels if k["name"] == "fullstep")
+    fullstep["variants"] = {name: {"launches": path_launches[name], **times[name]}
+                            for name in ("fullstep_win", "fullstep_strips")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,268 @@
+"""The 3-D kernels' plain versions and wrappers
+(tpuvof_torch.kernels.step3d_kernels).
+
+On the CPU each plain version is held against tpuvof's Pallas kernel, run
+in interpret mode as tests/test_3d.py runs it, in f64 on random
+BC-consistent states (tests/test_3d.py's recipe) at 8^3 and 14^3 (slab
+chunks of 2 planes: 4 and 7 chunks), within 1e-12 of the field's scale:
+both sides do the same operations per element. The Pallas side takes the
+fields jk-padded to its (8, 128) tiling (solver3d._pad_jk) and is compared
+on the unpadded region. An i-slab (gi_base != 0) is compared beyond the
+stencil's reach of its lower edge, where both sides are exact; its upper
+edge is the grid's wall. The wrappers must route CPU tensors to the plain
+versions and count no launch. The ``cuda``-marked test holds the CUDA
+kernels against the plain versions on a card; it needs no jax, so on a
+machine without jax it runs with
+``pytest tests/test_torch_kernels3d.py --noconftest -m cuda``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import tpuvof_torch as tt
+from tpuvof_torch.kernels import step3d_kernels as K3
+
+TOL = 1e-12
+DT = 4e-6
+DT_SWEEP = 2e-3  # with unit velocities: Courant numbers up to ~0.3, the limiter fires
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: a 34^3 field is past
+    torch's parallel grain, and under the gate's worker processes its
+    threads would oversubscribe the cores (a 300-step golden then took
+    35x its time alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, np.float64))
+
+
+def _random_state(n, seed, vel_scale):
+    """F, u, v, w, p as numpy f64: tests/test_3d.py's random BC-consistent
+    state (each velocity's low ghost plane along its own axis zero, then
+    the BCs), with velocities of the given scale."""
+    import jax.numpy as jnp
+
+    from tpuvof.ops import apply_bc_3d
+
+    rng = np.random.default_rng(seed)
+    shape = (n + 2,) * 3
+    F = np.clip(rng.normal(0.5, 0.4, shape), 0, 1)
+    u, v, w = (rng.normal(0, vel_scale, shape) for _ in range(3))
+    p = rng.normal(0, 10.0, shape)
+    u[0] = 0.0
+    v[:, 0] = 0.0
+    w[:, :, 0] = 0.0
+    u, v, w, F, p = apply_bc_3d(*map(jnp.asarray, (u, v, w, F, p)))
+    return tuple(np.asarray(a) for a in (F, u, v, w, p))
+
+
+@pytest.fixture(scope="module", params=[8, 14])
+def ref(request):
+    """tpuvof's grid and Pallas kernels, the port's grid, a jk-pad
+    function, and random states: moderate velocities for predict and
+    correct, unit ones for the sweeps."""
+    import jax.numpy as jnp
+
+    from tpuvof.config import Fluid
+    from tpuvof.grid import Grid3D
+    from tpuvof.pallas_kernels import jacobi3d as pj
+    from tpuvof.pallas_kernels import step3d as ps
+    from tpuvof.solver3d import _pad_jk
+    from tpuvof_torch.convert import fluid_from_tpuvof, grid3d_from_tpuvof
+
+    n = request.param
+    g = Grid3D(n, n, n)
+    p1, p2 = _pad_jk(g)
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(a), ((0, 0), (0, p1), (0, p2)))
+
+    return dict(n=n, g=g, fl=Fluid(), pg=grid3d_from_tpuvof(g),
+                pfl=fluid_from_tpuvof(Fluid()), ps=ps, pj=pj, pad=pad,
+                cut=lambda a: np.asarray(a)[:, :n + 2, :n + 2],
+                state=_random_state(n, 30 + n, 0.5), fast=_random_state(n, 40 + n, 1.0))
+
+
+@pytest.mark.parametrize("csf", [False, True])
+def test_predict3d_plain_matches_pallas(ref, csf):
+    F, u, v, w, _ = ref["state"]
+    pad, cut = ref["pad"], ref["cut"]
+    want = ref["ps"].pallas_predict3d_rhs(ref["g"], ref["fl"], DT, pad(u), pad(v), pad(w),
+                                          pad(F), interpret=True, csf=csf)
+    got = K3.predict3d_rhs_plain(ref["pg"], ref["pfl"], DT, *map(_t, (u, v, w, F)), csf=csf)
+    for name, g_, w_ in zip(("u*", "v*", "w*", "rhs"), got, want):
+        assert _rel(g_, cut(w_)) <= TOL, name
+
+
+def test_correct3d_plain_matches_pallas(ref):
+    F, u, v, w, p = ref["state"]
+    pad, cut = ref["pad"], ref["cut"]
+    us, vs, ws, _ = (a.numpy() for a in K3.predict3d_rhs_plain(
+        ref["pg"], ref["pfl"], DT, *map(_t, (u, v, w, F))))
+    want = ref["ps"].pallas_correct3d(ref["g"], ref["fl"], DT, pad(us), pad(vs), pad(ws),
+                                      pad(p), pad(F), interpret=True)
+    got = K3.correct3d_plain(ref["pg"], ref["pfl"], DT, *map(_t, (us, vs, ws, p, F)))
+    for name, g_, w_ in zip("uvw", got, want):
+        assert _rel(g_, cut(w_)) <= TOL, name
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("mirror_out", [False, True])
+def test_fct3d_sweep_plain_matches_pallas(ref, axis, mirror_out):
+    F, u, v, w, _ = ref["fast"]
+    vel = (u, v, w)[axis]
+    want = ref["ps"].pallas_fct3d_sweep(ref["g"], DT_SWEEP, ref["pad"](F), ref["pad"](vel),
+                                        axis, interpret=True, mirror_out=mirror_out)
+    got = K3.fct3d_sweep_plain(ref["pg"], DT_SWEEP, _t(F), _t(vel), axis, mirror_out)
+    assert _rel(got, ref["cut"](want)) <= TOL
+    assert _rel(got[1:-1, 1:-1, 1:-1], F[1:-1, 1:-1, 1:-1]) > 1e-3  # F moved
+    if not mirror_out:  # the stale ghosts pass through
+        np.testing.assert_array_equal(got.numpy()[0], F[0])
+        np.testing.assert_array_equal(got.numpy()[:, 0], F[:, 0])
+
+
+@pytest.mark.parametrize("pallas_fn", ["pallas_jacobi_3d", "streamed_jacobi_3d"])
+def test_jacobi3d_plain_matches_pallas(ref, pallas_fn):
+    F, u, v, w, p = ref["state"]
+    _, _, _, rhs = K3.predict3d_rhs_plain(ref["pg"], ref["pfl"], DT, *map(_t, (u, v, w, F)))
+    want = getattr(ref["pj"], pallas_fn)(ref["g"], 10, ref["pad"](p), ref["pad"](rhs.numpy()),
+                                         interpret=True)
+    got = K3.jacobi3d_plain(ref["pg"], 10, _t(p), rhs)
+    assert _rel(got, ref["cut"](want)) <= TOL
+    ghost = np.ones(got.shape, bool)
+    ghost[1:-1, 1:-1, 1:-1] = False
+    assert np.all(got.numpy()[ghost] == 0.0)  # zeroed ghost ring
+
+
+def test_islab_plain_matches_pallas():
+    """Every plain version on an i-slab (tpuvof's nloc/gi_base origin):
+    local planes 0..11 of a 16^3 grid at global i 6..17, so the slab's
+    upper edge is the wall. Compared from local plane 4 up (3 planes of
+    stencil reach below; the Jacobi runs 2 iterations, 2 planes)."""
+    import jax.numpy as jnp
+
+    from tpuvof.config import Fluid
+    from tpuvof.grid import Grid3D
+    from tpuvof.pallas_kernels import jacobi3d as pj
+    from tpuvof.pallas_kernels import step3d as ps
+    from tpuvof.solver3d import _pad_jk
+    from tpuvof_torch.convert import grid3d_from_tpuvof
+
+    n, gi_base, nloc = 16, 6, 10
+    g, fl = Grid3D(n, n, n), Fluid()
+    pg, pfl = grid3d_from_tpuvof(g), tt.Fluid()
+    p1, p2 = _pad_jk(g)
+    sl = slice(gi_base, gi_base + nloc + 2)
+    F, u, v, w, p = (a[sl] for a in _random_state(n, 7, 0.5))
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(np.asarray(a)), ((0, 0), (0, p1), (0, p2)))
+
+    def cut(a):
+        return np.asarray(a)[4:, :n + 2, :n + 2]
+
+    kw = dict(interpret=True, nloc=nloc, gi_base=gi_base)
+    want = ps.pallas_predict3d_rhs(g, fl, DT, pad(u), pad(v), pad(w), pad(F), csf=True, **kw)
+    got = K3.predict3d_rhs_plain(pg, pfl, DT, *map(_t, (u, v, w, F)), csf=True,
+                                 gi_base=gi_base)
+    for name, g_, w_ in zip(("u*", "v*", "w*", "rhs"), got, want):
+        assert _rel(g_[4:], cut(w_)) <= TOL, name
+    us, vs, ws, rhs = got
+    want = ps.pallas_correct3d(g, fl, DT, pad(us), pad(vs), pad(ws), pad(p), pad(F), **kw)
+    for name, g_, w_ in zip("uvw", K3.correct3d_plain(pg, pfl, DT, us, vs, ws, _t(p), _t(F),
+                                                      gi_base=gi_base), want):
+        assert _rel(g_[4:], cut(w_)) <= TOL, name
+    want = ps.pallas_fct3d_sweep(g, DT_SWEEP, pad(F), pad(u), 0, mirror_out=True, **kw)
+    got = K3.fct3d_sweep_plain(pg, DT_SWEEP, _t(F), _t(u), 0, True, gi_base=gi_base)
+    assert _rel(got[4:], cut(want)) <= TOL
+    want = pj.pallas_jacobi_3d(g, 2, pad(p), pad(rhs.numpy()), **kw)
+    got = K3.jacobi3d_plain(pg, 2, _t(p), rhs, gi_base=gi_base)
+    assert _rel(got[4:], cut(want)) <= TOL
+
+
+def test_wrappers_route_cpu_tensors_to_plain_and_count_nothing():
+    g = tt.Grid3D(8, 8, 8)
+    fl = tt.Fluid()
+    F, u, v, w, p = map(_t, _random_state(8, 5, 0.5))
+    K3.reset_launch_counts()
+    outs = K3.predict3d_rhs(g, fl, DT, u, v, w, F, csf=True)
+    for g_, w_ in zip(outs, K3.predict3d_rhs_plain(g, fl, DT, u, v, w, F, csf=True)):
+        assert torch.equal(g_, w_)
+    us, vs, ws, rhs = outs
+    assert torch.equal(K3.jacobi3d(g, 3, p, rhs), K3.jacobi3d_plain(g, 3, p, rhs))
+    for g_, w_ in zip(K3.correct3d(g, fl, DT, us, vs, ws, p, F),
+                      K3.correct3d_plain(g, fl, DT, us, vs, ws, p, F)):
+        assert torch.equal(g_, w_)
+    for axis, vel in enumerate((u, v, w)):
+        assert torch.equal(K3.fct3d_sweep(g, DT, F, vel, axis, True),
+                           K3.fct3d_sweep_plain(g, DT, F, vel, axis, True))
+    assert all(n == 0 for n in K3.LAUNCHES.values())
+    with pytest.raises(ValueError):
+        K3.fct3d_sweep(g, DT, F, u, 3)
+    with pytest.raises(ValueError):
+        K3.jacobi3d(g, 0, p, rhs)
+
+
+@pytest.mark.cuda
+def test_kernels3d_match_plain_on_card():
+    """Each 3-D CUDA kernel against its plain version on the card, f64
+    (1e-12) and f32 (1e-5, p 1e-4), on a random BC-consistent 32^3 state
+    and an i-slab of it (bars as chip_smoke.py's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpuvof_torch.ops import apply_bc_3d
+
+    n = 32
+    g = tt.Grid3D(n, n, n)
+    fl = tt.Fluid()
+    rng = np.random.default_rng(12)
+    shape = g.shape
+    F = torch.as_tensor(np.clip(rng.normal(0.5, 0.4, shape), 0, 1), device="cuda")
+    u, v, w = (torch.as_tensor(rng.normal(0, 1.0, shape), device="cuda") for _ in range(3))
+    p = torch.as_tensor(rng.normal(0, 10.0, shape), device="cuda")
+    u[0] = 0.0
+    v[:, 0] = 0.0
+    w[:, :, 0] = 0.0
+    u, v, w, F, p = apply_bc_3d(u, v, w, F, p)
+    for dtype, tol, tol_p in ((torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-4)):
+        for gi_base, sl in ((0, slice(None)), (9, slice(9, 21))):
+            Fd, ud, vd, wd, pd = (a[sl].to(dtype).contiguous() for a in (F, u, v, w, p))
+            K3.reset_launch_counts()
+            pairs = []
+            for csf in (False, True):
+                pairs.append((K3.predict3d_rhs(g, fl, DT, ud, vd, wd, Fd, csf, gi_base),
+                              K3.predict3d_rhs_plain(g, fl, DT, ud, vd, wd, Fd, csf, gi_base)))
+            us, vs, ws, rhs = pairs[0][1]
+            pairs.append((K3.correct3d(g, fl, DT, us, vs, ws, pd, Fd, gi_base),
+                          K3.correct3d_plain(g, fl, DT, us, vs, ws, pd, Fd, gi_base)))
+            for axis, vel in enumerate((ud, vd, wd)):
+                for mirror in (False, True):
+                    pairs.append(((K3.fct3d_sweep(g, DT_SWEEP, Fd, vel, axis, mirror, gi_base),),
+                                  (K3.fct3d_sweep_plain(g, DT_SWEEP, Fd, vel, axis, mirror,
+                                                        gi_base),)))
+            torch.cuda.synchronize()
+            assert K3.LAUNCHES == {"predict3d_rhs": 3, "jacobi3d": 0, "correct3d": 1,
+                                   "fct3d_sweep": 6}
+            for got, want in pairs:
+                for g_, w_ in zip(got, want):
+                    assert g_.is_cuda and g_.dtype == dtype
+                    assert _rel(g_.cpu(), w_.cpu()) <= tol
+            got = K3.jacobi3d(g, 10, pd, rhs, gi_base)
+            assert _rel(got.cpu(), K3.jacobi3d_plain(g, 10, pd, rhs, gi_base).cpu()) <= tol_p
+    with pytest.raises(ValueError):
+        K3.fct3d_sweep(g, DT, F[:, :-1], u[:, :-1], 0)  # wrong plane shape
+    with pytest.raises(ValueError):
+        K3.correct3d(g, fl, DT, u, v, w, p, F.transpose(1, 2))  # not contiguous

@@ -1,12 +1,12 @@
 """tpuvof_torch: the PyTorch + CUDA port of tpuvof for NVIDIA Hopper.
 
-The 2-D forward step of the two-phase Navier-Stokes/VOF solver: staggered
-MAC grid, Youngs normals with Brackbill CSF surface tension, Chorin
-projection with the reference's fixed-iteration Jacobi, and Rudman/Zalesak
-flux-corrected VOF transport, and the pressure-solver ladder (fixed Jacobi,
-red-black SOR, multigrid). ``backend='torch'`` runs plain torch ops; the
-``'cuda*'`` backends run the hand-written kernels of ``csrc/`` (see
-``solver``).
+The 2-D and 3-D forward steps of the two-phase Navier-Stokes/VOF solver:
+staggered MAC grid, Youngs normals with Brackbill CSF surface tension
+(opt-in in 3-D), Chorin projection with the reference's fixed-iteration
+Jacobi, Rudman/Zalesak flux-corrected VOF transport, and the
+pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid).
+``backend='torch'`` runs plain torch ops; the ``'cuda*'`` backends run the
+hand-written kernels of ``csrc/`` (see ``solver`` and ``solver3d``).
 
 tpuvof (JAX) stays the reference: module names mirror it, so each
 counterpart is found by path. This package never imports jax.
@@ -21,10 +21,11 @@ from .config import (
     SimConfig,
     dam_break_2d,
 )
-from .grid import Grid2D
+from .grid import Grid2D, Grid3D
 from .metrics import Metrics, compute_metrics
 from .solver import make_step_fn, simulate, simulate_cfl, step, step_pair
-from .state import State, find_area, init_state, initial_volume_fraction
+from .solver3d import simulate_3d, step_3d
+from .state import State, State3D, find_area, init_state, init_state_3d, initial_volume_fraction
 
 __all__ = [
     "FCT_DIFF",
@@ -36,6 +37,7 @@ __all__ = [
     "SimConfig",
     "dam_break_2d",
     "Grid2D",
+    "Grid3D",
     "Metrics",
     "compute_metrics",
     "simulate",
@@ -43,8 +45,12 @@ __all__ = [
     "make_step_fn",
     "step",
     "step_pair",
+    "step_3d",
+    "simulate_3d",
     "State",
+    "State3D",
     "find_area",
     "init_state",
+    "init_state_3d",
     "initial_volume_fraction",
 ]

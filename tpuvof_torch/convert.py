@@ -1,8 +1,9 @@
 """Carry states and configurations between tpuvof and the port.
 
-States cross as numpy arrays. ``config_from_tpuvof`` reads a tpuvof
-``SimConfig`` through ``dataclasses.asdict``, so this module needs no
-import of tpuvof (and so of jax).
+States cross as numpy arrays. ``config_from_tpuvof``, ``grid3d_from_tpuvof``
+and ``fluid_from_tpuvof`` read tpuvof's dataclasses through
+``dataclasses.asdict``, so this module needs no import of tpuvof (and so
+of jax).
 """
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ import numpy as np
 import torch
 
 from .config import FCTVariant, Fluid, Numerics, SimConfig
-from .grid import Grid2D
-from .state import State
+from .grid import Grid2D, Grid3D
+from .state import State, State3D
 
-__all__ = ["state_from_numpy", "state_to_numpy", "config_from_tpuvof"]
+__all__ = ["state_from_numpy", "state_to_numpy", "config_from_tpuvof", "state3d_from_numpy",
+           "state3d_to_numpy", "grid3d_from_tpuvof", "fluid_from_tpuvof"]
 
 # tpuvof backend -> port backend
 _BACKENDS = {"xla": "torch", "pallas": "cuda", "pallas_mono": "cuda_mono",
@@ -33,6 +35,35 @@ def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
 def state_to_numpy(state: State) -> tuple[np.ndarray, ...]:
     """(F, u, v, p) as numpy arrays on the host."""
     return tuple(a.detach().cpu().numpy() for a in state)
+
+
+def state3d_from_numpy(F, u, v, w, p, device, dtype: torch.dtype) -> State3D:
+    """A port State3D from five (nx+2, ny+2, nz+2) arrays."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    return State3D(F=t(F), u=t(u), v=t(v), w=t(w), p=t(p))
+
+
+def state3d_to_numpy(state: State3D) -> tuple[np.ndarray, ...]:
+    """(F, u, v, w, p) as numpy arrays on the host."""
+    return tuple(a.detach().cpu().numpy() for a in state)
+
+
+def _fields(obj, kind: str) -> dict:
+    if not dataclasses.is_dataclass(obj):
+        raise TypeError(f"expected a tpuvof {kind}, got {type(obj).__name__}")
+    return dataclasses.asdict(obj)
+
+
+def grid3d_from_tpuvof(g) -> Grid3D:
+    """The port's Grid3D for a tpuvof Grid3D."""
+    return Grid3D(**_fields(g, "Grid3D"))
+
+
+def fluid_from_tpuvof(fl) -> Fluid:
+    """The port's Fluid for a tpuvof Fluid."""
+    return Fluid(**_fields(fl, "Fluid"))
 
 
 def config_from_tpuvof(cfg) -> SimConfig:

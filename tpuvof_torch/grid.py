@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["Grid2D"]
+__all__ = ["Grid2D", "Grid3D"]
 
 
 def _nodes(L: float, n: int) -> np.ndarray:
@@ -87,3 +87,70 @@ class Grid2D:
                 "scaling assumes dx == dy"
             )
         return self
+
+
+@dataclass(frozen=True)
+class Grid3D:
+    """3-D staggered grid (counterpart of tpuvof/grid.py:121-184); fields
+    have shape (nx+2, ny+2, nz+2), axis 2 = k (z) contiguous."""
+
+    nx: int
+    ny: int
+    nz: int
+    Lx: float = 0.1
+    Ly: float = 0.1
+    Lz: float = 0.1
+
+    def validate(self) -> "Grid3D":
+        if min(self.nx, self.ny, self.nz) < 2:
+            raise ValueError("grid needs at least 2 interior cells per axis")
+        if abs(self.dx - self.dy) > 1e-12 or abs(self.dx - self.dz) > 1e-12:
+            raise ValueError(
+                "non-cubic cells are unsupported: the 3-D FCT sweeps keep "
+                "the reference's literal scale factors, which are only "
+                "consistent on cubic cells"
+            )
+        return self
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.nx + 2, self.ny + 2, self.nz + 2)
+
+    @property
+    def dx(self) -> float:
+        xs = _nodes(self.Lx, self.nx)
+        return float(xs[3] - xs[2])
+
+    @property
+    def dy(self) -> float:
+        ys = _nodes(self.Ly, self.ny)
+        return float(ys[3] - ys[2])
+
+    @property
+    def dz(self) -> float:
+        zs = _nodes(self.Lz, self.nz)
+        return float(zs[3] - zs[2])
+
+    @property
+    def dxi(self) -> float:
+        return 1.0 / self.dx
+
+    @property
+    def dyi(self) -> float:
+        return 1.0 / self.dy
+
+    @property
+    def dzi(self) -> float:
+        return 1.0 / self.dz
+
+    def node_x(self) -> np.ndarray:
+        return _nodes(self.Lx, self.nx)[: self.nx + 2]
+
+    def node_y(self) -> np.ndarray:
+        return _nodes(self.Ly, self.ny)[: self.ny + 2]
+
+    def node_z(self) -> np.ndarray:
+        return _nodes(self.Lz, self.nz)[: self.nz + 2]
+
+    def as_2d(self) -> Grid2D:
+        return Grid2D(self.nx, self.ny, self.Lx, self.Ly)

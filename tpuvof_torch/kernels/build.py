@@ -22,7 +22,8 @@ __all__ = ["load_library", "build_seconds", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu", "fullstep.cu")
+_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu", "fullstep.cu",
+            "predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
 # --fmad=false: no a*b+c is contracted, so the kernels round as their plain
 # PyTorch versions do (the f64 bars are 1e-12 and the dam-break flow
 # amplifies rounding differences step by step).
@@ -34,11 +35,16 @@ _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _BLOCK = [_I] * 6  # E0, E1, oi, oj, nx, ny
+_VOL = [_I] * 5  # n0, gi_base, nx, ny, nz
 _SIGNATURES = {
     "tv_predict": [_P] * 6 + _BLOCK + [_D, _P],
     "tv_project": [_P] * 11 + [_I, _I, _I, _D, _P],
     "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
+    "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
+    "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
+    "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
+    "tv_jacobi3d": [_P] * 4 + _VOL + [_I, _D, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Plain-torch stencil ops of the 2-D step (counterpart of tpuvof.ops)."""
-from .bc import apply_bc, apply_bc_, mirror_scalar
+"""Plain-torch stencil ops of the 2-D and 3-D steps (counterpart of tpuvof.ops)."""
+from .bc import apply_bc, apply_bc_, apply_bc_3d, apply_bc_3d_, mirror_scalar
 from .common import clamp01, win
 from .fct import fct_sweep_x, fct_sweep_y, rudman_advect
 from .materials import mix_properties
@@ -10,6 +10,8 @@ from .poisson import divergence_rhs, poisson_coefficients, solve_pressure
 __all__ = [
     "apply_bc",
     "apply_bc_",
+    "apply_bc_3d",
+    "apply_bc_3d_",
     "mirror_scalar",
     "clamp01",
     "win",

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as nnf
 
-__all__ = ["win", "clamp01", "embed2", "merge_interior", "merge_region"]
+__all__ = ["win", "win3", "clamp01", "embed2", "embed3", "merge_interior", "merge_region"]
 
 
 def win(a, ri, rj, di: int = 0, dj: int = 0):
@@ -17,6 +17,14 @@ def win(a, ri, rj, di: int = 0, dj: int = 0):
     (i0, i1) = ri
     (j0, j1) = rj
     return a[i0 + di : i1 + di, j0 + dj : j1 + dj]
+
+
+def win3(a, ri, rj, rk, di: int = 0, dj: int = 0, dk: int = 0):
+    """The 3-D :func:`win`."""
+    (i0, i1) = ri
+    (j0, j1) = rj
+    (k0, k1) = rk
+    return a[i0 + di : i1 + di, j0 + dj : j1 + dj, k0 + dk : k1 + dk]
 
 
 def clamp01(x):
@@ -32,6 +40,11 @@ def clamp01(x):
 def embed2(x, lo0: int, hi0: int, lo1: int, hi1: int):
     """Zero-pad a 2-D tensor by lo/hi rows (axis 0) and columns (axis 1)."""
     return nnf.pad(x, (lo1, hi1, lo0, hi0))
+
+
+def embed3(x, lo0: int, hi0: int, lo1: int, hi1: int, lo2: int, hi2: int):
+    """Zero-pad a 3-D tensor by lo/hi cells along each axis."""
+    return nnf.pad(x, (lo2, hi2, lo1, hi1, lo0, hi0))
 
 
 def merge_interior(full, interior_val):

@@ -22,6 +22,7 @@ from .common import win
 __all__ = [
     "poisson_coefficients",
     "poisson_diagonal_constants",
+    "poisson_constants_3d",
     "divergence_rhs",
     "jacobi_sweeps",
     "solve_pressure",
@@ -48,6 +49,28 @@ def poisson_diagonal_constants(g: Grid2D) -> dict:
         return float(-1.0 / t)
 
     return {(ex, ey): const(ex, ey) for ex in (0, 1) for ey in (0, 1)}
+
+
+def poisson_constants_3d(g) -> tuple[tuple[float, float, float], dict]:
+    """The 3-D stencil's (1/dx^2, 1/dy^2, 1/dz^2) and its 8 edge-class
+    values of 1/ap, keyed by (on an x-edge, on a y-edge, on a z-edge), in
+    float64 in tpuvof's ((((ae + aw) + an) + as) + ab) + af order; the
+    caller casts them to its dtype."""
+    dxi2 = np.float64(g.dxi) ** 2
+    dyi2 = np.float64(g.dyi) ** 2
+    dzi2 = np.float64(g.dzi) ** 2
+
+    def const(ex, ey, ez):
+        t = dxi2 if ex else dxi2 + dxi2
+        for _ in range(2 - ey):
+            t = t + dyi2
+        for _ in range(2 - ez):
+            t = t + dzi2
+        return float(-1.0 / t)
+
+    classes = {(ex, ey, ez): const(ex, ey, ez)
+               for ex in (0, 1) for ey in (0, 1) for ez in (0, 1)}
+    return (float(dxi2), float(dyi2), float(dzi2)), classes
 
 
 def poisson_coefficients(g: Grid2D, dtype, device):

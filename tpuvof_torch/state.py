@@ -1,8 +1,9 @@
 """Simulation state and initial conditions (counterpart of tpuvof/state.py).
 
-The carried state is F, u, v, p, each a (nx+2, ny+2) tensor. The initial
-conditions are computed in numpy float32 exactly as tpuvof computes them,
-so F0 is bit-equal to tpuvof's before it is cast to the requested dtype.
+The carried state is F, u, v, p, each a (nx+2, ny+2) tensor; in 3-D it is
+F, u, v, w, p, each (nx+2, ny+2, nz+2). The initial conditions are computed
+in numpy float32 exactly as tpuvof computes them, so F0 is bit-equal to
+tpuvof's before it is cast to the requested dtype.
 """
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ import numpy as np
 import torch
 
 from .config import SimConfig
-from .grid import Grid2D
+from .grid import Grid2D, Grid3D
 
-__all__ = ["State", "init_state", "initial_volume_fraction", "find_area"]
+__all__ = ["State", "State3D", "init_state", "initial_volume_fraction", "find_area",
+           "find_area_3d", "initial_volume_fraction_3d", "init_state_3d"]
 
 
 class State(NamedTuple):
@@ -24,6 +26,16 @@ class State(NamedTuple):
     u: torch.Tensor  # x-velocity on left cell faces
     v: torch.Tensor  # y-velocity on bottom cell faces
     p: torch.Tensor  # pressure at cell centers
+
+
+class State3D(NamedTuple):
+    """3-D solver state; every tensor has shape (nx+2, ny+2, nz+2)."""
+
+    F: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    p: torch.Tensor
 
 
 def find_area(g: Grid2D, cx: float, cy: float, r: float) -> np.ndarray:
@@ -99,3 +111,76 @@ def init_state(cfg: SimConfig, ic: int = 1, device="cuda",
         v=torch.zeros(g.shape, device=device, dtype=dtype),
         p=torch.zeros(g.shape, device=device, dtype=dtype),
     )
+
+
+def find_area_3d(g: Grid3D, cx: float, cy: float, cz: float, r: float) -> np.ndarray:
+    """Smoothed per-cell liquid fraction of the complement of a sphere, the
+    3-D extension of ``find_area``: cells with all eight corners outside
+    get 1.0, fully inside 0.0, mixed cells 0.5 + 0.5*(dist_center -
+    r)/(sqrt(3)*dx) clipped to [0, 1]. float32 on the host; (nx+2, ny+2,
+    nz+2)."""
+    dx = np.float32(g.dx)
+    g2 = g.as_2d()
+    xc = g2.center_x()[:, None, None]
+    yc = g2.center_y()[None, :, None]
+    k = np.arange(g.nz + 2, dtype=np.float32)
+    zc = (((k - 1.0) * np.float32(g.dz) + np.float32(g.dz) / 2)
+          .astype(np.float32))[None, None, :]
+    cx, cy, cz, r = (np.float32(v) for v in (cx, cy, cz, r))
+
+    def dist(ox, oy, oz):
+        return np.sqrt((xc + ox - cx) ** 2 + (yc + oy - cy) ** 2
+                       + (zc + oz - cz) ** 2, dtype=np.float32)
+
+    h = dx / np.float32(2.0)
+    d_ct = dist(np.float32(0.0), np.float32(0.0), np.float32(0.0))
+    all_out = None
+    all_in = None
+    for sx in (-h, h):
+        for sy in (-h, h):
+            for sz in (-h, h):
+                d = dist(sx, sy, sz)
+                o, i = d > r, d < r
+                all_out = o if all_out is None else (all_out & o)
+                all_in = i if all_in is None else (all_in & i)
+    smooth = np.clip(
+        np.float32(0.5)
+        + np.float32(0.5) * (d_ct - r) / (np.sqrt(np.float32(3.0)) * dx),
+        0.0, 1.0,
+    ).astype(np.float32)
+    out = np.where(all_out, np.float32(1.0), np.where(all_in, np.float32(0.0), smooth))
+    return out.astype(np.float32)
+
+
+def initial_volume_fraction_3d(g: Grid3D, ic: int) -> np.ndarray:
+    """3-D initial conditions: ic=1 the reference's dam-break block (x in
+    [0, Lx/3], y in [0, Ly/2], z in [0, Lz/3], tested against node
+    coordinates); ic=2 a gas bubble of radius Lx/12 at (Lx/2, 2r, Lz/2);
+    ic=3 a liquid drop at (Lx/2, Ly - 3r, Lz/2) above a pool filling
+    y < 0.37*Ly."""
+    if ic == 1:
+        xn = g.node_x()[:, None, None]
+        yn = g.node_y()[None, :, None]
+        zn = g.node_z()[None, None, :]
+        cond = ((xn >= 0.0) & (xn <= g.Lx / 3) & (yn >= 0.0) & (yn <= g.Ly / 2)
+                & (zn >= 0.0) & (zn <= g.Lz / 3))
+        return np.where(cond, np.float32(1.0), np.float32(0.0))
+    elif ic == 2:
+        r = g.Lx / 12
+        return find_area_3d(g, g.Lx / 2, 2 * r, g.Lz / 2, r)
+    elif ic == 3:
+        r = g.Lx / 12
+        F = (np.float32(1.0)
+             - find_area_3d(g, g.Lx / 2, g.Ly - 3 * r, g.Lz / 2, r)).astype(np.float32)
+        yn = g.node_y()[None, :, None]
+        return np.where(yn < g.Ly * 0.37, np.float32(1.0), F).astype(np.float32)
+    raise ValueError(f"unknown 3-D initial condition ic={ic} (1, 2, or 3)")
+
+
+def init_state_3d(g: Grid3D, ic: int = 1, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> State3D:
+    """The 3-D state with initial condition ``ic`` on ``device`` in
+    ``dtype``; by default the dam break, on the card, in f32."""
+    F = torch.as_tensor(initial_volume_fraction_3d(g, ic), device=device).to(dtype)
+    return State3D(F, *(torch.zeros(g.shape, device=device, dtype=dtype)
+                        for _ in range(4)))
