@@ -30,7 +30,8 @@ Phases, each fatal on failure:
      graph), and each kernel's time per launch beside its plain version's
      and its bound.
   7. 3-D kernel vs plain: the four 3-D kernels against their plain versions
-     on a perturbed, developed 128^3 dam-break state, f64 and f32:
+     on a perturbed, developed dam-break state at the main path's 200^3,
+     f64 and f32:
      predict3d_rhs (csf off and on), correct3d, fct3d_sweep (x, y, z, with
      and without mirror_out), jacobi3d, and each on an i-slab (gi_base != 0).
   8. 3-D golden: 32^3 in f64 through 'cuda' against
@@ -90,11 +91,12 @@ for _name, _of in (("predict_win", "predict"), ("fct_sweep_win", "fct_sweep"),
     OPS_PER_CELL[_name] = OPS_PER_CELL[_of]
     FIELDS_MOVED[_name] = FIELDS_MOVED[_of]
 
-# 3-D: the reference's flagship size (3dvof.py:20-22) and the kernel check's
+# 3-D: the reference's flagship size (3dvof.py:20-22); the kernels are held
+# to their plain versions at the same shapes the main path gives them
 N3_MAIN = 200
 STEPS3_MAIN = 1000
 STEPS3_CSF = 100
-N3_CHECK = 128
+N3_CHECK = N3_MAIN
 N3_HYBRID = 64
 STEPS3_HYBRID = 20
 STEPS3_PLAIN = 30

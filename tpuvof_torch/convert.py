@@ -32,8 +32,9 @@ def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
     return State(F=t(F), u=t(u), v=t(v), p=t(p))
 
 
-def state_to_numpy(state: State) -> tuple[np.ndarray, ...]:
-    """(F, u, v, p) as numpy arrays on the host."""
+def state_to_numpy(state: State | State3D) -> tuple[np.ndarray, ...]:
+    """The fields of a State or State3D, in order, as numpy arrays on the
+    host."""
     return tuple(a.detach().cpu().numpy() for a in state)
 
 
@@ -45,9 +46,7 @@ def state3d_from_numpy(F, u, v, w, p, device, dtype: torch.dtype) -> State3D:
     return State3D(F=t(F), u=t(u), v=t(v), w=t(w), p=t(p))
 
 
-def state3d_to_numpy(state: State3D) -> tuple[np.ndarray, ...]:
-    """(F, u, v, w, p) as numpy arrays on the host."""
-    return tuple(a.detach().cpu().numpy() for a in state)
+state3d_to_numpy = state_to_numpy  # (F, u, v, w, p)
 
 
 def _fields(obj, kind: str) -> dict:

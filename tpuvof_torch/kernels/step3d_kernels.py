@@ -41,10 +41,10 @@ import torch
 
 from ..config import Fluid
 from ..grid import Grid3D
-from ..ops.fct3d import axis_scales, shift3, sweep_inplane_masked, sweep_x_masked
+from ..ops.fct3d import axis_scales, shift3, sweep3d
 from ..ops.materials import mix_properties
 from ..ops.normals3d import normalize_normals_3d, young_msum_3d
-from ..ops.poisson import poisson_constants_3d
+from ..ops.poisson import ap_inv_3d, poisson_constants_3d
 from .step_kernels import _checked, _doubles, _on_cpu, _raise_on_error
 
 __all__ = [
@@ -275,17 +275,11 @@ def fct3d_sweep_plain(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False
     with ``mirror_out`` (the step's last sweep) the output is given fresh
     j/k mirrors and those planes copy their neighbours (tpuvof's
     _mirror_jk and _ghost_planes_out)."""
-    if axis == 0:
-        out = sweep_x_masked(g, dt, F, vel, gi_base)
-    else:
-        out = sweep_inplane_masked(g, dt, F, vel, axis)
+    out = sweep3d(g, dt, F, vel, axis, gi_base)
     if mirror_out:
         out = mirror_jk(g, out)
         out[0] = out[1]
         out[-1] = out[-2]
-    else:
-        out[0] = F[0]
-        out[-1] = F[-1]
     return out
 
 
@@ -308,20 +302,12 @@ def jacobi3d_plain(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0):
     gi = _iota(p.shape, 0, dev, gi_base)
     j = _iota(p.shape, 1, dev)
     k = _iota(p.shape, 2, dev)
-    ex = (gi == 1) | (gi == g.nx)
-    ey = (j == 1) | (j == g.ny)
-    ez = (k == 1) | (k == g.nz)
+    ap_inv = ap_inv_3d(classes, (gi == 1) | (gi == g.nx), (j == 1) | (j == g.ny),
+                       (k == 1) | (k == g.nz), dtype, dev)
 
     def c(x):
         return torch.full((), x, dtype=dtype, device=dev)
 
-    ap_inv = torch.where(
-        ex,
-        torch.where(ey, torch.where(ez, c(classes[1, 1, 1]), c(classes[1, 1, 0])),
-                    torch.where(ez, c(classes[1, 0, 1]), c(classes[1, 0, 0]))),
-        torch.where(ey, torch.where(ez, c(classes[0, 1, 1]), c(classes[0, 1, 0])),
-                    torch.where(ez, c(classes[0, 0, 1]), c(classes[0, 0, 0]))),
-    )
     cx, cy, cz = c(cx), c(cy), c(cz)
     zero = c(0.0)
     p = torch.where(ghost, zero, p)

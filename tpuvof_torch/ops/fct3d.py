@@ -1,7 +1,8 @@
 """3-D Rudman FCT sweeps (counterpart of tpuvof/ops/fct3d.py; reference
 3dvof.py:366-541).
 
-One generic sweep along axis 0, parameterized by the reference's literal
+One sweep, stated once in shift-and-mask form at global indices (as the
+CUDA kernel computes it) and parameterized by the reference's literal
 scale factors, which are not uniform: the y-sweep keeps a 2-D flux scale
 dy/(dx*dy) (3dvof.py:438) and the limiter numerators use dx for the x/y
 sweeps but dz for z. On the cubic cells the solver admits they coincide
@@ -10,9 +11,9 @@ formula is not the 2-D one: Ftd = clamp01((F + (fL - fL+)*flux_scale) *
 vol/dv), the limiter is min(1, q/p) where p > 0 with no epsilon, and the
 correction is divided by final_div.
 
-``sweep_x_masked`` and ``sweep_inplane_masked`` state the same sweep in
-shift-and-mask form at global indices, as the CUDA kernel computes it;
-they are its plain version (kernels/step3d_kernels.py).
+``fct3d_sweep_x/_y/_z`` keep tpuvof's names for the whole-grid sweep;
+``sweep3d`` on an i-block is the kernel's plain version
+(kernels/step3d_kernels.py).
 """
 from __future__ import annotations
 
@@ -21,62 +22,9 @@ import torch
 from ..grid import Grid3D
 from .common import clamp01
 
-__all__ = ["fct3d_sweep_x", "fct3d_sweep_y", "fct3d_sweep_z", "rudman_advect_3d",
+__all__ = ["fct3d_sweep_x", "fct3d_sweep_y", "fct3d_sweep_z", "sweep3d", "rudman_advect_3d",
            "upwind_advect_3d", "sweep_x_masked", "sweep_inplane_masked", "axis_scales",
            "shift3"]
-
-
-def _sweep3d_axis0(vol, dv_area, flux_scale, q_scale, final_div, dt, F, u):
-    """FCT sweep along axis 0; u is the face-normal velocity on the lower
-    axis-0 faces."""
-    uf = u[1:, 1:-1, 1:-1]
-    F_up = F[:-1, 1:-1, 1:-1]
-    F_dn = F[1:, 1:-1, 1:-1]
-    fL = uf * dt * torch.where(uf >= 0, F_up, F_dn)
-    fH = uf * dt * torch.where(uf <= 0, F_up, F_dn)
-    a = torch.zeros_like(F)
-    a[1:, 1:-1, 1:-1] = fH - fL
-
-    F_c = F[1:-1, 1:-1, 1:-1]
-    dv = vol - dt * dv_area * (uf[1:] - uf[:-1])
-    ftd_int = clamp01((F_c + (fL[:-1] - fL[1:]) * flux_scale) * vol / dv)
-    Ftd = torch.zeros_like(F)
-    Ftd[1:-1, 1:-1, 1:-1] = ftd_int
-
-    fmax = torch.maximum(Ftd[1:-1, 1:-1, 1:-1],
-                         torch.maximum(Ftd[:-2, 1:-1, 1:-1], Ftd[2:, 1:-1, 1:-1]))
-    fmin = torch.minimum(Ftd[1:-1, 1:-1, 1:-1],
-                         torch.minimum(Ftd[:-2, 1:-1, 1:-1], Ftd[2:, 1:-1, 1:-1]))
-    a_lo = a[1:-1, 1:-1, 1:-1]
-    a_hi = a[2:, 1:-1, 1:-1]
-    zero = torch.zeros((), dtype=F.dtype, device=F.device)
-
-    pp = torch.maximum(zero, a_lo) - torch.minimum(zero, a_hi)
-    qp = (fmax - ftd_int) * q_scale
-    rp_int = torch.where(pp > 0, torch.clamp_max(qp / torch.where(pp > 0, pp, 1.0), 1.0), 0.0)
-    pm = torch.maximum(zero, a_hi) - torch.minimum(zero, a_lo)
-    qm = (ftd_int - fmin) * q_scale
-    rm_int = torch.where(pm > 0, torch.clamp_max(qm / torch.where(pm > 0, pm, 1.0), 1.0), 0.0)
-
-    rp = torch.zeros_like(F)
-    rm = torch.zeros_like(F)
-    rp[1:-1, 1:-1, 1:-1] = rp_int
-    rm[1:-1, 1:-1, 1:-1] = rm_int
-
-    a_f = a[1:, 1:-1, 1:-1]
-    c_int = torch.where(
-        a_f >= 0,
-        torch.minimum(rp[1:, 1:-1, 1:-1], rm[:-1, 1:-1, 1:-1]),
-        torch.minimum(rp[:-1, 1:-1, 1:-1], rm[1:, 1:-1, 1:-1]),
-    )
-    c = torch.zeros_like(F)
-    c[1:, 1:-1, 1:-1] = c_int
-
-    corr = (a[2:, 1:-1, 1:-1] * c[2:, 1:-1, 1:-1]
-            - a[1:-1, 1:-1, 1:-1] * c[1:-1, 1:-1, 1:-1]) / final_div
-    out = F.clone()
-    out[1:-1, 1:-1, 1:-1] = clamp01(ftd_int - corr * vol / dv)
-    return out
 
 
 def axis_scales(g: Grid3D, axis: int):
@@ -90,18 +38,30 @@ def axis_scales(g: Grid3D, axis: int):
     return (vol, g.dx * g.dy, g.dy * g.dx / vol, g.dz, g.dz)
 
 
+def sweep3d(g: Grid3D, dt, F, vel, axis: int, gi0: int = 0):
+    """F after one sweep along ``axis`` (0, 1, 2 with vel = u, v, w) on a
+    block whose plane l holds global i-index gi0 + l; its first and last
+    planes carry F. On the whole grid (gi0 = 0) this is the sweep of
+    tpuvof/ops/fct3d.py: every non-interior position carries F."""
+    if axis == 0:
+        out = sweep_x_masked(g, dt, F, vel, gi0)
+    else:
+        out = sweep_inplane_masked(g, dt, F, vel, axis)
+    out[0] = F[0]
+    out[-1] = F[-1]
+    return out
+
+
 def fct3d_sweep_x(g: Grid3D, dt, F, u):
-    return _sweep3d_axis0(*axis_scales(g, 0), dt, F, u)
+    return sweep3d(g, dt, F, u, 0)
 
 
 def fct3d_sweep_y(g: Grid3D, dt, F, v):
-    out = _sweep3d_axis0(*axis_scales(g, 1), dt, F.permute(1, 0, 2), v.permute(1, 0, 2))
-    return out.permute(1, 0, 2).contiguous()
+    return sweep3d(g, dt, F, v, 1)
 
 
 def fct3d_sweep_z(g: Grid3D, dt, F, w):
-    out = _sweep3d_axis0(*axis_scales(g, 2), dt, F.permute(2, 0, 1), w.permute(2, 0, 1))
-    return out.permute(1, 2, 0).contiguous()
+    return sweep3d(g, dt, F, w, 2)
 
 
 def rudman_advect_3d(g: Grid3D, dt, F, u, v, w, phase: int):
@@ -121,7 +81,8 @@ SWEEP_ORDER = {0: (0, 1, 2), 1: (1, 2, 0), 2: (2, 0, 1)}
 def upwind_advect_3d(g: Grid3D, dt, F, u, v, w):
     """Plain donor-cell VOF update (reference solve_VOF_upwind,
     3dvof.py:335-347, disabled in its main loop), with the reference's 2-D
-    volume factor dx*dy/(dx*dy*dz)."""
+    volume factor dx*dy/(dx*dy*dz). No step calls it: it is kept as
+    tpuvof's counterpart, for its test only."""
     Ftd = F
 
     def face_flux(vel, lo, hi):

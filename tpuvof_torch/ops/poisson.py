@@ -23,6 +23,7 @@ __all__ = [
     "poisson_coefficients",
     "poisson_diagonal_constants",
     "poisson_constants_3d",
+    "ap_inv_3d",
     "divergence_rhs",
     "jacobi_sweeps",
     "solve_pressure",
@@ -71,6 +72,20 @@ def poisson_constants_3d(g) -> tuple[tuple[float, float, float], dict]:
     classes = {(ex, ey, ez): const(ex, ey, ez)
                for ex in (0, 1) for ey in (0, 1) for ez in (0, 1)}
     return (float(dxi2), float(dyi2), float(dzi2)), classes
+
+
+def ap_inv_3d(classes: dict, ex, ey, ez, dtype, device):
+    """1/ap of the 3-D stencil from ``poisson_constants_3d``'s edge classes:
+    ``ex``, ``ey``, ``ez`` are broadcastable masks of the cells on an x-, y-
+    and z-edge."""
+    c = {key: torch.full((), val, dtype=dtype, device=device) for key, val in classes.items()}
+    return torch.where(
+        ex,
+        torch.where(ey, torch.where(ez, c[1, 1, 1], c[1, 1, 0]),
+                    torch.where(ez, c[1, 0, 1], c[1, 0, 0])),
+        torch.where(ey, torch.where(ez, c[0, 1, 1], c[0, 1, 0]),
+                    torch.where(ez, c[0, 0, 1], c[0, 0, 0])),
+    )
 
 
 def poisson_coefficients(g: Grid2D, dtype, device):

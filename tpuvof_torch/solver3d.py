@@ -35,7 +35,8 @@ from .ops.fct3d import SWEEP_ORDER, rudman_advect_3d
 from .ops.mg import mg_levels, mg_solve
 from .ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from .ops.normals3d import young_normals_curvature_3d
-from .ops.poisson import STALL_ITERS, effective_tol, keep_iterating, poisson_constants_3d
+from .ops.poisson import (STALL_ITERS, ap_inv_3d, effective_tol, keep_iterating,
+                          poisson_constants_3d)
 from .state import State3D
 
 __all__ = ["step_3d", "simulate_3d"]
@@ -66,17 +67,8 @@ def _poisson_coeffs_3d(g: Grid3D, dtype, device):
     a_s = torch.where(j == 0, zero, const(cy))
     af = torch.where(k == g.nz - 1, zero, const(cz))
     ab = torch.where(k == 0, zero, const(cz))
-    ex = (i == 0) | (i == g.nx - 1)
-    ey = (j == 0) | (j == g.ny - 1)
-    ez = (k == 0) | (k == g.nz - 1)
-    c = {key: const(val) for key, val in classes.items()}
-    ap_inv = torch.where(
-        ex,
-        torch.where(ey, torch.where(ez, c[1, 1, 1], c[1, 1, 0]),
-                    torch.where(ez, c[1, 0, 1], c[1, 0, 0])),
-        torch.where(ey, torch.where(ez, c[0, 1, 1], c[0, 1, 0]),
-                    torch.where(ez, c[0, 0, 1], c[0, 0, 0])),
-    )
+    ap_inv = ap_inv_3d(classes, (i == 0) | (i == g.nx - 1), (j == 0) | (j == g.ny - 1),
+                       (k == 0) | (k == g.nz - 1), dtype, device)
     return ae, aw, an, a_s, af, ab, ap_inv
 
 
