@@ -46,6 +46,23 @@ Phases, each fatal on failure:
  10. 3-D timing: the main path's host-clock ms/step (best of 3), its
      device-alone step (a CUDA graph of a step triple), the plain-torch path,
      and each 3-D kernel beside its plain version and its bound.
+ 11. pencil kernels vs plain: the four 3-D kernels in pencil mode (njl,
+     gj_base) against their plain versions on the blocks the 2x2 engine gives
+     at 200^3, (130, 130, 202), of a perturbed, developed state: the shard
+     at gi_base = gj_base = 86 (its high x and y walls mid-block) and the
+     y-edge shard at gj_base = -14 (its low y wall mid-block), f64 and f32.
+ 12. distributed golden: the 32^3 dam break in f64 through Decomp3D on a
+     virtual 2x2 pencil mesh and a (2,) slab mesh, all shards on cuda:0,
+     against tests/golden_dambreak3d_32_300.npz at steps 100 and 300
+     (resumed with istep0), and against the serial 'cuda' run of phase 8.
+ 13. distributed paths, counts set to 0 before and read after each: this
+     slice's main path, Decomp3D at 200^3 f32 x 1000 steps on a virtual 2x2
+     pencil mesh (4x the serial path's launches and no other), and the same
+     on a (4,) slab mesh. Finiteness and 0 <= F <= 1 on the whole extended
+     blocks, mass, max |dF| against phase 9's serial result; host-clock
+     ms/step (best of 3), device-alone ms/step (a CUDA graph of a step
+     triple), idle share, the halo copies' device ms per step, and each
+     kernel's time in pencil mode beside its plain version and its bound.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -101,6 +118,10 @@ N3_HYBRID = 64
 STEPS3_HYBRID = 20
 STEPS3_PLAIN = 30
 N3_SLAB = (40, 50)  # (gi_base, nloc) of the i-slab case
+N3_GOLDEN_MESHES = ((2, 2), (2,))  # phase 12: 2x2 pencils and (2,) slabs at 32^3
+# phase 13: the 2x2 pencil mesh (this slice's main path) and (4,) slabs at 200^3
+N3_DIST_MESHES = ((2, 2), (4,))
+PENCIL_SHARDS = ((1, 1), (1, 0))  # phase 11: gj_base 86 and -14
 DT3_SWEEP = 4e-4   # the sweeps' check: Courant numbers up to ~0.3, the limiter fires
 # Per cell, counted once from the bodies in tpuvof_torch/csrc (the kernels'
 # own recomputation of neighbours' u*, v*, w* and normals is not work the
@@ -297,31 +318,51 @@ def perturbed_state_3d(tt, n: int, steps: int):
     return g, tt.State3D(F=F, u=u, v=v, w=w, p=p)
 
 
-def kernel_cases_3d(K3, g, fl, s, dt):
+def kernel_cases_3d(K3, g, fl, blocks, dt):
     """(kernel name, kernel outputs, plain outputs, output names) for every
-    3-D kernel on state ``s``, on the whole grid and on an i-slab."""
+    3-D kernel on each (tag, state, block origin) of ``blocks``."""
     cases = []
-    gi0, nloc = N3_SLAB
-    slab = state_slab(s, gi0, nloc)
-    for gi_base, (F, u, v, w, p) in ((0, s), (gi0, slab)):
-        tag = "" if gi_base == 0 else f" slab@{gi_base}"
+    for tag, (F, u, v, w, p), org in blocks:
         for csf in (False, True):
             cases.append((f"predict3d_rhs{' csf' if csf else ''}{tag}",
-                          K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf, gi_base),
-                          K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, gi_base),
+                          K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf, **org),
+                          K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, **org),
                           ("u*", "v*", "w*", "rhs")))
-        us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, gi_base)
-        cases.append((f"correct3d{tag}", K3.correct3d(g, fl, dt, us, vs, ws, p, F, gi_base),
-                      K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, gi_base), "uvw"))
+        us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, **org)
+        cases.append((f"correct3d{tag}", K3.correct3d(g, fl, dt, us, vs, ws, p, F, **org),
+                      K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, **org), "uvw"))
         for axis, vel in enumerate((u, v, w)):
             for mirror in (False, True):
                 cases.append((f"fct3d_sweep {'xyz'[axis]}{' mirror' if mirror else ''}{tag}",
-                              (K3.fct3d_sweep(g, DT3_SWEEP, F, vel, axis, mirror, gi_base),),
+                              (K3.fct3d_sweep(g, DT3_SWEEP, F, vel, axis, mirror, **org),),
                               (K3.fct3d_sweep_plain(g, DT3_SWEEP, F, vel, axis, mirror,
-                                                    gi_base),), ("F",)))
-        cases.append((f"jacobi3d{tag}", (K3.jacobi3d(g, 10, p, rhs, gi_base),),
-                      (K3.jacobi3d_plain(g, 10, p, rhs, gi_base),), ("p",)))
+                                                    **org),), ("F",)))
+        cases.append((f"jacobi3d{tag}", (K3.jacobi3d(g, 10, p, rhs, **org),),
+                      (K3.jacobi3d_plain(g, 10, p, rhs, **org),), ("p",)))
     return cases
+
+
+def check_kernels_3d(K3, g, fl, blocks_of, dt, label):
+    """Every 3-D kernel against its plain version on the blocks
+    ``blocks_of(dtype)`` gives, f64 and f32; returns the worst errors by
+    kernel name."""
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        key = "f64" if dtype == torch.float64 else "f32"
+        for name_tag, got, want, outs in kernel_cases_3d(K3, g, fl, blocks_of(dtype), dt):
+            torch.cuda.synchronize()
+            name = name_tag.split()[0]
+            for out_name, g_, w_ in zip(outs, got, want):
+                rel, diff = rel_err(g_, w_)
+                tol = TOL_F64 if key == "f64" else TOL_F32.get(out_name, TOL_F32_DEFAULT)
+                r = results.setdefault(name, {"rel_f64": 0.0, "rel_f32": 0.0, "abs_f32": 0.0})
+                r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
+                if key == "f32":
+                    r["abs_f32"] = max(r["abs_f32"], diff)
+                print(f"kernel vs plain {key} {label} {name_tag:40s} {out_name:4s} "
+                      f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
+                check(rel <= tol, f"{name_tag} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
+    return results
 
 
 def state_slab(s, gi_base: int, nloc: int):
@@ -358,6 +399,106 @@ def run_path_3d(tt, counters, label, g, s0, steps, want_launches, **kw):
     check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
     check(drift <= 1e-3, f"{label}: mass drift {drift:.3e} > 1e-3")
     return launches, s_end
+
+
+def time_kernels_3d(K3, g, fl, dt, s, org, tag):
+    """Each 3-D kernel's device time per call on block ``s`` with origin
+    ``org``, beside its plain version's and its bound; the three sweeps as
+    their mean (the paths run them equally often)."""
+    F, u, v, w, p = s
+    us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, **org)
+    timed = {
+        "predict3d_rhs": (lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, **org),
+                          lambda: K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, **org)),
+        "correct3d": (lambda: K3.correct3d(g, fl, dt, us, vs, ws, p, F, **org),
+                      lambda: K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, **org)),
+        "jacobi3d": (lambda: K3.jacobi3d(g, 10, p, rhs, **org),
+                     lambda: K3.jacobi3d_plain(g, 10, p, rhs, **org)),
+    }
+    for axis, vel in enumerate((u, v, w)):
+        timed[f"fct3d_sweep_{'xyz'[axis]}"] = (
+            lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, F, vel, axis, **org),
+            lambda axis=axis, vel=vel: K3.fct3d_sweep_plain(g, dt, F, vel, axis, **org))
+    cells = F.numel()
+    times = {}
+    for name, (kern, plain) in timed.items():
+        t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
+                           "host_ms": host_ms(kern, 50)}
+        base = name[:-2] if name.startswith("fct3d_sweep_") else name
+        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells * 4 / HBM_BYTES_PER_S
+        ops_ms = 1e3 * OPS_PER_CELL[base] * cells / F32_OPS_PER_S
+        t["bound_ms"] = max(bytes_ms, ops_ms)
+        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        per = " (10 launches)" if name == "jacobi3d" else ""
+        mode = f" {org}" if org else ""
+        print(f"{tag} {name:15s} {tuple(F.shape)}{mode} f32: kernel {1e3 * t['ms']:.2f} "
+              f"us/call{per} on the device ({1e3 * t['host_ms']:.2f} us per call from "
+              f"Python); plain {1e3 * t['plain_ms']:.2f} us/call on the device; bound "
+              f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
+    times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / 10
+    xyz = [times.pop(f"fct3d_sweep_{a}") for a in "xyz"]
+    times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
+                            else xyz[0][k] for k in xyz[0]}
+    return times
+
+
+def run_dist_path(tt, counters, label, dec, s0, steps, want_launches, serial_end, tag):
+    """Drive ``steps`` of Decomp3D ``dec`` from ``s0`` through its public
+    stages (what ``simulate`` calls, so the extended blocks can be read),
+    with every count set to 0 just before the steps and read just after;
+    check the counts, the physics on the whole extended blocks and the
+    gathered state against the serial run; then time it."""
+    def mass(s):
+        return s.F[1:-1, 1:-1, 1:-1].double().sum().item()
+
+    mass0 = mass(s0)
+    blocks0 = dec.widen(dec.scatter_state(s0))
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    blocks = dec.advance(blocks0, steps)
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t0]
+    launches = {k: n for c in counters for k, n in c.LAUNCHES.items() if n}
+    print(f"{label} launches: {launches} ({secs[0]:.2f} s)")
+    check(launches == want_launches, f"{label} launch counts {launches} != {want_launches}")
+    finite = all(bool(torch.isfinite(a).all()) for b in blocks for a in b)
+    Fmin = min(b.F.min().item() for b in blocks)
+    Fmax = max(b.F.max().item() for b in blocks)
+    s_end = dec.gather_state(dec.narrow(blocks))
+    drift = abs(mass(s_end) - mass0) / mass0
+    dF = (s_end.F - serial_end.F).abs().max().item()
+    print(f"{label} {dec.g.nx}^3 {str(s0.F.dtype)[6:]} x{steps}, blocks "
+          f"{tuple(blocks[0].F.shape)}: extended blocks finite={finite}, F in "
+          f"[{Fmin:.3e}, {Fmax:.3e}]; mass drift {drift:.3e}; max|dF| vs the serial "
+          f"'cuda' run {dF:.3e}")
+    check(finite, f"{label}: non-finite values in the extended blocks")
+    check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
+    check(drift <= 1e-3, f"{label}: mass drift {drift:.3e} > 1e-3")
+    check(dF <= 5e-3, f"{label}: max|dF| vs serial {dF:.3e} > 5e-3")
+    for _ in range(2):  # best of 3 on the host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.advance(blocks0, steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_ms = 1e3 * min(secs) / steps
+
+    def triple():
+        for ph in (1, 2, 0):
+            dec.step(blocks, ph)
+
+    dev_ms = device_ms(triple, 2) / 3
+    halo_ms = device_ms(lambda: dec._refresh(blocks, dec.W, dec.nxl, dec.Wy, dec.nyl), 10)
+    cells = dec.g.nx * dec.g.ny * dec.g.nz
+    print(f"{tag} {label} {dec.g.nx}^3 x{steps} f32: best {min(secs):.4f} s of "
+          f"{[round(t, 4) for t in secs]}, {cells * steps / min(secs):.4e} cell-updates/s, "
+          f"{step_ms:.4f} ms/step; device alone {dev_ms:.4f} ms/step, idle "
+          f"{100 * (1 - dev_ms / step_ms):.1f}% of the host-clock step; halo copies "
+          f"{halo_ms:.4f} ms/step on the device ({100 * halo_ms / dev_ms:.1f}%)")
+    k = dec.coords.index(PENCIL_SHARDS[0]) if dec.pencil else 0
+    return {"launches": launches, "block": blocks[k], "origin": dec.origin(k)}
 
 
 def main() -> int:
@@ -585,23 +726,13 @@ def main() -> int:
     fl = tt.Fluid()
     dt3 = 4e-6
     g_chk, s3_64 = perturbed_state_3d(tt, N3_CHECK, 50)
-    results3 = {}
-    for dtype in (torch.float64, torch.float32):
-        key = "f64" if dtype == torch.float64 else "f32"
+    gi0, nloc = N3_SLAB
+
+    def whole_and_slab(dtype):
         s = tt.State3D(*(a.to(dtype).contiguous() for a in s3_64))
-        for label, got, want, outs in kernel_cases_3d(K3, g_chk, fl, s, dt3):
-            torch.cuda.synchronize()
-            name = label.split()[0]
-            for out_name, g_, w_ in zip(outs, got, want):
-                rel, diff = rel_err(g_, w_)
-                tol = TOL_F64 if key == "f64" else TOL_F32.get(out_name, TOL_F32_DEFAULT)
-                r = results3.setdefault(name, {"rel_f64": 0.0, "rel_f32": 0.0, "abs_f32": 0.0})
-                r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
-                if key == "f32":
-                    r["abs_f32"] = max(r["abs_f32"], diff)
-                print(f"kernel vs plain {key} {N3_CHECK}^3 {label:28s} {out_name:4s} "
-                      f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
-                check(rel <= tol, f"{label} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
+        return (("", s, {}), (f" slab@{gi0}", state_slab(s, gi0, nloc), {"gi_base": gi0}))
+
+    results3 = check_kernels_3d(K3, g_chk, fl, whole_and_slab, dt3, f"{N3_CHECK}^3")
     del s3_64
 
     # ---- 8. the 3-D golden, f64 through 'cuda'; the f32 drift ----
@@ -626,8 +757,9 @@ def main() -> int:
     g3 = tt.Grid3D(N3_MAIN, N3_MAIN, N3_MAIN)
     s3 = tt.init_state_3d(g3)
     per_step = {"predict3d_rhs": 1, "jacobi3d": 10, "correct3d": 1, "fct3d_sweep": 3}
-    launches, _ = run_path_3d(tt, counters, "3-D main path (cuda)", g3, s3, STEPS3_MAIN,
-                              {k: n * STEPS3_MAIN for k, n in per_step.items()})
+    launches, s3_serial = run_path_3d(tt, counters, "3-D main path (cuda)", g3, s3,
+                                      STEPS3_MAIN,
+                                      {k: n * STEPS3_MAIN for k, n in per_step.items()})
     path_launches.update(launches)
     # csf: predict3d_rhs launches the curvature pre-pass and the predictor
     run_path_3d(tt, counters, "3-D csf path (cuda, csf=True)", g3, s3, STEPS3_CSF,
@@ -668,39 +800,63 @@ def main() -> int:
               f"cell-updates/s, {step_ms:.4f} ms/step; device alone {dev_ms:.4f} ms/step, "
               f"idle {100 * (1 - dev_ms / step_ms):.1f}% of the host-clock step")
 
-    F3, u3, v3, w3, p3 = s3dev
-    us3, vs3, ws3, rhs3 = K3.predict3d_rhs_plain(g3, fl, dt3, u3, v3, w3, F3)
-    timed3 = {
-        "predict3d_rhs": (lambda: K3.predict3d_rhs(g3, fl, dt3, u3, v3, w3, F3),
-                          lambda: K3.predict3d_rhs_plain(g3, fl, dt3, u3, v3, w3, F3)),
-        "correct3d": (lambda: K3.correct3d(g3, fl, dt3, us3, vs3, ws3, p3, F3),
-                      lambda: K3.correct3d_plain(g3, fl, dt3, us3, vs3, ws3, p3, F3)),
-        "jacobi3d": (lambda: K3.jacobi3d(g3, 10, p3, rhs3),
-                     lambda: K3.jacobi3d_plain(g3, 10, p3, rhs3)),
-    }
-    for axis, vel in enumerate((u3, v3, w3)):
-        timed3[f"fct3d_sweep_{'xyz'[axis]}"] = (
-            lambda axis=axis, vel=vel: K3.fct3d_sweep(g3, dt3, F3, vel, axis),
-            lambda axis=axis, vel=vel: K3.fct3d_sweep_plain(g3, dt3, F3, vel, axis))
-    cells3 = F3.numel()
-    for name, (kern, plain) in timed3.items():
-        t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
-                           "host_ms": host_ms(kern, 50)}
-        base = name[:-2] if name.startswith("fct3d_sweep_") else name
-        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells3 * 4 / HBM_BYTES_PER_S
-        ops_ms = 1e3 * OPS_PER_CELL[base] * cells3 / F32_OPS_PER_S
-        t["bound_ms"] = max(bytes_ms, ops_ms)
-        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        per = " (10 launches)" if name == "jacobi3d" else ""
-        print(f"{tag} {name:15s} {tuple(F3.shape)} f32: kernel {1e3 * t['ms']:.2f} us/call"
-              f"{per} on the device ({1e3 * t['host_ms']:.2f} us per call from Python); "
-              f"plain {1e3 * t['plain_ms']:.2f} us/call on the device; bound "
-              f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
-    times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / 10
-    # the three sweep axes run equally often: one entry, their mean
-    xyz = [times.pop(f"fct3d_sweep_{a}") for a in "xyz"]
-    times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
-                            else xyz[0][k] for k in xyz[0]}
+    times.update(time_kernels_3d(K3, g3, fl, dt3, s3dev, {}, tag))
+
+    # ---- 11. the four 3-D kernels in pencil mode vs plain ----
+    from tpuvof_torch.parallel import Decomp3D, make_mesh
+
+    cuda0 = torch.device("cuda", 0)
+    mesh22 = make_mesh(devices=[cuda0] * 4)
+    g_chk, s3_64 = perturbed_state_3d(tt, N3_CHECK, 50)
+    dec_chk = Decomp3D(g_chk, mesh22, dt=dt3)
+
+    def pencil_blocks(dtype):
+        blocks = dec_chk.widen(dec_chk.scatter_state(
+            tt.State3D(*(a.to(dtype) for a in s3_64))))
+        out = []
+        for xy in PENCIL_SHARDS:
+            k = dec_chk.coords.index(xy)
+            org = dec_chk.origin(k)
+            out.append((f" pencil{xy}@({org['gi_base']},{org['gj_base']})", blocks[k], org))
+        return out
+
+    check(tuple(pencil_blocks(torch.float32)[0][1].F.shape) == (130, 130, 202),
+          "the 2x2 engine's block at 200^3 is not (130, 130, 202)")
+    results_pencil = check_kernels_3d(K3, g_chk, fl, pencil_blocks, dt3, "pencil")
+    del s3_64, dec_chk
+
+    # ---- 12. the 32^3 golden through Decomp3D, f64 ----
+    for shape in N3_GOLDEN_MESHES:
+        names = ("mx", "my")[:len(shape)]
+        dec = Decomp3D(g3g, make_mesh(int(np.prod(shape)), names, [cuda0] * 4))
+        d100 = dec.simulate(tt.init_state_3d(g3g, 1, "cuda", torch.float64), ck3)
+        d300 = dec.simulate(d100, n3s - ck3, istep0=ck3)
+        kind = "pencils" if dec.pencil else "slabs"
+        for key, got, want, serial in (
+                ("F100", d100.F, golden3["F100"], s100.F),
+                ("u100", d100.u, golden3["u100"], s100.u),
+                (f"F{n3s}", d300.F, golden3["F"], s300.F),
+                (f"u{n3s}", d300.u, golden3["u"], s300.u)):
+            err = np.abs(got.cpu().numpy() - want).max()
+            rel, _ = rel_err(got, serial)
+            print(f"golden f64 {n3g}^3 Decomp3D {shape} {kind} {key}: {err:.3e} (bar 1e-9); "
+                  f"vs serial 'cuda' rel {rel:.3e} (bar {TOL_F64:.0e})")
+            check(err <= 1e-9, f"Decomp3D {shape} golden {key} {err:.3e} > 1e-9")
+            check(rel <= TOL_F64, f"Decomp3D {shape} vs serial {key} {rel:.3e}")
+
+    # ---- 13. the distributed paths at 200^3 ----
+    dist = {}
+    for shape in N3_DIST_MESHES:
+        names = ("mx", "my")[:len(shape)]
+        dec = Decomp3D(g3, make_mesh(int(np.prod(shape)), names, [cuda0] * 4))
+        label = f"3-D distributed path ({'x'.join(map(str, shape))} "
+        label += f"{'pencils' if dec.pencil else 'slabs'}, cuda)"
+        dist[shape] = run_dist_path(tt, counters, label, dec, s3, STEPS3_MAIN,
+                                    {k: 4 * n * STEPS3_MAIN for k, n in per_step.items()},
+                                    s3_serial, tag)
+    pencil_path = dist[N3_DIST_MESHES[0]]
+    pencil_times = time_kernels_3d(K3, g3, fl, dt3, pencil_path["block"],
+                                   pencil_path["origin"], tag)
     results.update(results3)
 
     site = "tpuvof/pallas_kernels/step_kernels.py"
@@ -732,6 +888,15 @@ def main() -> int:
     fullstep = next(k for k in kernels if k["name"] == "fullstep")
     fullstep["variants"] = {name: {"launches": path_launches[name], **times[name]}
                             for name in ("fullstep_win", "fullstep_strips")}
+    # the 3-D kernels in pencil mode, on the 2x2 engine's block (phases 11, 13)
+    for k in kernels:
+        if k["name"] in results_pencil:
+            r = results_pencil[k["name"]]
+            k["variants"] = {"pencil": {
+                "block": list(pencil_path["block"].F.shape),
+                "launches": pencil_path["launches"][k["name"]], "max_abs_err": r["abs_f32"],
+                "max_rel_err_f32": r["rel_f32"], "max_rel_err_f64": r["rel_f64"],
+                **pencil_times[k["name"]]}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

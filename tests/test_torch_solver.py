@@ -212,7 +212,8 @@ def test_cases(case, ic):
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpuvof_torch, tpuvof_torch.convert, tpuvof_torch.kernels, "
             "tpuvof_torch.kernels.build, tpuvof_torch.models, tpuvof_torch.metrics, "
-            "tpuvof_torch.solver, tpuvof_torch.ops.mg, tpuvof_torch.ops.window; "
+            "tpuvof_torch.solver, tpuvof_torch.ops.mg, tpuvof_torch.ops.window, "
+            "tpuvof_torch.parallel, tpuvof_torch.parallel.dist3d; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuvof')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -4,7 +4,8 @@ The 2-D and 3-D forward steps of the two-phase Navier-Stokes/VOF solver:
 staggered MAC grid, Youngs normals with Brackbill CSF surface tension
 (opt-in in 3-D), Chorin projection with the reference's fixed-iteration
 Jacobi, Rudman/Zalesak flux-corrected VOF transport, and the
-pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid).
+pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid), and the
+3-D domain decomposition over a device mesh (``parallel``).
 ``backend='torch'`` runs plain torch ops; the ``'cuda*'`` backends run the
 hand-written kernels of ``csrc/`` (see ``solver`` and ``solver3d``).
 
@@ -23,6 +24,7 @@ from .config import (
 )
 from .grid import Grid2D, Grid3D
 from .metrics import Metrics, compute_metrics
+from .parallel import Decomp3D, admission_3d, make_mesh
 from .solver import make_step_fn, simulate, simulate_cfl, step, step_pair
 from .solver3d import simulate_3d, step_3d
 from .state import State, State3D, find_area, init_state, init_state_3d, initial_volume_fraction
@@ -40,6 +42,9 @@ __all__ = [
     "Grid3D",
     "Metrics",
     "compute_metrics",
+    "Decomp3D",
+    "admission_3d",
+    "make_mesh",
     "simulate",
     "simulate_cfl",
     "make_step_fn",

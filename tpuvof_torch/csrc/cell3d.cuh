@@ -2,10 +2,12 @@
 // fct3d.cu, jacobi3d.cu).
 //
 // Layout: a field is a row-major (n0, n1, n2) array, axis 2 = k (z)
-// contiguous, n1 = ny+2 and n2 = nz+2. Local plane l holds global i-index
-// gi_base + l of a grid with nx x ny x nz interior cells: the whole grid is
-// gi_base = 0, n0 = nx+2, and an i-slab of a larger grid (tpuvof's
-// (nloc, gi_base) origin) has n0 = nloc+2. Masks are taken at global i.
+// contiguous, n2 = nz+2. Local plane l holds global i-index gi_base + l
+// and local row m global j-index gj_base + m of a grid with nx x ny x nz
+// interior cells: the whole grid is gi_base = gj_base = 0, n0 = nx+2,
+// n1 = ny+2; an i-slab of a larger grid (tpuvof's (nloc, gi_base) origin)
+// has n0 = nloc+2; an (x, y) pencil (tpuvof's pencil mode (njl, gj_base))
+// also has n1 = njl+2. Masks are taken at global i and j.
 // Every kernel runs one thread per cell with k on threadIdx.x, so the loads
 // of a warp are one coalesced row segment; offsets are 64-bit (a 512^3
 // field with ghosts has 1.36e8 cells).
@@ -24,6 +26,7 @@ namespace tv {
 struct Vol {
   int n0, n1, n2;  // the array's extents
   int gi_base;     // global i of local plane 0
+  int gj_base;     // global j of local row 0
   int nx, ny, nz;  // the grid's interior extents
 
   __device__ __forceinline__ bool inside(int l, int j, int k) const {
@@ -35,11 +38,16 @@ struct Vol {
   // cell (l, j, k) in the global interior
   __device__ __forceinline__ bool interior(int l, int j, int k) const {
     const int gi = l + gi_base;
-    return gi >= 1 && gi <= nx && j >= 1 && j <= ny && k >= 1 && k <= nz;
+    const int gj = j + gj_base;
+    return gi >= 1 && gi <= nx && gj >= 1 && gj <= ny && k >= 1 && k <= nz;
   }
-  // the row / column / plane set_BC mirrors a ghost from
+  // the row / column / plane set_BC mirrors a ghost from (local indices;
+  // a pencil's wall rows sit mid-block; the source row lies in the array
+  // of any block that holds an interior row, the only blocks the wrappers
+  // take)
   __device__ __forceinline__ int jc(int j) const {
-    return j == 0 ? 1 : (j == ny + 1 ? ny : j);
+    const int gj = j + gj_base;
+    return gj == 0 ? j + 1 : (gj == ny + 1 ? j - 1 : j);
   }
   __device__ __forceinline__ int kc(int k) const {
     return k == 0 ? 1 : (k == nz + 1 ? nz : k);
@@ -49,6 +57,16 @@ struct Vol {
     return gi == 0 ? l + 1 : (gi == nx + 1 ? l - 1 : l);
   }
 };
+
+// A kernel templated on PENCIL takes its block through rows<PENCIL>: on
+// the whole grid and an i-slab (PENCIL false) the row origin is the
+// constant 0, so the compiler folds the global-row arithmetic away and
+// those paths run the code they ran before pencils existed.
+template <bool PENCIL>
+__device__ __forceinline__ Vol rows(Vol g) {
+  if (!PENCIL) g.gj_base = 0;
+  return g;
+}
 
 template <typename T>
 __device__ __forceinline__ T ld3(const T* __restrict__ a, const Vol& g, int l, int j,

@@ -21,9 +21,11 @@
 // (the sweeps read stale F mirrors, as the reference does). The step's last
 // sweep (mirror_out) writes fresh mirrors of its own output instead: the
 // j/k ghosts in set_BC's y-then-z order and the first and last planes as
-// copies of their neighbours (_mirror_jk, _ghost_planes_out). A thread at a
-// ghost position computes the interior value it mirrors itself, so no
-// thread reads another's output and one launch does it all.
+// copies of their neighbours (_mirror_jk, _ghost_planes_out); in a pencil
+// the j mirrors are written at the global walls only, mid-block on a y-edge
+// shard and nowhere on an interior one. A thread at a ghost position
+// computes the interior value it mirrors itself, so no thread reads
+// another's output and one launch does it all.
 #include "cell3d.cuh"
 
 namespace {
@@ -35,19 +37,23 @@ struct S3Params {
 
 // F at (l, j, k) after the sweep along AXIS: the limited update on the
 // sweep's interior, the input F elsewhere.
-template <typename T, int AXIS>
+template <typename T, int AXIS, bool PENCIL>
 __device__ __forceinline__ T sweep3d_at(const T* __restrict__ F, const T* __restrict__ vel,
                                         const tv::Vol& g, int l, int j, int k,
                                         const S3Params<T>& q) {
   const long long o = g.at(l, j, k);
   const int gi = l + g.gi_base;
+  const int gj = j + g.gj_base;
   // global index along the sweep, its interior extent, the interior test
-  // across it (the in-plane sweeps take every i-plane they are given)
-  const int idx = AXIS == 0 ? gi : (AXIS == 1 ? j : k);
+  // across it. On the whole grid and a slab the in-plane sweeps take every
+  // i-plane they are given; a pencil's also require an interior global i
+  // (tpuvof's two-axis-masked body, sweep_masked_2axis).
+  const int idx = AXIS == 0 ? gi : (AXIS == 1 ? gj : k);
   const int n_sw = AXIS == 0 ? g.nx : (AXIS == 1 ? g.ny : g.nz);
-  const bool o_int = AXIS == 0   ? (j >= 1 && j <= g.ny && k >= 1 && k <= g.nz)
-                     : AXIS == 1 ? (k >= 1 && k <= g.nz)
-                                 : (j >= 1 && j <= g.ny);
+  const bool i_ok = !PENCIL || (gi >= 1 && gi <= g.nx);
+  const bool o_int = AXIS == 0   ? (gj >= 1 && gj <= g.ny && k >= 1 && k <= g.nz)
+                     : AXIS == 1 ? (i_ok && k >= 1 && k <= g.nz)
+                                 : (i_ok && gj >= 1 && gj <= g.ny);
   if (!o_int || idx < 1 || idx > n_sw) return F[o];
 
   // position r of the line is r - 3 cells from this one along the axis
@@ -108,9 +114,10 @@ __device__ __forceinline__ T sweep3d_at(const T* __restrict__ F, const T* __rest
   return tv::clamp01(Ftd[3] - corr * q.vol / dv[3]);
 }
 
-template <typename T, int AXIS, bool MIRROR>
+template <typename T, int AXIS, bool MIRROR, bool PENCIL>
 __global__ void fct3d_kernel(const T* __restrict__ F, const T* __restrict__ vel,
-                             T* __restrict__ out, const tv::Vol g, const S3Params<T> q) {
+                             T* __restrict__ out, const tv::Vol block, const S3Params<T> q) {
+  const tv::Vol g = tv::rows<PENCIL>(block);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int l = blockIdx.z;
@@ -118,40 +125,52 @@ __global__ void fct3d_kernel(const T* __restrict__ F, const T* __restrict__ vel,
   T val;
   if (MIRROR) {
     // the output's first and last planes copy their neighbours, whose
-    // j/k ghosts mirror the swept interior
+    // j/k ghosts mirror the swept interior; the j mirrors sit at the
+    // global walls (mid-block in a pencil)
     const int ls = l == 0 ? 1 : (l == g.n0 - 1 ? g.n0 - 2 : l);
-    val = sweep3d_at<T, AXIS>(F, vel, g, ls, g.jc(j), g.kc(k), q);
+    val = sweep3d_at<T, AXIS, PENCIL>(F, vel, g, ls, g.jc(j), g.kc(k), q);
   } else if (l == 0 || l == g.n0 - 1) {
     val = F[g.at(l, j, k)];
   } else {
-    val = sweep3d_at<T, AXIS>(F, vel, g, l, j, k, q);
+    val = sweep3d_at<T, AXIS, PENCIL>(F, vel, g, l, j, k, q);
   }
   out[g.at(l, j, k)] = val;
 }
 
-template <typename T, int AXIS>
-void launch_axis(const T* F, const T* vel, T* out, tv::Vol g, const S3Params<T>& q,
+template <typename T, int AXIS, bool PENCIL>
+void launch_mode(const T* F, const T* vel, T* out, tv::Vol g, const S3Params<T>& q,
                  int mirror_out, cudaStream_t stream) {
   if (mirror_out) {
-    fct3d_kernel<T, AXIS, true><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(F, vel, out,
-                                                                            g, q);
+    fct3d_kernel<T, AXIS, true, PENCIL><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(
+        F, vel, out, g, q);
   } else {
-    fct3d_kernel<T, AXIS, false><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(F, vel, out,
-                                                                             g, q);
+    fct3d_kernel<T, AXIS, false, PENCIL><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(
+        F, vel, out, g, q);
+  }
+}
+
+template <typename T, int AXIS>
+void launch_axis(const T* F, const T* vel, T* out, tv::Vol g, const S3Params<T>& q,
+                 int mirror_out, bool pencil, cudaStream_t stream) {
+  if (pencil) {
+    launch_mode<T, AXIS, true>(F, vel, out, g, q, mirror_out, stream);
+  } else {
+    launch_mode<T, AXIS, false>(F, vel, out, g, q, mirror_out, stream);
   }
 }
 
 template <typename T>
 int launch_fct3d(const T* F, const T* vel, T* out, tv::Vol g, int axis, int mirror_out,
-                 const double* c, cudaStream_t stream) {
+                 int pencil, const double* c, cudaStream_t stream) {
   // the order of c[] is kernels/step3d_kernels.py:_sweep3d_constants
   const S3Params<T> q{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]), T(c[5])};
+  const bool pen = pencil != 0;
   if (axis == 0) {
-    launch_axis<T, 0>(F, vel, out, g, q, mirror_out, stream);
+    launch_axis<T, 0>(F, vel, out, g, q, mirror_out, pen, stream);
   } else if (axis == 1) {
-    launch_axis<T, 1>(F, vel, out, g, q, mirror_out, stream);
+    launch_axis<T, 1>(F, vel, out, g, q, mirror_out, pen, stream);
   } else if (axis == 2) {
-    launch_axis<T, 2>(F, vel, out, g, q, mirror_out, stream);
+    launch_axis<T, 2>(F, vel, out, g, q, mirror_out, pen, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -160,24 +179,26 @@ int launch_fct3d(const T* F, const T* vel, T* out, tv::Vol g, int axis, int mirr
 
 }  // namespace
 
-// F, vel: inputs; out: output; all (n0, ny+2, nz+2), local plane l at
-// global i gi_base + l. axis 0, 1, 2 sweeps x, y, z with vel = u, v, w.
-extern "C" int tv_fct3d_f32(const void* F, const void* vel, void* out, int n0, int gi_base,
-                            int nx, int ny, int nz, int axis, int mirror_out,
-                            const double* c, void* stream) {
+// F, vel: inputs; out: output; all (n0, n1, nz+2), local plane l at global
+// i gi_base + l, local row m at global j gj_base + m. axis 0, 1, 2 sweeps
+// x, y, z with vel = u, v, w. pencil != 0 selects the pencil engine's
+// in-plane masks (an interior global i required).
+extern "C" int tv_fct3d_f32(const void* F, const void* vel, void* out, int n0, int n1,
+                            int gi_base, int gj_base, int nx, int ny, int nz, int axis,
+                            int mirror_out, int pencil, const double* c, void* stream) {
   using T = float;
   return launch_fct3d<T>(static_cast<const T*>(F), static_cast<const T*>(vel),
                          static_cast<T*>(out),
-                         tv::Vol{n0, ny + 2, nz + 2, gi_base, nx, ny, nz}, axis,
-                         mirror_out, c, static_cast<cudaStream_t>(stream));
+                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, axis,
+                         mirror_out, pencil, c, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int tv_fct3d_f64(const void* F, const void* vel, void* out, int n0, int gi_base,
-                            int nx, int ny, int nz, int axis, int mirror_out,
-                            const double* c, void* stream) {
+extern "C" int tv_fct3d_f64(const void* F, const void* vel, void* out, int n0, int n1,
+                            int gi_base, int gj_base, int nx, int ny, int nz, int axis,
+                            int mirror_out, int pencil, const double* c, void* stream) {
   using T = double;
   return launch_fct3d<T>(static_cast<const T*>(F), static_cast<const T*>(vel),
                          static_cast<T*>(out),
-                         tv::Vol{n0, ny + 2, nz + 2, gi_base, nx, ny, nz}, axis,
-                         mirror_out, c, static_cast<cudaStream_t>(stream));
+                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, axis,
+                         mirror_out, pencil, c, static_cast<cudaStream_t>(stream));
 }

@@ -55,7 +55,10 @@ P3Params<T> p3_params(const double* c) {
 // u, v, w as set_BC would leave them: u is 0 on the x-wall faces (global i
 // 1 and nx+1) and mirrored into the j and k ghosts; v is 0 on the y-wall
 // faces and mirrored into the i and k ghosts; w is 0 on the z-wall faces
-// and mirrored into the j and i ghosts. 0 off the array.
+// and mirrored into the j and i ghosts. The walls are at global i and j:
+// in a pencil the y-wall rows sit mid-block, and the row a wall mirrors from
+// lies in the array, since the wrapper takes only blocks that hold an
+// interior row. 0 off the array.
 template <typename T>
 struct FixedVel {
   const T* __restrict__ u;
@@ -70,7 +73,8 @@ struct FixedVel {
     return u[g.at(l, g.jc(j), g.kc(k))];
   }
   __device__ __forceinline__ T V(int l, int j, int k) const {
-    if (!g.inside(l, j, k) || j == 1 || j == g.ny + 1) return T(0);
+    const int gj = j + g.gj_base;
+    if (!g.inside(l, j, k) || gj == 1 || gj == g.ny + 1) return T(0);
     const int ic = g.ic(l);
     if (ic < 0 || ic >= g.n0) return T(0);
     return v[g.at(ic, j, g.kc(k))];
@@ -147,9 +151,10 @@ __device__ __forceinline__ void normal_at(const T* __restrict__ F, const tv::Vol
 }
 
 // kappa = -div(normal) on the global interior, 0 elsewhere.
-template <typename T>
+template <typename T, bool PENCIL>
 __global__ void kappa3d_kernel(const T* __restrict__ F, T* __restrict__ kappa,
-                               const tv::Vol g, const P3Params<T> q) {
+                               const tv::Vol block, const P3Params<T> q) {
+  const tv::Vol g = tv::rows<PENCIL>(block);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int l = blockIdx.z;
@@ -169,15 +174,16 @@ __global__ void kappa3d_kernel(const T* __restrict__ F, T* __restrict__ kappa,
   kappa[g.at(l, j, k)] = kap;
 }
 
-// u* at global i in [2, nx], j, k interior; 0 elsewhere and off the array.
-// kappa is null without csf.
+// u* at global i in [2, nx], global j and k interior; 0 elsewhere and off
+// the array. kappa is null without csf.
 template <typename T>
 __device__ __forceinline__ T star_u(const FixedVel<T>& X, const T* __restrict__ F,
                                     const T* __restrict__ kappa, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
-  if (!g.inside(l, j, k) || gi < 2 || gi > g.nx || j < 1 || j > g.ny || k < 1 || k > g.nz)
+  const int gj = j + g.gj_base;
+  if (!g.inside(l, j, k) || gi < 2 || gi > g.nx || gj < 1 || gj > g.ny || k < 1 || k > g.nz)
     return T(0);
   const T uc = X.U(l, j, k);
   const T v_here = T(0.25) * (X.V(l - 1, j, k) + X.V(l - 1, j + 1, k) + X.V(l, j, k) +
@@ -203,14 +209,15 @@ __device__ __forceinline__ T star_u(const FixedVel<T>& X, const T* __restrict__ 
   return uc + q.dt * acc;
 }
 
-// v* at global i in [1, nx], j in [2, ny], k interior.
+// v* at global i in [1, nx], global j in [2, ny], k interior.
 template <typename T>
 __device__ __forceinline__ T star_v(const FixedVel<T>& X, const T* __restrict__ F,
                                     const T* __restrict__ kappa, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
-  if (!g.inside(l, j, k) || gi < 1 || gi > g.nx || j < 2 || j > g.ny || k < 1 || k > g.nz)
+  const int gj = j + g.gj_base;
+  if (!g.inside(l, j, k) || gi < 1 || gi > g.nx || gj < 2 || gj > g.ny || k < 1 || k > g.nz)
     return T(0);
   const T vc = X.V(l, j, k);
   const T u_here = T(0.25) * (X.U(l, j - 1, k) + X.U(l, j, k) + X.U(l + 1, j - 1, k) +
@@ -236,14 +243,15 @@ __device__ __forceinline__ T star_v(const FixedVel<T>& X, const T* __restrict__ 
   return vc + q.dt * acc;
 }
 
-// w* at global i in [1, nx], j interior, k in [2, nz].
+// w* at global i in [1, nx], global j interior, k in [2, nz].
 template <typename T>
 __device__ __forceinline__ T star_w(const FixedVel<T>& X, const T* __restrict__ F,
                                     const T* __restrict__ kappa, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
-  if (!g.inside(l, j, k) || gi < 1 || gi > g.nx || j < 1 || j > g.ny || k < 2 || k > g.nz)
+  const int gj = j + g.gj_base;
+  if (!g.inside(l, j, k) || gi < 1 || gi > g.nx || gj < 1 || gj > g.ny || k < 2 || k > g.nz)
     return T(0);
   const T wc = X.W(l, j, k);
   const T u_here = T(0.25) * (X.U(l + 1, j, k - 1) + X.U(l, j, k - 1) + X.U(l + 1, j, k) +
@@ -271,13 +279,14 @@ __device__ __forceinline__ T star_w(const FixedVel<T>& X, const T* __restrict__ 
 
 // u*, v*, w* and rhs of one cell; all four are 0 on the array's first and
 // last planes (the Pallas kernel's zeroed ghost planes).
-template <typename T>
+template <typename T, bool PENCIL>
 __global__ void predict3d_kernel(const T* __restrict__ u, const T* __restrict__ v,
                                  const T* __restrict__ w, const T* __restrict__ F,
                                  const T* __restrict__ kappa, T* __restrict__ us,
                                  T* __restrict__ vs, T* __restrict__ ws,
-                                 T* __restrict__ rhs, const tv::Vol g,
+                                 T* __restrict__ rhs, const tv::Vol block,
                                  const P3Params<T> q) {
+  const tv::Vol g = tv::rows<PENCIL>(block);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int l = blockIdx.z;
@@ -305,49 +314,60 @@ __global__ void predict3d_kernel(const T* __restrict__ u, const T* __restrict__ 
   rhs[o] = r;
 }
 
+template <typename T, bool PENCIL>
+int launch_rows(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us, T* vs,
+                T* ws, T* rhs, tv::Vol g, const P3Params<T>& q, cudaStream_t stream) {
+  const dim3 grid = tv::grid3d(g);
+  if (kappa) {
+    kappa3d_kernel<T, PENCIL><<<grid, tv::block3d(), 0, stream>>>(F, kappa, g, q);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  predict3d_kernel<T, PENCIL><<<grid, tv::block3d(), 0, stream>>>(u, v, w, F, kappa, us, vs,
+                                                                 ws, rhs, g, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_predict3d(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us,
                      T* vs, T* ws, T* rhs, tv::Vol g, const double* c,
                      cudaStream_t stream) {
   const P3Params<T> q = p3_params<T>(c);
-  const dim3 grid = tv::grid3d(g);
-  if (kappa) {
-    kappa3d_kernel<T><<<grid, tv::block3d(), 0, stream>>>(F, kappa, g, q);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (g.gj_base != 0) {
+    return launch_rows<T, true>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
   }
-  predict3d_kernel<T><<<grid, tv::block3d(), 0, stream>>>(u, v, w, F, kappa, us, vs, ws,
-                                                         rhs, g, q);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<T, false>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
 }
 
 }  // namespace
 
 // u, v, w, F: inputs; us, vs, ws, rhs: outputs; kappa: a scratch field for
-// csf, or null without it. All (n0, ny+2, nz+2), local plane l at global i
-// gi_base + l.
+// csf, or null without it. All (n0, n1, nz+2), local plane l at global i
+// gi_base + l, local row m at global j gj_base + m.
 extern "C" int tv_predict3d_f32(const void* u, const void* v, const void* w,
                                 const void* F, void* kappa, void* us, void* vs, void* ws,
-                                void* rhs, int n0, int gi_base, int nx, int ny, int nz,
+                                void* rhs, int n0, int n1, int gi_base, int gj_base,
+                                int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = float;
   return launch_predict3d<T>(
       static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(F), static_cast<T*>(kappa), static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(ws), static_cast<T*>(rhs),
-      tv::Vol{n0, ny + 2, nz + 2, gi_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tv_predict3d_f64(const void* u, const void* v, const void* w,
                                 const void* F, void* kappa, void* us, void* vs, void* ws,
-                                void* rhs, int n0, int gi_base, int nx, int ny, int nz,
+                                void* rhs, int n0, int n1, int gi_base, int gj_base,
+                                int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = double;
   return launch_predict3d<T>(
       static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(F), static_cast<T*>(kappa), static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(ws), static_cast<T*>(rhs),
-      tv::Vol{n0, ny + 2, nz + 2, gi_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
       static_cast<cudaStream_t>(stream));
 }

@@ -13,11 +13,19 @@ of each ``pallas_call`` site):
                                       streamed_jacobi_3d (jacobi3d.py:418)
   =============  ===================  ==============================================
 
-Fields are (n0, ny+2, nz+2) tensors whose local plane l holds global
-i-index gi_base + l: the whole grid is gi_base = 0, n0 = nx+2; an i-slab
-(tpuvof's nloc, gi_base) is exact on its planes beyond the stencil's reach
-of its two i-edges and junk by contract nearer. tpuvof's pencil mode
-(njl, gj_base) belongs to the distributed engine and is not ported yet.
+Fields are (n0, n1, nz+2) tensors whose local plane l holds global
+i-index gi_base + l and whose local row m holds global j-index
+gj_base + m: the whole grid is gi_base = 0, n0 = nx+2, n1 = ny+2; an
+i-slab (tpuvof's nloc, gi_base) has n0 = nloc+2; an (x, y) pencil (tpuvof's
+pencil mode, njl and gj_base) also has n1 = njl+2. A block is exact beyond
+the stencil's reach of its edges and junk by contract nearer; every mask
+is global, so a pencil's y-wall rows sit mid-block on a y-edge shard and
+nowhere on an interior one. ``njl=None`` means the whole j range
+(n1 = ny+2, gj_base = 0). Of the four functions only the sweep computes
+something else on a pencil (its in-plane sweeps also mask by global i);
+the others take ``njl`` so that every kernel takes one block origin.
+tpuvof pads a pencil's planes to its (8, 128) tiling; the port's blocks
+are unpadded.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
@@ -78,11 +86,11 @@ def _iota(shape, axis, device, start=0):
     return (torch.arange(shape[axis], device=device) + start).reshape(view)
 
 
-def bc_fix_uvw(g: Grid3D, u, v, w, gi):
+def bc_fix_uvw(g: Grid3D, u, v, w, gi, gj_base: int = 0):
     """u, v, w as set_BC (y, then x, then z faces) would leave them, from
     their interior values (tpuvof's _bc_fix_uvw); ``gi`` is the global
-    i-index of each plane."""
-    j = _iota(u.shape, 1, u.device)
+    i-index of each plane, ``gj_base`` the global j-index of row 0."""
+    j = _iota(u.shape, 1, u.device, gj_base)
     k = _iota(u.shape, 2, u.device)
     jm, km, im = g.ny + 1, g.nz + 1, g.nx + 1
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
@@ -127,7 +135,7 @@ def _curvature_block(g: Grid3D, F, m_int):
 
 
 def predict3d_rhs_plain(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
-                        gi_base: int = 0):
+                        gi_base: int = 0, njl: int | None = None, gj_base: int = 0):
     """(u*, v*, w*, rhs) of the lean step (tpuvof's _predict_kernel): the
     BC fix, rho/nu, the upwind predictor (with csf, normals, curvature and
     the sigma terms), the projection rhs; zero off the update ranges and
@@ -136,14 +144,14 @@ def predict3d_rhs_plain(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
     shape = F.shape
     dxi, dyi, dzi = g.dxi, g.dyi, g.dzi
     gi = _iota(shape, 0, dev, gi_base)
-    j = _iota(shape, 1, dev)
+    j = _iota(shape, 1, dev, gj_base)
     k = _iota(shape, 2, dev)
     j_int = (j >= 1) & (j <= g.ny)
     k_int = (k >= 1) & (k <= g.nz)
     i_int = (gi >= 1) & (gi <= g.nx)
     zero = torch.zeros((), dtype=F.dtype, device=dev)
 
-    u, v, w = bc_fix_uvw(g, u, v, w, gi)
+    u, v, w = bc_fix_uvw(g, u, v, w, gi, gj_base)
     rho, nu = mix_properties(fl, F)
     if csf:
         kappa = _curvature_block(g, F, i_int & j_int & k_int)
@@ -229,13 +237,13 @@ def predict3d_rhs_plain(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
 
 
 def correct3d_plain(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F,
-                    gi_base: int = 0):
+                    gi_base: int = 0, njl: int | None = None, gj_base: int = 0):
     """(u, v, w) = u* - dt/rho_face * grad p on the update ranges, zero
     everywhere else (tpuvof's _correct_kernel)."""
     dev = F.device
     shape = F.shape
     gi = _iota(shape, 0, dev, gi_base)
-    j = _iota(shape, 1, dev)
+    j = _iota(shape, 1, dev, gj_base)
     k = _iota(shape, 2, dev)
     i_int = (gi >= 1) & (gi <= g.nx)
     j_int = (j >= 1) & (j <= g.ny)
@@ -257,50 +265,62 @@ def correct3d_plain(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F,
     return outs
 
 
-def mirror_jk(g: Grid3D, x):
+def mirror_jk(g: Grid3D, x, gj_base: int = 0):
     """F's ghost mirrors in set_BC's y-then-z order (tpuvof's _mirror_jk);
-    returns a new tensor."""
+    returns a new tensor. The y mirrors are written at the global walls
+    only (row m holds global j gj_base + m), mid-block on a pencil's y-edge
+    shard; a source row off the array reads 0. tpuvof also bounds them to
+    rows <= njl+1 to keep its pad rows zero: the port's blocks end there."""
     x = x.clone()
-    x[:, 0, :] = x[:, 1, :]
-    x[:, g.ny + 1, :] = x[:, g.ny, :]
+    n1 = x.shape[1]
+    for wall, src in ((0, 1), (g.ny + 1, g.ny)):
+        m, ms = wall - gj_base, src - gj_base
+        if 0 <= m < n1:
+            x[:, m, :] = x[:, ms, :] if 0 <= ms < n1 else 0.0
     x[:, :, 0] = x[:, :, 1]
     x[:, :, g.nz + 1] = x[:, :, g.nz]
     return x
 
 
 def fct3d_sweep_plain(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
-                      gi_base: int = 0):
+                      gi_base: int = 0, njl: int | None = None, gj_base: int = 0):
     """F after one sweep along ``axis`` (0, 1, 2 = x, y, z; vel = u, v, w).
     The first and last planes carry the input's (stale) ghosts through, or
     with ``mirror_out`` (the step's last sweep) the output is given fresh
     j/k mirrors and those planes copy their neighbours (tpuvof's
-    _mirror_jk and _ghost_planes_out)."""
-    out = sweep3d(g, dt, F, vel, axis, gi_base)
+    _mirror_jk and _ghost_planes_out). A pencil (``njl`` given) is swept
+    by the two-axis-masked body (ops/fct3d.sweep_masked_2axis)."""
+    out = sweep3d(g, dt, F, vel, axis, gi_base, None if njl is None else gj_base)
     if mirror_out:
-        out = mirror_jk(g, out)
+        out = mirror_jk(g, out, gj_base)
         out[0] = out[1]
         out[-1] = out[-2]
     return out
 
 
-def _ghost_mask(g: Grid3D, shape, device, gi_base: int):
+def _ghost_mask(g: Grid3D, shape, device, gi_base: int, gj_base: int):
+    """The block's edge planes and rows and every position at or beyond a
+    global wall (tpuvof's ghost ring, with a pencil's block-edge rows)."""
     gi = _iota(shape, 0, device, gi_base)
     l = _iota(shape, 0, device)
-    j = _iota(shape, 1, device)
+    gj = _iota(shape, 1, device, gj_base)
+    m = _iota(shape, 1, device)
     k = _iota(shape, 2, device)
     return ((l == 0) | (l == shape[0] - 1) | (gi <= 0) | (gi >= g.nx + 1)
-            | (j == 0) | (j >= g.ny + 1) | (k == 0) | (k >= g.nz + 1))
+            | (m == 0) | (m == shape[1] - 1) | (gj <= 0) | (gj >= g.ny + 1)
+            | (k == 0) | (k >= g.nz + 1))
 
 
-def jacobi3d_plain(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0):
+def jacobi3d_plain(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0,
+                   njl: int | None = None, gj_base: int = 0):
     """``n_iter`` exact Jacobi iterations with the ghost ring held at zero
     (tpuvof's pallas_jacobi_3d and streamed_jacobi_3d); returns a new p
     whose ghost ring is zero."""
     dev, dtype = p.device, p.dtype
-    ghost = _ghost_mask(g, p.shape, dev, gi_base)
+    ghost = _ghost_mask(g, p.shape, dev, gi_base, gj_base)
     (cx, cy, cz), classes = poisson_constants_3d(g)
     gi = _iota(p.shape, 0, dev, gi_base)
-    j = _iota(p.shape, 1, dev)
+    j = _iota(p.shape, 1, dev, gj_base)
     k = _iota(p.shape, 2, dev)
     ap_inv = ap_inv_3d(classes, (gi == 1) | (gi == g.nx), (j == 1) | (j == g.ny),
                        (k == 1) | (k == g.nz), dtype, dev)
@@ -352,48 +372,58 @@ def _jacobi3d_constants(g: Grid3D):
 # ----------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------
-def _field_shape(name: str, g: Grid3D, t: torch.Tensor):
-    """(n0, ny+2, nz+2) of an i-slab or the whole grid."""
-    if t.dim() != 3 or t.shape[0] < 3 or tuple(t.shape[1:]) != (g.ny + 2, g.nz + 2):
-        raise ValueError(f"{name}: a field is (n0 >= 3, {g.ny + 2}, {g.nz + 2}), "
+def _field_shape(name: str, g: Grid3D, t: torch.Tensor, njl: int | None, gj_base: int):
+    """(n0, n1, nz+2) of the whole grid, an i-slab (n1 = ny+2) or a pencil
+    (n1 = njl+2). A pencil must hold a global interior row: the kernels
+    then find every wall's mirror row in the array."""
+    if njl is None and gj_base != 0:
+        raise ValueError(f"{name}: gj_base={gj_base} needs a pencil's njl")
+    n1 = g.ny + 2 if njl is None else int(njl) + 2
+    if not (gj_base <= g.ny and gj_base + n1 - 1 >= 1):
+        raise ValueError(f"{name}: a pencil of rows {gj_base}..{gj_base + n1 - 1} "
+                         f"holds no interior row of 1..{g.ny}")
+    if t.dim() != 3 or t.shape[0] < 3 or tuple(t.shape[1:]) != (n1, g.nz + 2):
+        raise ValueError(f"{name}: a field is (n0 >= 3, {n1}, {g.nz + 2}), "
                          f"not {tuple(t.shape)}")
     return tuple(t.shape)
 
 
-def _vol(shape, g: Grid3D, gi_base: int):
-    return (shape[0], int(gi_base), g.nx, g.ny, g.nz)
+def _vol(shape, g: Grid3D, gi_base: int, gj_base: int):
+    return (shape[0], shape[1], int(gi_base), int(gj_base), g.nx, g.ny, g.nz)
 
 
 def predict3d_rhs(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
-                  gi_base: int = 0):
+                  gi_base: int = 0, njl: int | None = None, gj_base: int = 0):
     """(u*, v*, w*, rhs) of the lean step; counterpart of tpuvof's
     pallas_predict3d_rhs. With csf a curvature pre-pass kernel runs first,
     in the same call."""
+    shape = _field_shape("predict3d_rhs", g, F, njl, gj_base)
     if _on_cpu(F):
-        return predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, gi_base)
-    shape = _field_shape("predict3d_rhs", g, F)
+        return predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, gi_base, njl, gj_base)
     lib, fn, stream = _checked("predict3d", shape, u, v, w, F)
     outs = [torch.empty_like(F) for _ in range(4)]
     kappa = torch.empty_like(F) if csf else None
     status = fn(u.data_ptr(), v.data_ptr(), w.data_ptr(), F.data_ptr(),
                 None if kappa is None else kappa.data_ptr(),
-                *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base),
+                *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, gj_base),
                 _predict3d_constants(g, fl, float(dt)), stream)
     _raise_on_error(lib, "predict3d_rhs", status)
     LAUNCHES["predict3d_rhs"] += 2 if csf else 1
     return tuple(outs)
 
 
-def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: int = 0):
+def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: int = 0,
+              njl: int | None = None, gj_base: int = 0):
     """(u, v, w) after the velocity correction, zero off the update
     ranges; counterpart of tpuvof's pallas_correct3d."""
+    shape = _field_shape("correct3d", g, F, njl, gj_base)
     if _on_cpu(F):
-        return correct3d_plain(g, fl, dt, u_star, v_star, w_star, p, F, gi_base)
-    shape = _field_shape("correct3d", g, F)
+        return correct3d_plain(g, fl, dt, u_star, v_star, w_star, p, F, gi_base, njl,
+                               gj_base)
     lib, fn, stream = _checked("correct3d", shape, u_star, v_star, w_star, p, F)
     outs = [torch.empty_like(F) for _ in range(3)]
     status = fn(u_star.data_ptr(), v_star.data_ptr(), w_star.data_ptr(), p.data_ptr(),
-                F.data_ptr(), *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base),
+                F.data_ptr(), *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, gj_base),
                 _correct3d_constants(g, fl, float(dt)), stream)
     _raise_on_error(lib, "correct3d", status)
     LAUNCHES["correct3d"] += 1
@@ -401,38 +431,41 @@ def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: i
 
 
 def fct3d_sweep(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
-                gi_base: int = 0):
+                gi_base: int = 0, njl: int | None = None, gj_base: int = 0):
     """F after one FCT sweep along ``axis`` (0, 1, 2 with vel = u, v, w);
     ``mirror_out`` for the step's last sweep. Counterpart of tpuvof's
     pallas_fct3d_sweep."""
     if axis not in (0, 1, 2):
         raise ValueError(f"axis must be 0, 1 or 2, not {axis}")
+    shape = _field_shape("fct3d_sweep", g, F, njl, gj_base)
     if _on_cpu(F):
-        return fct3d_sweep_plain(g, dt, F, vel, axis, mirror_out, gi_base)
-    shape = _field_shape("fct3d_sweep", g, F)
+        return fct3d_sweep_plain(g, dt, F, vel, axis, mirror_out, gi_base, njl, gj_base)
     lib, fn, stream = _checked("fct3d", shape, F, vel)
     out = torch.empty_like(F)
-    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(), *_vol(shape, g, gi_base),
-                axis, int(bool(mirror_out)), _sweep3d_constants(g, float(dt), axis), stream)
+    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(),
+                *_vol(shape, g, gi_base, gj_base), axis, int(bool(mirror_out)),
+                int(njl is not None), _sweep3d_constants(g, float(dt), axis), stream)
     _raise_on_error(lib, "fct3d_sweep", status)
     LAUNCHES["fct3d_sweep"] += 1
     return out
 
 
-def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0):
+def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0, njl: int | None = None,
+             gj_base: int = 0):
     """p after ``n_iter`` >= 1 Jacobi iterations, with a zeroed ghost ring;
     one launch per iteration. Counterpart of tpuvof's pallas_jacobi_3d and
     streamed_jacobi_3d, which compute the same iteration."""
     if n_iter < 1:
         raise ValueError(f"jacobi3d needs n_iter >= 1, not {n_iter}")
+    shape = _field_shape("jacobi3d", g, p, njl, gj_base)
     if _on_cpu(p):
-        return jacobi3d_plain(g, n_iter, p, rhs, gi_base)
-    shape = _field_shape("jacobi3d", g, p)
+        return jacobi3d_plain(g, n_iter, p, rhs, gi_base, njl, gj_base)
     lib, fn, stream = _checked("jacobi3d", shape, p, rhs)
     out = torch.empty_like(p)
     tmp = torch.empty_like(p) if n_iter > 1 else out
     status = fn(p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                *_vol(shape, g, gi_base), int(n_iter), _jacobi3d_constants(g), stream)
+                *_vol(shape, g, gi_base, gj_base), int(n_iter), _jacobi3d_constants(g),
+                stream)
     _raise_on_error(lib, "jacobi3d", status)
     LAUNCHES["jacobi3d"] += n_iter
     return out

@@ -12,7 +12,7 @@ vol/dv), the limiter is min(1, q/p) where p > 0 with no epsilon, and the
 correction is divided by final_div.
 
 ``fct3d_sweep_x/_y/_z`` keep tpuvof's names for the whole-grid sweep;
-``sweep3d`` on an i-block is the kernel's plain version
+``sweep3d`` on an i-block or an (x, y) pencil is the kernel's plain version
 (kernels/step3d_kernels.py).
 """
 from __future__ import annotations
@@ -23,8 +23,8 @@ from ..grid import Grid3D
 from .common import clamp01
 
 __all__ = ["fct3d_sweep_x", "fct3d_sweep_y", "fct3d_sweep_z", "sweep3d", "rudman_advect_3d",
-           "upwind_advect_3d", "sweep_x_masked", "sweep_inplane_masked", "axis_scales",
-           "shift3"]
+           "upwind_advect_3d", "sweep_x_masked", "sweep_inplane_masked",
+           "sweep_masked_2axis", "axis_scales", "shift3"]
 
 
 def axis_scales(g: Grid3D, axis: int):
@@ -38,12 +38,16 @@ def axis_scales(g: Grid3D, axis: int):
     return (vol, g.dx * g.dy, g.dy * g.dx / vol, g.dz, g.dz)
 
 
-def sweep3d(g: Grid3D, dt, F, vel, axis: int, gi0: int = 0):
+def sweep3d(g: Grid3D, dt, F, vel, axis: int, gi0: int = 0, gj0: int | None = None):
     """F after one sweep along ``axis`` (0, 1, 2 with vel = u, v, w) on a
     block whose plane l holds global i-index gi0 + l; its first and last
     planes carry F. On the whole grid (gi0 = 0) this is the sweep of
-    tpuvof/ops/fct3d.py: every non-interior position carries F."""
-    if axis == 0:
+    tpuvof/ops/fct3d.py: every non-interior position carries F. With
+    ``gj0`` the block is an (x, y) pencil whose row m holds global j-index
+    gj0 + m, swept by the two-axis-masked body (tpuvof's pencil mode)."""
+    if gj0 is not None:
+        out = sweep_masked_2axis(g, dt, F, vel, axis, gi0, gj0)
+    elif axis == 0:
         out = sweep_x_masked(g, dt, F, vel, gi0)
     else:
         out = sweep_inplane_masked(g, dt, F, vel, axis)
@@ -184,3 +188,25 @@ def sweep_inplane_masked(g: Grid3D, dt, F, vel, axis: int):
     return _sweep_masked(g, dt, F, vel, axis, idx, n_sweep, o_int,
                          lambda x, d: shift3(x, 0, d if axis == 1 else 0,
                                              d if axis == 2 else 0))
+
+
+def sweep_masked_2axis(g: Grid3D, dt, F, vel, axis: int, gi0: int, gj0: int):
+    """One sweep along ``axis`` on an (x, y) pencil whose position (l, m, n)
+    holds global indices (gi0 + l, gj0 + m, n), every mask global in i and
+    j (tpuvof's sweep_masked_2axis, the pencil engine's sweep body). Unlike
+    the slab's in-plane sweeps, the y- and z-sweeps also require an
+    interior global i. Positions within 3 cells of a block edge along the
+    sweep axis are junk unless that edge is the true wall. tpuvof's
+    ``nj_valid`` bound keeps its sublane-pad rows at zero; the port's
+    blocks have no pad rows, so every row is in bounds."""
+    dev = F.device
+    gi = _iota(F.shape, 0, dev) + gi0
+    gj = _iota(F.shape, 1, dev) + gj0
+    k = _iota(F.shape, 2, dev)
+    m_i = (gi >= 1) & (gi <= g.nx)
+    m_j = (gj >= 1) & (gj <= g.ny)
+    m_k = (k >= 1) & (k <= g.nz)
+    o_int = {0: m_j & m_k, 1: m_i & m_k, 2: m_i & m_j}[axis]
+    return _sweep_masked(g, dt, F, vel, axis, (gi, gj, k)[axis], (g.nx, g.ny, g.nz)[axis],
+                         o_int, lambda x, d: shift3(x, *(d if a == axis else 0
+                                                         for a in range(3))))
