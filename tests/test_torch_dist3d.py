@@ -179,8 +179,12 @@ def test_admission_decisions():
     a = admission_3d(tt.Grid3D(200, 200, 200), 4, 1, csf=True)
     assert (a["ok"], a["pencil"], a["W"], a["nloc"], a["Wy"], a["nyE"]) == \
         (True, False, 16, 82, 0, 200)
-    assert admission_3d(G16, 2, 1, NJ, halo_width=7)["W"] == 7
-    assert not admission_3d(G16, 2, 1, NJ, halo_width=5)["ok"]  # below the cone
+    # W and Wy are the step's cone, n_jacobi + 4 (+6 with csf), nothing else
+    a = admission_3d(G16, 2, 1, NJ, pencil=True)
+    assert (a["ok"], a["pencil"], a["W"], a["nloc"], a["Wy"], a["nyE"]) == \
+        (True, True, NJ + 4, 8 + 2 * (NJ + 4), NJ + 4, 16 + 2 * (NJ + 4))
+    assert admission_3d(G16, 2, 1, NJ, csf=True)["W"] == NJ + 6
+    assert not admission_3d(G16, 2, 2, NJ, csf=True)["ok"]  # W + 1 = 9 > nx/px = 8
     assert not admission_3d(G16, 2, 1, 10)["ok"]  # W = 14 > nx/px - 1
 
 

@@ -45,9 +45,12 @@ struct Vol {
   // a pencil's wall rows sit mid-block; the source row lies in the array
   // of any block that holds an interior row, the only blocks the wrappers
   // take)
+  // (written with the walls' local rows 1 - gj_base and ny - gj_base, so
+  // that with the row origin the constant 0 it is the whole grid's
+  // j == 0 ? 1 : (j == ny + 1 ? ny : j))
   __device__ __forceinline__ int jc(int j) const {
     const int gj = j + gj_base;
-    return gj == 0 ? j + 1 : (gj == ny + 1 ? j - 1 : j);
+    return gj == 0 ? 1 - gj_base : (gj == ny + 1 ? ny - gj_base : j);
   }
   __device__ __forceinline__ int kc(int k) const {
     return k == 0 ? 1 : (k == nz + 1 ? nz : k);
@@ -61,7 +64,9 @@ struct Vol {
 // A kernel templated on PENCIL takes its block through rows<PENCIL>: on
 // the whole grid and an i-slab (PENCIL false) the row origin is the
 // constant 0, so the compiler folds the global-row arithmetic away and
-// those paths run the code they ran before pencils existed.
+// those paths run the code they ran before pencils existed. Every entry
+// point takes the mode as an int flag (the wrappers' njl given or not)
+// and picks the instantiation from it alone.
 template <bool PENCIL>
 __device__ __forceinline__ Vol rows(Vol g) {
   if (!PENCIL) g.gj_base = 0;

@@ -72,10 +72,11 @@ __global__ void correct3d_kernel(const T* __restrict__ us, const T* __restrict__
 
 template <typename T>
 int launch_correct3d(const T* us, const T* vs, const T* ws, const T* p, const T* F, T* u,
-                     T* v, T* w, tv::Vol g, const double* c, cudaStream_t stream) {
+                     T* v, T* w, tv::Vol g, int pencil, const double* c,
+                     cudaStream_t stream) {
   // the order of c[] is kernels/step3d_kernels.py:_correct3d_constants
   const C3Params<T> q{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]), T(c[5])};
-  if (g.gj_base != 0) {
+  if (pencil) {
     correct3d_kernel<T, true><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(us, vs, ws, p, F,
                                                                           u, v, w, g, q);
   } else {
@@ -88,31 +89,32 @@ int launch_correct3d(const T* us, const T* vs, const T* ws, const T* p, const T*
 }  // namespace
 
 // us, vs, ws, p, F: inputs; u, v, w: outputs; all (n0, n1, nz+2), local
-// plane l at global i gi_base + l, local row m at global j gj_base + m.
+// plane l at global i gi_base + l, local row m at global j gj_base + m;
+// pencil != 0 for a pencil (tpuvof's njl given).
 extern "C" int tv_correct3d_f32(const void* us, const void* vs, const void* ws,
                                 const void* p, const void* F, void* u, void* v, void* w,
-                                int n0, int n1, int gi_base, int gj_base, int nx,
-                                int ny, int nz,
+                                int n0, int n1, int gi_base, int gj_base, int pencil,
+                                int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = float;
   return launch_correct3d<T>(
       static_cast<const T*>(us), static_cast<const T*>(vs), static_cast<const T*>(ws),
       static_cast<const T*>(p), static_cast<const T*>(F), static_cast<T*>(u),
       static_cast<T*>(v), static_cast<T*>(w),
-      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil, c,
       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tv_correct3d_f64(const void* us, const void* vs, const void* ws,
                                 const void* p, const void* F, void* u, void* v, void* w,
-                                int n0, int n1, int gi_base, int gj_base, int nx,
-                                int ny, int nz,
+                                int n0, int n1, int gi_base, int gj_base, int pencil,
+                                int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = double;
   return launch_correct3d<T>(
       static_cast<const T*>(us), static_cast<const T*>(vs), static_cast<const T*>(ws),
       static_cast<const T*>(p), static_cast<const T*>(F), static_cast<T*>(u),
       static_cast<T*>(v), static_cast<T*>(w),
-      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil, c,
       static_cast<cudaStream_t>(stream));
 }

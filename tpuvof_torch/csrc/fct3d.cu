@@ -160,8 +160,8 @@ void launch_axis(const T* F, const T* vel, T* out, tv::Vol g, const S3Params<T>&
 }
 
 template <typename T>
-int launch_fct3d(const T* F, const T* vel, T* out, tv::Vol g, int axis, int mirror_out,
-                 int pencil, const double* c, cudaStream_t stream) {
+int launch_fct3d(const T* F, const T* vel, T* out, tv::Vol g, int pencil, int axis,
+                 int mirror_out, const double* c, cudaStream_t stream) {
   // the order of c[] is kernels/step3d_kernels.py:_sweep3d_constants
   const S3Params<T> q{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]), T(c[5])};
   const bool pen = pencil != 0;
@@ -181,24 +181,24 @@ int launch_fct3d(const T* F, const T* vel, T* out, tv::Vol g, int axis, int mirr
 
 // F, vel: inputs; out: output; all (n0, n1, nz+2), local plane l at global
 // i gi_base + l, local row m at global j gj_base + m. axis 0, 1, 2 sweeps
-// x, y, z with vel = u, v, w. pencil != 0 selects the pencil engine's
-// in-plane masks (an interior global i required).
+// x, y, z with vel = u, v, w. pencil != 0 for a pencil (tpuvof's njl
+// given): its in-plane sweeps also require an interior global i.
 extern "C" int tv_fct3d_f32(const void* F, const void* vel, void* out, int n0, int n1,
-                            int gi_base, int gj_base, int nx, int ny, int nz, int axis,
-                            int mirror_out, int pencil, const double* c, void* stream) {
+                            int gi_base, int gj_base, int pencil, int nx, int ny, int nz,
+                            int axis, int mirror_out, const double* c, void* stream) {
   using T = float;
   return launch_fct3d<T>(static_cast<const T*>(F), static_cast<const T*>(vel),
                          static_cast<T*>(out),
-                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, axis,
-                         mirror_out, pencil, c, static_cast<cudaStream_t>(stream));
+                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil,
+                         axis, mirror_out, c, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tv_fct3d_f64(const void* F, const void* vel, void* out, int n0, int n1,
-                            int gi_base, int gj_base, int nx, int ny, int nz, int axis,
-                            int mirror_out, int pencil, const double* c, void* stream) {
+                            int gi_base, int gj_base, int pencil, int nx, int ny, int nz,
+                            int axis, int mirror_out, const double* c, void* stream) {
   using T = double;
   return launch_fct3d<T>(static_cast<const T*>(F), static_cast<const T*>(vel),
                          static_cast<T*>(out),
-                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, axis,
-                         mirror_out, pencil, c, static_cast<cudaStream_t>(stream));
+                         tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil,
+                         axis, mirror_out, c, static_cast<cudaStream_t>(stream));
 }

@@ -82,8 +82,8 @@ __global__ void jacobi3d_kernel(const T* __restrict__ src, const T* __restrict__
 }
 
 template <typename T>
-int launch_jacobi3d(const T* p, const T* rhs, T* out, T* tmp, tv::Vol g, int n_iter,
-                    const double* c, cudaStream_t stream) {
+int launch_jacobi3d(const T* p, const T* rhs, T* out, T* tmp, tv::Vol g, int pencil,
+                    int n_iter, const double* c, cudaStream_t stream) {
   // the order of c[] is kernels/step3d_kernels.py:_jacobi3d_constants
   J3Params<T> q;
   q.cx = T(c[0]);
@@ -94,7 +94,7 @@ int launch_jacobi3d(const T* p, const T* rhs, T* out, T* tmp, tv::Vol g, int n_i
   for (int it = 0; it < n_iter; ++it) {
     // the last iteration writes out
     T* dst = (n_iter - 1 - it) % 2 == 0 ? out : tmp;
-    if (g.gj_base != 0) {
+    if (pencil) {
       jacobi3d_kernel<T, true><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(src, rhs, dst, g,
                                                                            q);
     } else {
@@ -111,24 +111,26 @@ int launch_jacobi3d(const T* p, const T* rhs, T* out, T* tmp, tv::Vol g, int n_i
 }  // namespace
 
 // p, rhs: inputs; out: output; tmp: scratch; all (n0, n1, nz+2), local
-// plane l at global i gi_base + l, local row m at global j gj_base + m.
-// n_iter >= 1 launches.
+// plane l at global i gi_base + l, local row m at global j gj_base + m;
+// pencil != 0 for a pencil (tpuvof's njl given). n_iter >= 1 launches.
 extern "C" int tv_jacobi3d_f32(const void* p, const void* rhs, void* out, void* tmp, int n0,
-                               int n1, int gi_base, int gj_base, int nx, int ny, int nz,
-                               int n_iter, const double* c, void* stream) {
+                               int n1, int gi_base, int gj_base, int pencil, int nx,
+                               int ny, int nz, int n_iter, const double* c, void* stream) {
   using T = float;
   return launch_jacobi3d<T>(static_cast<const T*>(p), static_cast<const T*>(rhs),
                             static_cast<T*>(out), static_cast<T*>(tmp),
-                            tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, n_iter,
+                            tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil,
+                            n_iter,
                             c, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tv_jacobi3d_f64(const void* p, const void* rhs, void* out, void* tmp, int n0,
-                               int n1, int gi_base, int gj_base, int nx, int ny, int nz,
-                               int n_iter, const double* c, void* stream) {
+                               int n1, int gi_base, int gj_base, int pencil, int nx,
+                               int ny, int nz, int n_iter, const double* c, void* stream) {
   using T = double;
   return launch_jacobi3d<T>(static_cast<const T*>(p), static_cast<const T*>(rhs),
                             static_cast<T*>(out), static_cast<T*>(tmp),
-                            tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, n_iter,
+                            tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil,
+                            n_iter,
                             c, static_cast<cudaStream_t>(stream));
 }

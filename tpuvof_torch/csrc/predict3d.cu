@@ -330,10 +330,10 @@ int launch_rows(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us,
 
 template <typename T>
 int launch_predict3d(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us,
-                     T* vs, T* ws, T* rhs, tv::Vol g, const double* c,
+                     T* vs, T* ws, T* rhs, tv::Vol g, int pencil, const double* c,
                      cudaStream_t stream) {
   const P3Params<T> q = p3_params<T>(c);
-  if (g.gj_base != 0) {
+  if (pencil) {
     return launch_rows<T, true>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
   }
   return launch_rows<T, false>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
@@ -343,31 +343,32 @@ int launch_predict3d(const T* u, const T* v, const T* w, const T* F, T* kappa, T
 
 // u, v, w, F: inputs; us, vs, ws, rhs: outputs; kappa: a scratch field for
 // csf, or null without it. All (n0, n1, nz+2), local plane l at global i
-// gi_base + l, local row m at global j gj_base + m.
+// gi_base + l, local row m at global j gj_base + m; pencil != 0 for a
+// pencil (tpuvof's njl given).
 extern "C" int tv_predict3d_f32(const void* u, const void* v, const void* w,
                                 const void* F, void* kappa, void* us, void* vs, void* ws,
                                 void* rhs, int n0, int n1, int gi_base, int gj_base,
-                                int nx, int ny, int nz,
+                                int pencil, int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = float;
   return launch_predict3d<T>(
       static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(F), static_cast<T*>(kappa), static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(ws), static_cast<T*>(rhs),
-      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil, c,
       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tv_predict3d_f64(const void* u, const void* v, const void* w,
                                 const void* F, void* kappa, void* us, void* vs, void* ws,
                                 void* rhs, int n0, int n1, int gi_base, int gj_base,
-                                int nx, int ny, int nz,
+                                int pencil, int nx, int ny, int nz,
                                 const double* c, void* stream) {
   using T = double;
   return launch_predict3d<T>(
       static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(F), static_cast<T*>(kappa), static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(ws), static_cast<T*>(rhs),
-      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, c,
+      tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil, c,
       static_cast<cudaStream_t>(stream));
 }

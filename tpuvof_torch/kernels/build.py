@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _BLOCK = [_I] * 6  # E0, E1, oi, oj, nx, ny
-_VOL = [_I] * 7  # n0, n1, gi_base, gj_base, nx, ny, nz
+_VOL = [_I] * 8  # n0, n1, gi_base, gj_base, pencil, nx, ny, nz
 _SIGNATURES = {
     "tv_predict": [_P] * 6 + _BLOCK + [_D, _P],
     "tv_project": [_P] * 11 + [_I, _I, _I, _D, _P],
@@ -43,7 +43,7 @@ _SIGNATURES = {
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
     "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
     "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
-    "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _I, _D, _P],
+    "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
     "tv_jacobi3d": [_P] * 4 + _VOL + [_I, _D, _P],
 }
 

@@ -21,9 +21,12 @@ pencil mode, njl and gj_base) also has n1 = njl+2. A block is exact beyond
 the stencil's reach of its edges and junk by contract nearer; every mask
 is global, so a pencil's y-wall rows sit mid-block on a y-edge shard and
 nowhere on an interior one. ``njl=None`` means the whole j range
-(n1 = ny+2, gj_base = 0). Of the four functions only the sweep computes
-something else on a pencil (its in-plane sweeps also mask by global i);
-the others take ``njl`` so that every kernel takes one block origin.
+(n1 = ny+2, gj_base = 0); ``njl`` given is the pencil mode, and it alone
+selects the kernels' pencil instantiation, the same way for all four. Of
+the four functions only the sweep computes something else on a pencil
+(its in-plane sweeps also mask by global i); the others' masks already
+take global j, and they take ``njl`` so that every kernel takes one block
+origin, which the wrappers check against the block's rows.
 tpuvof pads a pencil's planes to its (8, 128) tiling; the port's blocks
 are unpadded.
 
@@ -388,8 +391,12 @@ def _field_shape(name: str, g: Grid3D, t: torch.Tensor, njl: int | None, gj_base
     return tuple(t.shape)
 
 
-def _vol(shape, g: Grid3D, gi_base: int, gj_base: int):
-    return (shape[0], shape[1], int(gi_base), int(gj_base), g.nx, g.ny, g.nz)
+def _vol(shape, g: Grid3D, gi_base: int, njl: int | None, gj_base: int):
+    """The entry points' block arguments: extents, origin, the pencil flag
+    (njl given; it alone picks the kernels' pencil instantiation) and the
+    grid."""
+    return (shape[0], shape[1], int(gi_base), int(gj_base), int(njl is not None),
+            g.nx, g.ny, g.nz)
 
 
 def predict3d_rhs(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
@@ -405,7 +412,7 @@ def predict3d_rhs(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
     kappa = torch.empty_like(F) if csf else None
     status = fn(u.data_ptr(), v.data_ptr(), w.data_ptr(), F.data_ptr(),
                 None if kappa is None else kappa.data_ptr(),
-                *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, gj_base),
+                *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, njl, gj_base),
                 _predict3d_constants(g, fl, float(dt)), stream)
     _raise_on_error(lib, "predict3d_rhs", status)
     LAUNCHES["predict3d_rhs"] += 2 if csf else 1
@@ -423,7 +430,8 @@ def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: i
     lib, fn, stream = _checked("correct3d", shape, u_star, v_star, w_star, p, F)
     outs = [torch.empty_like(F) for _ in range(3)]
     status = fn(u_star.data_ptr(), v_star.data_ptr(), w_star.data_ptr(), p.data_ptr(),
-                F.data_ptr(), *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, gj_base),
+                F.data_ptr(), *(o.data_ptr() for o in outs),
+                *_vol(shape, g, gi_base, njl, gj_base),
                 _correct3d_constants(g, fl, float(dt)), stream)
     _raise_on_error(lib, "correct3d", status)
     LAUNCHES["correct3d"] += 1
@@ -443,8 +451,8 @@ def fct3d_sweep(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
     lib, fn, stream = _checked("fct3d", shape, F, vel)
     out = torch.empty_like(F)
     status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                *_vol(shape, g, gi_base, gj_base), axis, int(bool(mirror_out)),
-                int(njl is not None), _sweep3d_constants(g, float(dt), axis), stream)
+                *_vol(shape, g, gi_base, njl, gj_base), axis, int(bool(mirror_out)),
+                _sweep3d_constants(g, float(dt), axis), stream)
     _raise_on_error(lib, "fct3d_sweep", status)
     LAUNCHES["fct3d_sweep"] += 1
     return out
@@ -464,7 +472,7 @@ def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0, njl: int | None =
     out = torch.empty_like(p)
     tmp = torch.empty_like(p) if n_iter > 1 else out
     status = fn(p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                *_vol(shape, g, gi_base, gj_base), int(n_iter), _jacobi3d_constants(g),
+                *_vol(shape, g, gi_base, njl, gj_base), int(n_iter), _jacobi3d_constants(g),
                 stream)
     _raise_on_error(lib, "jacobi3d", status)
     LAUNCHES["jacobi3d"] += n_iter

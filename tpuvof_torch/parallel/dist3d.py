@@ -58,8 +58,7 @@ __all__ = ["Decomp3D", "admission_3d"]
 
 
 def admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
-                 halo_width: int | None = None, pencil: bool | None = None,
-                 csf: bool = False) -> dict:
+                 pencil: bool | None = None, csf: bool = False) -> dict:
     """Whether the wide-halo engine admits a px x py decomposition, and
     its geometry (tpuvof's pallas_admission_3d). Needs nx % px == ny % py
     == 0 (the caller checks). Returns a dict:
@@ -70,27 +69,27 @@ def admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
       Wy, nyE  y cone and extended interior row count (0 and nyl for slabs)
       why      the reason when not ok
 
-    Only tpuvof's decisions are ported: each halo of W+1 planes (Wy+1
-    rows) must come from one neighbour's owned planes, so W+1 <= nx/px
-    (and Wy+1 <= ny/py). Its slab-chunk rounding of W, its even-nx/px
-    condition and its VMEM residency test size the TPU's chunks and
-    scratch and are dropped: W only widens the sacrificial halo, so the
-    cells a shard keeps do not depend on it. A ``halo_width`` below the
-    cone is refused (tpuvof does not check it)."""
+    Only tpuvof's decisions are ported: W = n_jacobi + 4 (+6 with csf),
+    the step's dependency cone, and Wy likewise; each halo of W+1 planes
+    (Wy+1 rows) must come from one neighbour's owned planes, so W+1 <=
+    nx/px (and Wy+1 <= ny/py). Its slab-chunk rounding of W (the reason
+    for its ``halo_width`` option), its even-nx/px condition and its VMEM
+    residency test size the TPU's chunks and scratch and are dropped: a
+    wider W only adds sacrificial halo work, since the cells a shard keeps
+    do not depend on it, so W is the cone and nothing sets it."""
     nxl, nyl = g.nx // px, g.ny // py
     use_pencil = (py > 1) if pencil is None else bool(pencil)
     # csf widens the predictor's F cone from +-1 to +-3 planes (kappa at
     # i+-1 needs normals at i+-2, which need F at i+-3)
     base = n_jacobi + (6 if csf else 4)
-    W = base if halo_width is None else int(halo_width)
+    W = base
     Wy = base if use_pencil else 0
     nloc, nyE = nxl + 2 * W, nyl + 2 * Wy
-    ok = base <= W and W + 1 <= nxl and (not use_pencil or Wy + 1 <= nyl)
+    ok = W + 1 <= nxl and (not use_pencil or Wy + 1 <= nyl)
     why = ""
     if not ok:
         why = (f"needs nx/px > W={W} (nx/px={nxl})"
-               + (f", ny/py > Wy={Wy} (ny/py={nyl})" if use_pencil else "")
-               + (f" and halo_width >= {base}" if W < base else ""))
+               + (f", ny/py > Wy={Wy} (ny/py={nyl})" if use_pencil else ""))
     return dict(ok=ok, pencil=use_pencil, W=W, nloc=nloc, Wy=Wy, nyE=nyE, why=why)
 
 
@@ -101,7 +100,11 @@ def _on(device: torch.device):
 
 class Decomp3D:
     """Domain decomposition of a 3-D grid: x slabs over a 1-axis mesh, or
-    (x, y) pencils over a 2-axis mesh with py > 1 (or ``pencil=True``).
+    (x, y) pencils over a 2-axis mesh with py > 1. ``pencil=True`` forces
+    the pencil engine on a 2-axis mesh with py == 1 (tpuvof's option): it
+    computes the slab engine's answer with 2 Wy more rows a block, so it
+    serves only to hold the pencil path to the slab and serial ones, as the
+    tests do.
 
     Only ``backend='cuda'`` with the fixed Jacobi exists: ``'torch'`` (the
     counterpart of tpuvof's XLA engine) and the residual-driven solvers
@@ -116,8 +119,8 @@ class Decomp3D:
     Shards are lists in ``coords`` order, (xi, yi) row-major."""
 
     def __init__(self, g: Grid3D, mesh: Mesh, fl: Fluid | None = None, dt: float = 4e-6,
-                 n_jacobi: int = 10, backend: str = "cuda", halo_width: int | None = None,
-                 pencil: bool = False, pressure_solver: str = "jacobi", csf: bool = False):
+                 n_jacobi: int = 10, backend: str = "cuda", pencil: bool = False,
+                 pressure_solver: str = "jacobi", csf: bool = False):
         axes = tuple(mesh.axis_names)
         if len(axes) not in (1, 2):
             raise ValueError("Decomp3D expects a 1-axis (x slabs) or 2-axis (x, y "
@@ -148,7 +151,7 @@ class Decomp3D:
         self.fl = fl or Fluid()
         self.dt, self.n_jacobi, self.csf = dt, n_jacobi, bool(csf)
         self.pencil = len(axes) == 2 and (self.py > 1 or bool(pencil))
-        adm = admission_3d(g, self.px, self.py, n_jacobi, halo_width, self.pencil, self.csf)
+        adm = admission_3d(g, self.px, self.py, n_jacobi, self.pencil, self.csf)
         if not adm["ok"]:
             raise ValueError(f"Decomp3D: the wide-halo engine {adm['why']}; tpuvof falls "
                              "back to its XLA engine there, which the port does not have "
@@ -300,8 +303,7 @@ class Decomp3D:
         return kw
 
     def _step_shard(self, k: int, block: State3D, phase: int) -> State3D:
-        g, W, nxl = self.g, self.W, self.nxl
-        xi = self.coords[k][0]
+        g = self.g
         kw = self.origin(k)
         F, u, v, w, p = block
         with _on(self.devices[k]):
@@ -311,15 +313,20 @@ class Decomp3D:
             vels = K3.correct3d(g, self.fl, self.dt, us, vs, ws, p, F, **kw)
             for idx, axis in enumerate(SWEEP_ORDER[phase]):
                 F = K3.fct3d_sweep(g, self.dt, F, vels[axis], axis, idx == 2, **kw)
-            # the global x-wall planes sit mid-block, where the in-plane
-            # sweeps processed them: restore the fresh mirror the next
-            # step's sweeps read (the serial last sweep's _ghost_planes_out)
-            if xi == 0:
-                F[W] = F[W + 1]
-            if xi == self.px - 1:
-                F[W + nxl + 1] = F[W + nxl]
+            self._restore_wall_planes(k, F)
         u, v, w = vels
         return State3D(F=F, u=u, v=v, w=w, p=p)
+
+    def _restore_wall_planes(self, k: int, F: torch.Tensor) -> None:
+        """On an x-edge shard the global x-wall plane of F sits mid-block,
+        where the in-plane sweeps processed it: restore the fresh mirror the
+        next step's sweeps read (the serial last sweep's _ghost_planes_out).
+        In place; nothing on an interior shard."""
+        xi, W, nxl = self.coords[k][0], self.W, self.nxl
+        if xi == 0:
+            F[W] = F[W + 1]
+        if xi == self.px - 1:
+            F[W + nxl + 1] = F[W + nxl]
 
     def advance(self, blocks: list[State3D], n_steps: int, istep0: int = 0) -> list[State3D]:
         """``n_steps`` steps on the extended blocks; ``istep0`` is the last
