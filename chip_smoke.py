@@ -8,13 +8,17 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Phases, each fatal on failure:
   1. device: the card's name and power limit; TF32 off.
   2. build: the kernels of tpuvof_torch/csrc, compiled from this checkout
-     (one nvcc per source, in parallel).
+     (one nvcc per source, in parallel); the bulk-copy instructions in the
+     fullstep_dma kernels' SASS, counted with cuobjdump.
   3. kernel vs plain: every kernel against its plain PyTorch version on a
      perturbed, developed 512^2 dam-break state, in f64 and f32: the phase
-     kernels; fullstep (both parities), fullstep_win (an interior and a
-     corner tile), fullstep_strips (NaN in the margins), predict_win and
-     fct_sweep_win (x and y). Then the whole-step engines against each
-     other in f64: mono == tiled == strips.
+     kernels; fullstep and fullstep_dma (both parities), fullstep_win (an
+     interior and a corner tile), fullstep_strips (NaN in the margins),
+     predict_win and fct_sweep_win (x and y). Then the whole-step engines
+     against each other in f64: mono == tiled == strips; and fullstep_dma ==
+     fullstep bit for bit, f64 and f32, both parities, at 512^2 and 63^2
+     (E0*E1 odd), the allocator's blocks of the outputs' size filled with
+     NaN before each call.
   4. golden: the 64^2 dam break in f64 through the phase kernels ('cuda')
      and through the whole-step kernel ('cuda_mono'), against
      tests/golden_dambreak_64_1000.npz at 300 and 1000 steps.
@@ -68,6 +72,15 @@ Phases, each fatal on failure:
      (a CUDA graph of a step triple), idle share, the halo copies' and the F
      wall-plane fixes' device ms per step, and each kernel's time in pencil
      mode beside its plain version and its bound.
+ 14. the DMA path (scripts/torch_mono_dma_ab.py's loop), counts set to 0
+     before and read after: 512^2 f32 x 1000 steps as (odd, even) pairs of
+     fullstep_dma from init_state with the BCs applied (1000 fullstep_dma
+     launches and no other), F, u, v, p equal to phase 5's 'cuda_mono' result
+     bit for bit; 1024^2 and 2048^2 x 100 steps, each equal bit for bit to
+     the same loop on fullstep. At each size: host-clock ms/step (best of 3,
+     alternating with the mono loop), device-alone ms/step of both (a CUDA
+     graph of a step pair), idle share, and the kernel's us per launch
+     beside its plain version's and its bound.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -85,6 +98,9 @@ import torch
 
 N_MAIN = 512  # the size bench.py has always timed
 STEPS_MAIN = 1000
+N_ODD = 63  # phase 3: a grid whose E0*E1 (65^2) is not a multiple of 4
+# phase 14: (n, steps); 2048^2 f32 fields (16.8 MB each) work out of the 50 MB L2
+DMA_SIZES = ((N_MAIN, STEPS_MAIN), (1024, 100), (2048, 100))
 STEPS_HYBRID = 100
 TILE = 128  # the tiled engines' tile in phases 3 and 5
 SEED = 0
@@ -109,7 +125,8 @@ OPS_PER_CELL = {"predict": 129, "project": 8 + 9 * 10 + 14, "fct_sweep": 40,
 # Fields each function must read once and write once.
 FIELDS_MOVED = {"predict": 5, "project": 9, "fct_sweep": 3, "fullstep": 8}
 for _name, _of in (("predict_win", "predict"), ("fct_sweep_win", "fct_sweep"),
-                   ("fullstep_win", "fullstep"), ("fullstep_strips", "fullstep")):
+                   ("fullstep_win", "fullstep"), ("fullstep_strips", "fullstep"),
+                   ("fullstep_dma", "fullstep")):
     OPS_PER_CELL[_name] = OPS_PER_CELL[_of]
     FIELDS_MOVED[_name] = FIELDS_MOVED[_of]
 
@@ -203,6 +220,8 @@ def kernel_cases(K, cfg, s):
     for even in (False, True):
         cases.append(("fullstep", K.fullstep(cfg, F, u, v, p, even),
                       K.fullstep_plain(cfg, F, u, v, p, even), "Fuvp", None))
+        cases.append(("fullstep_dma", K.fullstep_dma(cfg, F, u, v, p, even),
+                      K.fullstep_dma_plain(cfg, F, u, v, p, even), "Fuvp", None))
     W = K.STEP_HALO(cfg)
     centre = (slice(W, -W), slice(W, -W))
     for r0, c0 in ((n // 2, n // 4), (0, n - TILE)):  # an interior and a corner tile
@@ -298,6 +317,119 @@ def run_path(tt, K, label, cfg, s0, steps, want_launches, mass_bar=1e-3):
     check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
     check(drift <= mass_bar, f"{label}: mass drift {drift:.3e} > {mass_bar:.0e}")
     return launches, s_end
+
+
+def bulk_copy_sass(build) -> dict:
+    """{kernel function: its bulk-copy SASS instructions (UBLK*, UTMA*)} of
+    the fullstep_dma kernels of the built library (cuobjdump)."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    dump = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for block in dump.split("Function : ")[1:]:
+        name = block.split()[0]
+        if "fullstep_dma" in name:
+            counts[name] = re.findall(r"\b(?:UBLK|UTMA)[A-Z0-9_.]*", block)
+    return counts
+
+
+def poison_blocks(like: torch.Tensor, count: int = 8) -> None:
+    """Leave ``count`` NaN-filled blocks of ``like``'s size in the caching
+    allocator (allocate, fill, free): outputs allocated next start as NaN,
+    so a chunk that a kernel never stored shows."""
+    blocks = [torch.full_like(like, float("nan")) for _ in range(count)]
+    del blocks
+
+
+def step_pairs(kernel, cfg, s, steps: int):
+    """``steps`` steps of a whole-step kernel from fields ``s`` as (odd,
+    even) parity pairs, simulate's order from istep0 = 0."""
+    for _ in range(steps // 2):
+        s = kernel(cfg, *s, False)
+        s = kernel(cfg, *s, True)
+    return s
+
+
+def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
+    """Phase 14 at n^2 f32: ``steps`` of fullstep_dma from init_state with
+    the BCs applied, counts set to 0 before and read after; the fields
+    equal bit for bit to ``want`` (default: the same loop on fullstep);
+    then host-clock and device-alone times of both loops, and the kernel
+    per launch beside its plain version and its bound."""
+    cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
+    s0 = tuple(S._with_bc(tt.init_state(cfg)))
+    mass0 = tt.compute_metrics(cfg, tt.State(*s0)).mass.item()
+    label = f"DMA path {n}^2 f32 x{steps}"
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    s_dma = step_pairs(K.fullstep_dma, cfg, s0, steps)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in K.LAUNCHES.items() if c}
+    print(f"{label} launches: {launches}")
+    check(launches == {"fullstep_dma": steps}, f"{label}: launch counts {launches}")
+    if want is None:
+        want = step_pairs(K.fullstep, cfg, s0, steps)
+    diff = max((a - b).abs().max().item() for a, b in zip(s_dma, want))
+    same = all(torch.equal(a, b) for a, b in zip(s_dma, want))
+    m = tt.compute_metrics(cfg, tt.State(*s_dma))
+    drift = abs(m.mass.item() - mass0) / mass0
+    Fmin, Fmax = s_dma[0].min().item(), s_dma[0].max().item()
+    print(f"{label}: F, u, v, p equal to the mono loop's bit for bit: {same} (max|d| "
+          f"{diff:.3e}); finite={bool(m.finite)} F in [{Fmin:.3e}, {Fmax:.3e}] mass "
+          f"drift {drift:.3e}")
+    check(same, f"{label}: fullstep_dma differs from fullstep, max|d| {diff:.3e}")
+    check(bool(m.finite), f"{label}: non-finite fields")
+    check(0.0 <= Fmin and Fmax <= 1.0, f"{label}: F outside [0, 1]: [{Fmin}, {Fmax}]")
+    check(drift <= 1e-3, f"{label}: mass drift {drift:.3e} > 1e-3")
+
+    kernels = {"dma": K.fullstep_dma, "mono": K.fullstep}
+    runs = {name: [] for name in kernels}
+
+    def run(kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_pairs(kernel, cfg, s0, steps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for kernel in kernels.values():  # warm-up
+        run(kernel)
+    for r in range(3):  # best of 3, alternating which loop goes first
+        for name in ("dma", "mono") if r % 2 == 0 else ("mono", "dma"):
+            runs[name].append(run(kernels[name]))
+    out = {}
+    for name in ("mono", "dma", "dma", "mono"):  # device alone, in turns
+        dev = device_ms(lambda k=kernels[name]: step_pairs(k, cfg, s_dma, 2), 10) / 2
+        out.setdefault(name, []).append(dev)
+    cells = (n + 2) ** 2
+    bytes_ms = 1e3 * FIELDS_MOVED["fullstep_dma"] * cells * 4 / HBM_BYTES_PER_S
+    ops_ms = 1e3 * OPS_PER_CELL["fullstep_dma"] * cells / F32_OPS_PER_S
+    res = {"n": n, "steps": steps, "launches": steps, "equal_to_fullstep": same,
+           "ms": device_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 20),
+           "mono_ms": device_ms(lambda: K.fullstep(cfg, *s_dma, False), 20),
+           "plain_ms": device_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 3),
+           "host_ms": host_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 100),
+           "plain_host_ms": host_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 5),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    for name in ("mono", "dma"):
+        step_ms = 1e3 * min(runs[name]) / steps
+        dev = min(out[name])
+        res[f"{name}_step_ms"], res[f"{name}_device_step_ms"] = step_ms, dev
+        print(f"{tag} {name} loop {n}^2 x{steps} f32: best {min(runs[name]):.4f} s of "
+              f"{[round(t, 4) for t in runs[name]]}, {n * n * steps / min(runs[name]):.4e} "
+              f"cell-updates/s, {step_ms:.4f} ms/step; device alone "
+              f"{[round(d, 5) for d in out[name]]} ms/step, idle "
+              f"{100 * (1 - dev / step_ms):.1f}% of the host-clock step")
+    print(f"{tag} fullstep_dma ({n + 2}, {n + 2}) f32: kernel {1e3 * res['ms']:.2f} us/launch "
+          f"on the device (fullstep {1e3 * res['mono_ms']:.2f}; dma/mono "
+          f"{res['ms'] / res['mono_ms']:.4f}; {1e3 * res['host_ms']:.2f} us per call from "
+          f"Python); plain {1e3 * res['plain_ms']:.2f} us/call on the device "
+          f"({1e3 * res['plain_host_ms']:.2f} us from Python); bound "
+          f"{1e3 * res['bound_ms']:.2f} us ({res['bound_by']})")
+    return res
 
 
 def perturbed_state_3d(tt, n: int, steps: int):
@@ -545,6 +677,11 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    bulk = bulk_copy_sass(build)
+    for name, ins in bulk.items():
+        print(f"bulk-copy SASS in {name}: {len(ins)} ({', '.join(sorted(set(ins)))})")
+    check(len(bulk) == 2 and all(bulk.values()),
+          f"the fullstep_dma kernels hold no bulk-copy instructions: {bulk}")
 
     # ---- 3. kernel vs plain on the card ----
     cfg64 = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda"))
@@ -580,6 +717,22 @@ def main() -> int:
             print(f"engines f64 mono == {label} (even={even}): max abs {diff:.3e} "
                   f"(bar {TOL_ENGINES:.0e})")
             check(diff <= TOL_ENGINES, f"mono vs {label}: {diff:.3e}")
+    # fullstep_dma == fullstep bit for bit, its outputs' blocks NaN beforehand
+    for n_b, s_b in ((N_MAIN, s64), (N_ODD, perturbed_state(tt, N_ODD, 50))):
+        cfg_b = tt.dam_break_2d(n_b, num=tt.Numerics(backend="cuda_mono"))
+        for dtype in (torch.float64, torch.float32):
+            st = [a.to(dtype).contiguous() for a in s_b]
+            for even in (False, True):
+                want = K.fullstep(cfg_b, *st, even)
+                poison_blocks(st[0])
+                got = K.fullstep_dma(cfg_b, *st, even)
+                torch.cuda.synchronize()
+                diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                print(f"fullstep_dma == fullstep {n_b}^2 {str(dtype)[6:]} (even={even}, "
+                      f"{(n_b + 2) ** 2} cells): bit for bit {same}, max|d| {diff:.3e}")
+                check(same, f"fullstep_dma vs fullstep {n_b}^2 {dtype} even={even}: "
+                            f"max|d| {diff:.3e}")
 
     # ---- 4. the slice in f64 against the golden, phase and mono routes ----
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -607,8 +760,8 @@ def main() -> int:
     cfg = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda"))
     s0 = tt.init_state(cfg)
     path_launches = {}
-    launches, _ = run_path(tt, K, "main path (cuda_mono)", cfg_mono, s0, STEPS_MAIN,
-                           {"fullstep": STEPS_MAIN})
+    launches, s_mono_main = run_path(tt, K, "main path (cuda_mono)", cfg_mono, s0,
+                                     STEPS_MAIN, {"fullstep": STEPS_MAIN})
     path_launches.update(launches)
     for backend, name, per_step in (("cuda_tiled", "fullstep_win", N_MAIN // S.TILE_ROWS),
                                     ("cuda_strips", "fullstep_strips", 1)):
@@ -888,6 +1041,15 @@ def main() -> int:
                                    pencil_path["origin"], tag)
     results.update(results3)
 
+    # ---- 14. the DMA path: fullstep_dma's step-pair loop ----
+    dma = {}
+    for n, steps in DMA_SIZES:
+        dma[n] = run_dma_path(tt, S, K, tag, n, steps,
+                              want=tuple(s_mono_main) if n == N_MAIN else None)
+    path_launches["fullstep_dma"] = dma[N_MAIN]["launches"]
+    times["fullstep_dma"] = {k: dma[N_MAIN][k] for k in (
+        "ms", "plain_ms", "host_ms", "plain_host_ms", "bound_ms", "bound_by")}
+
     site = "tpuvof/pallas_kernels/step_kernels.py"
     sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),
                "project": ("tpuvof_torch/csrc/project.cu", f"{site}:237"),
@@ -896,6 +1058,7 @@ def main() -> int:
                "fct_sweep_win": ("tpuvof_torch/csrc/fct_sweep.cu", f"{site}:539"),
                "fullstep": ("tpuvof_torch/csrc/fullstep.cu",
                             f"{site}:669, {site}:1119, {site}:1089"),
+               "fullstep_dma": ("tpuvof_torch/csrc/fullstep_dma.cu", f"{site}:793"),
                "predict3d_rhs": ("tpuvof_torch/csrc/predict3d.cu",
                                  "tpuvof/pallas_kernels/step3d.py:520"),
                "correct3d": ("tpuvof_torch/csrc/correct3d.cu",
@@ -917,6 +1080,10 @@ def main() -> int:
     fullstep = next(k for k in kernels if k["name"] == "fullstep")
     fullstep["variants"] = {name: {"launches": path_launches[name], **times[name]}
                             for name in ("fullstep_win", "fullstep_strips")}
+    # fullstep_dma at every size of phase 14; its bulk-copy instructions
+    fullstep_dma = next(k for k in kernels if k["name"] == "fullstep_dma")
+    fullstep_dma["sizes"] = {str(n + 2): r for n, r in dma.items()}
+    fullstep_dma["bulk_copy_sass"] = {name: len(ins) for name, ins in bulk.items()}
     # the 3-D kernels in pencil mode, on the 2x2 engine's block (phases 11, 13)
     for k in kernels:
         if k["name"] in results_pencil:

@@ -18,11 +18,11 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds", "build_log"]
+__all__ = ["load_library", "library_path", "build_seconds", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu", "fullstep.cu",
+_SOURCES = ("predict.cu", "project.cu", "fct_sweep.cu", "fullstep.cu", "fullstep_dma.cu",
             "predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
 # --fmad=false: no a*b+c is contracted, so the kernels round as their plain
 # PyTorch versions do (the f64 bars are 1e-12 and the dam-break flow
@@ -41,6 +41,7 @@ _SIGNATURES = {
     "tv_project": [_P] * 11 + [_I, _I, _I, _D, _P],
     "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
+    "tv_fullstep_dma": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
     "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
     "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
     "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
@@ -134,6 +135,11 @@ def load_library() -> ctypes.CDLL:
         lib.tv_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def library_path() -> Path:
+    """The built kernel library's file (building it first if need be)."""
+    return Path(load_library()._name)
 
 
 def build_seconds() -> float | None:

@@ -3,24 +3,30 @@
 Counterpart of tpuvof/pallas_kernels/step_kernels.py's ``pallas_call``
 sites (file:line of each site):
 
-  ================  ===================  ==============================================
-  wrapper           CUDA source          replaces
-  ================  ===================  ==============================================
-  predict           csrc/predict.cu      pallas_predict (:444)
-  project           csrc/project.cu      project_pressure_and_correct (:237)
-  fct_sweep         csrc/fct_sweep.cu    pallas_fct_sweep_x / _y (_pallas_sweep, :330)
-  predict_win       csrc/predict.cu      pallas_predict_win (:506)
-  fct_sweep_win     csrc/fct_sweep.cu    pallas_fct_sweep_win (:539)
-  fullstep          csrc/fullstep.cu     pallas_fullstep (:669)
-  fullstep_win      csrc/fullstep.cu     pallas_fullstep_win (:1119)
-  fullstep_strips   csrc/fullstep.cu     pallas_fullstep_strips (:1089)
-  ================  ===================  ==============================================
+  ================  ====================  ==============================================
+  wrapper           CUDA source           replaces
+  ================  ====================  ==============================================
+  predict           csrc/predict.cu       pallas_predict (:444)
+  project           csrc/project.cu       project_pressure_and_correct (:237)
+  fct_sweep         csrc/fct_sweep.cu     pallas_fct_sweep_x / _y (_pallas_sweep, :330)
+  predict_win       csrc/predict.cu       pallas_predict_win (:506)
+  fct_sweep_win     csrc/fct_sweep.cu     pallas_fct_sweep_win (:539)
+  fullstep          csrc/fullstep.cu      pallas_fullstep (:669)
+  fullstep_win      csrc/fullstep.cu      pallas_fullstep_win (:1119)
+  fullstep_strips   csrc/fullstep.cu      pallas_fullstep_strips (:1089)
+  fullstep_dma      csrc/fullstep_dma.cu  pallas_fullstep_dma (:793)
+  ================  ====================  ==============================================
 
 The ``_win`` wrappers and ``fullstep_strips`` take blocks with a global
 origin (oi, oj): the index of the block's (0, 0) in the ghost-included
 grid. Their outputs are exact on the cells at least the phase's halo
 (PHASE_HALO, STEP_HALO) away from the block's edges; closer, they are
 junk by contract, and callers keep the centre.
+
+``fullstep_dma`` computes ``fullstep``'s step bit for bit and moves the
+state by bulk asynchronous copies. As in tpuvof, no solver route calls
+it: its callers are its A/B script (scripts/torch_mono_dma_ab.py) and the
+tests. Its operands must be 16-byte aligned.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
@@ -63,6 +69,7 @@ __all__ = [
     "fullstep",
     "fullstep_win",
     "fullstep_strips",
+    "fullstep_dma",
     "predict_plain",
     "project_plain",
     "fct_sweep_plain",
@@ -71,12 +78,13 @@ __all__ = [
     "fullstep_plain",
     "fullstep_win_plain",
     "fullstep_strips_plain",
+    "fullstep_dma_plain",
 ]
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
 LAUNCHES = {name: 0 for name in ("predict", "project", "fct_sweep", "predict_win",
                                  "fct_sweep_win", "fullstep", "fullstep_win",
-                                 "fullstep_strips")}
+                                 "fullstep_strips", "fullstep_dma")}
 
 #: Dependency radius of one phase kernel (predict, or one FCT sweep): a
 #: block widened by it beyond its ghost ring yields exact phase outputs on
@@ -162,6 +170,13 @@ def fullstep_strips_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
     offset (W2, W2) of (nx+2+2*W2, ny+2+2*W2) arrays, W2 = strips_halo."""
     w2 = strips_halo(cfg)
     return _win.step_values(cfg, F, u, v, p, -w2, -w2, even_step)
+
+
+def fullstep_dma_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """(F, u, v, p) after one lean step on the whole grid (tpuvof's
+    _fullstep_dma_kernel, which computes _fullstep_kernel's step and only
+    moves the state otherwise): fullstep_plain's computation."""
+    return _win.step_values(cfg, F, u, v, p, 0, 0, even_step)
 
 
 # ----------------------------------------------------------------------
@@ -333,8 +348,8 @@ def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
     return _launch_sweep("fct_sweep_win", cfg, F, vel, axis, shape, int(oi), int(oj))
 
 
-def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step):
-    lib, fn, stream = _checked("fullstep", shape, F, u, v, p)
+def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step, entry="fullstep"):
+    lib, fn, stream = _checked(entry, shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
     outs = [torch.empty_like(F) for _ in range(4)]
     scratch = torch.empty((7,) + tuple(shape), dtype=F.dtype, device=F.device)
@@ -378,3 +393,18 @@ def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool):
     shape = (g.nx + 2 + 2 * w2, g.ny + 2 + 2 * w2)
     return _launch_fullstep("fullstep_strips", cfg, F, u, v, p, shape, -w2, -w2,
                             even_step)
+
+
+def fullstep_dma(cfg: SimConfig, F, u, v, p, even_step: bool):
+    """(F, u, v, p) after one lean step as one kernel launch whose state
+    moves by bulk asynchronous copies, equal to fullstep's bit for bit;
+    counterpart of tpuvof's pallas_fullstep_dma. CUDA operands must start
+    on a 16-byte boundary (a sliced view may not)."""
+    if _on_cpu(F):
+        return fullstep_dma_plain(cfg, F, u, v, p, even_step)
+    for t in (F, u, v, p):
+        if t.data_ptr() % 16:
+            raise ValueError("fullstep_dma: operands must be 16-byte aligned "
+                             f"(a tensor starts at {t.data_ptr():#x})")
+    return _launch_fullstep("fullstep_dma", cfg, F, u, v, p, cfg.grid.shape, 0, 0,
+                            even_step, entry="fullstep_dma")
