@@ -11,7 +11,7 @@
 //     1-D form) of its chunks of p into shared memory, completing on an
 //     mbarrier that it waits on only in the rhs stage, where the two Jacobi
 //     buffers are seeded (fullstep.cu seeds them in its first stage);
-//   - in the correction stage each CTA writes p's BC'd value into a
+//   - in the correction stage each warp writes p's BC'd value into a
 //     shared staging chunk and bulk-stores it to p_out without waiting; in
 //     the first sweep stage u's and v's BC'd values (the sweeps go on
 //     reading the pre-BC un and vn); the last stage stores only F;
@@ -21,27 +21,34 @@
 // order; only the staging and the copies differ.
 //
 // What bounds it on the H100: what bounds fullstep.cu (n_jacobi + 7
-// dependent stages and the grid-wide barriers between them). The four
-// outputs it moves off the last stage are ~4 MB at 514^2 f32, all in the
-// 50 MB L2; the staging adds shared-memory writes, async-proxy fences and
-// two CTA barriers per chunk and output to three stages.
+// dependent stages and the grid-wide barriers between them). The outputs
+// it moves off the last stage are ~3 MB at 514^2 f32, all in the 50 MB
+// L2; the staging adds shared-memory writes, async-proxy fences and warp
+// barriers to three stages. Measured on an H100 it is 0.6-3.3% slower
+// than fullstep.cu (PERF.md, PR 5).
 //
 // The layout of the copies:
-//   - A chunk is the kThreads consecutive cells that one CTA handles in one
-//     round of the grid-stride loop, so every chunk starts at a multiple of
-//     1 KB (f32) or 2 KB (f64) from the field's base, which the wrapper
-//     checks to be 16-byte aligned. cp.async.bulk takes multiples of 16
-//     bytes: the last chunk of a field whose E0*E1 is not a multiple of 4
-//     (f32) or 2 (f64) sends its ragged tail by plain stores.
-//   - Stores go through a ring of kRing staging chunks; a chunk is written
-//     again only after cp.async.bulk.wait_group.read has seen the copy that
-//     used it kRing stores before finish reading it. Every store commits
-//     one bulk group, even an empty one, so the group count is the store
-//     count. The ring keeps the staging bounded: all four outputs staged at
-//     once would not fit the card's ~30 MB of shared memory at 2050^2 f64.
-//   - p's entry chunks take up to kPinBytes a CTA. Where the CTA owns more
-//     chunks than that (f64 beyond ~1500^2 at four CTAs an SM), the rest of
-//     its entry p is read from global memory at the seed.
+//   - Stores go in chunks of kWarp cells: a warp stages the kWarp
+//     consecutive cells it handles in one round of the grid-stride loop,
+//     and its lane 0 sends them. Staging per CTA would put a __syncthreads()
+//     around every chunk and make a CTA's warps take their rounds in step;
+//     at 2050^2 (25 rounds a stage) that cost 3% (PERF.md, PR 5).
+//   - Every chunk starts at a multiple of 128 bytes (f32) or 256 (f64) from
+//     the field's base, which the wrapper checks to be 16-byte aligned.
+//     cp.async.bulk takes multiples of 16 bytes: the last chunk of a field
+//     whose E0*E1 is not a multiple of 4 (f32) or 2 (f64) sends its ragged
+//     tail by plain stores.
+//   - Each warp has a ring of kRing staging chunks; a chunk is written again
+//     only after cp.async.bulk.wait_group.read has seen the copy that used
+//     it kRing stores before finish reading it. Every store commits one
+//     bulk group, even an empty one, so the group count is the store count.
+//     The ring keeps the staging bounded: all four outputs staged at once
+//     would not fit the card's ~30 MB of shared memory at 2050^2 f64.
+//   - p's entry copies go in chunks of kThreads cells, a CTA's round, and
+//     take up to kPinBytes a CTA. Where the CTA owns more chunks than that
+//     (f64 beyond ~1270^2 at three CTAs an SM, f32 beyond ~2320^2 at
+//     five), the rest of its entry p is read from global memory at the
+//     seed.
 //   - The cooperative launch is sized with the occupancy at the most
 //     shared memory any launch of the type asks for.
 #include <cooperative_groups.h>
@@ -55,6 +62,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarp = 32;
 constexpr int kRing = 4;
 constexpr int kPinBytes = 32768;
 
@@ -153,30 +161,32 @@ __device__ __forceinline__ int bulk_elems(int len) {
   return (len * static_cast<int>(sizeof(T))) / 16 * 16 / static_cast<int>(sizeof(T));
 }
 
-// The CTA's store ring: stage a chunk's values, then one thread sends the
-// chunk to global memory. Every thread of the CTA calls acquire() and
-// send() the same number of times (the rounds loop is CTA-uniform).
+// A warp's store ring: the warp stages a chunk's values, then its lane 0
+// sends the chunk to global memory. Every lane of the warp calls acquire()
+// and send() the same number of times (the rounds loop is warp-uniform),
+// and no CTA barrier is needed: the warps go through their rounds
+// independently, as in fullstep.cu.
 template <typename T>
 struct StoreRing {
-  T* slots;   // kRing chunks of kThreads values
+  T* slots;   // this warp's kRing chunks of kWarp values
+  int lane;
   int count;  // stores issued so far
 
   // The next staging chunk, once the copy that used it last has read it.
   __device__ __forceinline__ T* acquire() {
-    if (count >= kRing && threadIdx.x == 0) bulk_wait_ring_read();
-    __syncthreads();
-    return slots + (count % kRing) * kThreads;
+    if (count >= kRing && lane == 0) bulk_wait_ring_read();
+    __syncwarp();
+    return slots + (count % kRing) * kWarp;
   }
 
-  // Chunk `base` of `out` (len cells) from the staged slot; this thread
-  // staged `val` for cell base + threadIdx.x if it is < len.
+  // Chunk `base` of `out` (len cells) from the staged slot; this lane
+  // staged `val` for cell base + lane if lane < len.
   __device__ __forceinline__ void send(T* slot, T* out, int base, int len, T val) {
     const int n_bulk = bulk_elems<T>(len);
-    const int t = threadIdx.x;
-    if (t >= n_bulk && t < len) out[base + t] = val;  // the ragged tail
+    if (lane >= n_bulk && lane < len) out[base + lane] = val;  // the ragged tail
     fence_proxy_async();
-    __syncthreads();
-    if (t == 0) {
+    __syncwarp();
+    if (lane == 0) {
       if (n_bulk > 0) bulk_store(out + base, slot, n_bulk * sizeof(T));
       bulk_commit();
     }
@@ -195,13 +205,15 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
   const int first = blockIdx.x * blockDim.x + t;
   const int stride = gridDim.x * blockDim.x;
   const int cta0 = blockIdx.x * kThreads;  // this CTA's first chunk
+  const int lane = t % kWarp;
   T* pin = reinterpret_cast<T*>(smem);
-  StoreRing<T> ring{pin + a.pin_slots * kThreads, 0};
+  StoreRing<T> ring{pin + a.pin_slots * kThreads + (t - lane) * kRing, lane, 0};
 #define TV_CELLS for (int c = first, i = c / b.E1, j = c % b.E1; c < n; \
                       c += stride, i = c / b.E1, j = c % b.E1)
-// This CTA's chunks, in CTA-uniform rounds (the body may hold
-// __syncthreads()): each starts at cell base; this thread's cell is base + t.
-#define TV_CHUNKS for (int base = cta0; base < n; base += stride)
+// This warp's chunks of kWarp cells, in warp-uniform rounds (the body may
+// hold __syncwarp()): each starts at cell base; this lane's cell is
+// base + lane, the cell TV_CELLS gives this thread.
+#define TV_CHUNKS for (int base = first - lane; base < n; base += stride)
 
   // entry: start the copies of this CTA's first pin_slots chunks of p
   if (t == 0) mbar_init(&p_bar);
@@ -260,18 +272,18 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
   };
   // the correction; p is final: its BC'd chunk goes out under the rest
   TV_CHUNKS {
-    const int c = base + t;
-    const int len = min(kThreads, n - base);
+    const int c = base + lane;
+    const int len = min(kWarp, n - base);
     const int i = c / b.E1, j = c % b.E1;
     T pbc = T(0);
-    if (t < len) {
+    if (lane < len) {
       tv::correct_at(a.F, a.us, a.vs, p, a.u, a.v, b, i, j, a.jq, a.un[c], a.vn[c]);
       int di, dj;
       mirror(i, j, di, dj);
       pbc = tv::ld(p, b, i + di, j + dj);
     }
     T* slot = ring.acquire();
-    if (t < len) slot[t] = pbc;
+    if (lane < len) slot[lane] = pbc;
     ring.send(slot, a.p_out, base, len, pbc);
   }
   grid.sync();
@@ -280,11 +292,11 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
   // under the sweeps, which read the pre-BC un and vn
   const int ax1 = a.even_step ? 1 : 0;
   TV_CHUNKS {
-    const int c = base + t;
-    const int len = min(kThreads, n - base);
+    const int c = base + lane;
+    const int len = min(kWarp, n - base);
     const int i = c / b.E1, j = c % b.E1;
     T ubc = T(0), vbc = T(0);
-    if (t < len) {
+    if (lane < len) {
       a.us[c] = ax1 ? tv::sweep_at<T, 1>(a.F, a.vn, b, i, j, a.sy)
                     : tv::sweep_at<T, 0>(a.F, a.un, b, i, j, a.sx);
       const int gi = i + b.oi, gj = j + b.oj;
@@ -294,10 +306,10 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
       vbc = gj == 1 || gj == b.ny + 1 ? T(0) : tv::ld(a.vn, b, i + di, j);
     }
     T* slot = ring.acquire();
-    if (t < len) slot[t] = ubc;
+    if (lane < len) slot[lane] = ubc;
     ring.send(slot, a.u_out, base, len, ubc);
     slot = ring.acquire();
-    if (t < len) slot[t] = vbc;
+    if (lane < len) slot[lane] = vbc;
     ring.send(slot, a.v_out, base, len, vbc);
   }
   grid.sync();
@@ -307,21 +319,21 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
   }
   grid.sync();
   TV_CHUNKS {
-    const int c = base + t;
-    const int len = min(kThreads, n - base);
+    const int c = base + lane;
+    const int len = min(kWarp, n - base);
     T fbc = T(0);
-    if (t < len) {
+    if (lane < len) {
       const int i = c / b.E1, j = c % b.E1;
       int di, dj;
       mirror(i, j, di, dj);
       fbc = tv::ld(a.vs, b, i + di, j + dj);
     }
     T* slot = ring.acquire();
-    if (t < len) slot[t] = fbc;
+    if (lane < len) slot[lane] = fbc;
     ring.send(slot, a.F_out, base, len, fbc);
   }
   // no bulk store may be in flight when the CTA exits
-  if (t == 0) bulk_wait_all();
+  if (lane == 0) bulk_wait_all();
 #undef TV_CHUNKS
 #undef TV_CELLS
 }
