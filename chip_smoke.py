@@ -325,7 +325,7 @@ def bulk_copy_sass(build) -> dict:
     import re
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    dump = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path())],
+    dump = subprocess.run([cuobjdump, "--dump-sass", build.load_library()._name],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts = {}
     for block in dump.split("Function : ")[1:]:

@@ -25,14 +25,14 @@
 // it moves off the last stage are ~3 MB at 514^2 f32, all in the 50 MB
 // L2; the staging adds shared-memory writes, async-proxy fences and warp
 // barriers to three stages. Measured on an H100 it is 0.6-3.3% slower
-// than fullstep.cu (PERF.md, PR 5).
+// than fullstep.cu (PERF.md).
 //
 // The layout of the copies:
 //   - Stores go in chunks of kWarp cells: a warp stages the kWarp
 //     consecutive cells it handles in one round of the grid-stride loop,
 //     and its lane 0 sends them. Staging per CTA would put a __syncthreads()
 //     around every chunk and make a CTA's warps take their rounds in step;
-//     at 2050^2 (25 rounds a stage) that cost 3% (PERF.md, PR 5).
+//     at 2050^2 (25 rounds a stage) that cost 3% (PERF.md).
 //   - Every chunk starts at a multiple of 128 bytes (f32) or 256 (f64) from
 //     the field's base, which the wrapper checks to be 16-byte aligned.
 //     cp.async.bulk takes multiples of 16 bytes: the last chunk of a field

@@ -18,7 +18,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "library_path", "build_seconds", "build_log"]
+__all__ = ["load_library", "build_seconds", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -135,11 +135,6 @@ def load_library() -> ctypes.CDLL:
         lib.tv_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
-
-
-def library_path() -> Path:
-    """The built kernel library's file (building it first if need be)."""
-    return Path(load_library()._name)
 
 
 def build_seconds() -> float | None:
