@@ -17,8 +17,10 @@ Phases, each fatal on failure:
      predict_win and fct_sweep_win (x and y). Then the whole-step engines
      against each other in f64: mono == tiled == strips; and fullstep_dma ==
      fullstep bit for bit, f64 and f32, both parities, at 512^2 and 63^2
-     (E0*E1 odd), the allocator's blocks of the outputs' size filled with
-     NaN before each call.
+     (E0*E1 odd), and in f64 at 2048^2, where each CTA owns more entry
+     chunks of p than it pins in shared memory (its launch shape printed):
+     the outputs land in a private allocator pool filled with NaN by the
+     same allocations first, which is checked.
   4. golden: the 64^2 dam break in f64 through the phase kernels ('cuda')
      and through the whole-step kernel ('cuda_mono'), against
      tests/golden_dambreak_64_1000.npz at 300 and 1000 steps.
@@ -87,6 +89,7 @@ line. With no CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -99,6 +102,9 @@ import torch
 N_MAIN = 512  # the size bench.py has always timed
 STEPS_MAIN = 1000
 N_ODD = 63  # phase 3: a grid whose E0*E1 (65^2) is not a multiple of 4
+# phase 3: in f64 fullstep_dma's CTAs own more entry chunks of p than they
+# pin in shared memory, and read the rest from global memory
+N_PAST_PIN = 2048
 # phase 14: (n, steps); 2048^2 f32 fields (16.8 MB each) work out of the 50 MB L2
 DMA_SIZES = ((N_MAIN, STEPS_MAIN), (1024, 100), (2048, 100))
 STEPS_HYBRID = 100
@@ -335,12 +341,27 @@ def bulk_copy_sass(build) -> dict:
     return counts
 
 
-def poison_blocks(like: torch.Tensor, count: int = 8) -> None:
-    """Leave ``count`` NaN-filled blocks of ``like``'s size in the caching
-    allocator (allocate, fill, free): outputs allocated next start as NaN,
-    so a chunk that a kernel never stored shows."""
-    blocks = [torch.full_like(like, float("nan")) for _ in range(count)]
-    del blocks
+def poisoned_outputs(call, like: torch.Tensor, label: str):
+    """The outputs of ``call()``, a whole-step kernel on fields like
+    ``like``, made in a private allocator pool that was filled with NaN
+    first by the same allocations (four fields, then the (7,) + shape
+    scratch), so a chunk the kernel never stored shows as NaN. Fails unless
+    every output lies in poisoned memory."""
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        blocks = [torch.full_like(like, float("nan")) for _ in range(4)]
+        blocks.append(torch.full((7,) + tuple(like.shape), float("nan"), dtype=like.dtype,
+                                 device=like.device))
+        poisoned = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in blocks]
+        del blocks
+        got = call()
+        torch.cuda.synchronize()
+    landed = all(any(lo <= g.data_ptr() and g.data_ptr() + g.nbytes <= hi
+                     for lo, hi in poisoned) for g in got)
+    check(landed, f"{label}: an output does not lie in the NaN-poisoned blocks")
+    out = tuple(g.clone() for g in got)
+    del got
+    return out
 
 
 def step_pairs(kernel, cfg, s, steps: int):
@@ -406,7 +427,8 @@ def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
     cells = (n + 2) ** 2
     bytes_ms = 1e3 * FIELDS_MOVED["fullstep_dma"] * cells * 4 / HBM_BYTES_PER_S
     ops_ms = 1e3 * OPS_PER_CELL["fullstep_dma"] * cells / F32_OPS_PER_S
-    res = {"n": n, "steps": steps, "launches": steps, "equal_to_fullstep": same,
+    res = {"n": n, "steps": steps, "launches": launches.get("fullstep_dma", 0),
+           "equal_to_fullstep": same,
            "ms": device_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 20),
            "mono_ms": device_ms(lambda: K.fullstep(cfg, *s_dma, False), 20),
            "plain_ms": device_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 3),
@@ -717,20 +739,35 @@ def main() -> int:
             print(f"engines f64 mono == {label} (even={even}): max abs {diff:.3e} "
                   f"(bar {TOL_ENGINES:.0e})")
             check(diff <= TOL_ENGINES, f"mono vs {label}: {diff:.3e}")
-    # fullstep_dma == fullstep bit for bit, its outputs' blocks NaN beforehand
-    for n_b, s_b in ((N_MAIN, s64), (N_ODD, perturbed_state(tt, N_ODD, 50))):
+    # fullstep_dma == fullstep bit for bit, its outputs on NaN-poisoned
+    # memory; N_PAST_PIN runs only f64, where the entry p is partly pinned
+    lib = build.load_library()
+    f64_only = (torch.float64,)
+    for n_b, s_b, dtypes in ((N_MAIN, s64, (torch.float64, torch.float32)),
+                             (N_ODD, perturbed_state(tt, N_ODD, 50),
+                              (torch.float64, torch.float32)),
+                             (N_PAST_PIN, perturbed_state(tt, N_PAST_PIN, 20), f64_only)):
         cfg_b = tt.dam_break_2d(n_b, num=tt.Numerics(backend="cuda_mono"))
-        for dtype in (torch.float64, torch.float32):
+        for dtype in dtypes:
             st = [a.to(dtype).contiguous() for a in s_b]
+            plan = (ctypes.c_int * 3)()
+            plan_fn = lib.tv_fullstep_dma_plan_f64 if dtype == torch.float64 else \
+                lib.tv_fullstep_dma_plan_f32
+            check(plan_fn(n_b + 2, n_b + 2, plan) == 0, "tv_fullstep_dma_plan failed")
+            blocks, rounds, pin_slots = plan
+            print(f"fullstep_dma launch at {n_b}^2 {str(dtype)[6:]}: {blocks} CTAs, "
+                  f"{rounds} rounds, {pin_slots} pinned chunks of entry p a CTA")
+            if n_b == N_PAST_PIN:
+                check(rounds > pin_slots, f"fullstep_dma {n_b}^2 {dtype}: every entry "
+                                          f"chunk of p is pinned ({rounds} rounds)")
             for even in (False, True):
                 want = K.fullstep(cfg_b, *st, even)
-                poison_blocks(st[0])
-                got = K.fullstep_dma(cfg_b, *st, even)
-                torch.cuda.synchronize()
+                label = f"fullstep_dma == fullstep {n_b}^2 {str(dtype)[6:]} (even={even}"
+                got = poisoned_outputs(lambda: K.fullstep_dma(cfg_b, *st, even), st[0], label)
                 diff = max((a - b).abs().max().item() for a, b in zip(got, want))
                 same = all(torch.equal(a, b) for a, b in zip(got, want))
-                print(f"fullstep_dma == fullstep {n_b}^2 {str(dtype)[6:]} (even={even}, "
-                      f"{(n_b + 2) ** 2} cells): bit for bit {same}, max|d| {diff:.3e}")
+                print(f"{label}, {(n_b + 2) ** 2} cells, outputs on NaN-poisoned memory): "
+                      f"bit for bit {same}, max|d| {diff:.3e}")
                 check(same, f"fullstep_dma vs fullstep {n_b}^2 {dtype} even={even}: "
                             f"max|d| {diff:.3e}")
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """A/B on one CUDA card: the bulk-copy whole-step kernel against the mono.
 
-    python3 scripts/torch_mono_dma_ab.py [N] [--steps 500]
+    python3 scripts/torch_mono_dma_ab.py [N]
 
 The counterpart of scripts/tpu_mono_dma_ab.py for tpuvof_torch. On the
 N^2 dam break (default 512), f32, from init_state with the BCs applied,
-it runs ``--steps`` steps (default 500) as (odd, even) parity pairs, the
+it runs STEPS = 500 steps as (odd, even) parity pairs, the
 order simulate takes from istep0 = 0, three times: through
 ``fullstep`` (the mono kernel, csrc/fullstep.cu), through
 ``fullstep_dma`` (csrc/fullstep_dma.cu), then through ``fullstep`` again.
@@ -29,16 +29,15 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+STEPS = 500
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n", nargs="?", type=int, default=512, help="interior cells per axis")
-    ap.add_argument("--steps", type=int, default=500, help="steps per run (even)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_mono_dma_ab: no CUDA card (torch.cuda.is_available() is False)")
-    if args.steps < 2 or args.steps % 2:
-        raise SystemExit("torch_mono_dma_ab: --steps must be even and positive")
 
     import tpuvof_torch as tt
     from tpuvof_torch.kernels import step_kernels as K
@@ -47,7 +46,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
-    n, steps = args.n, args.steps
+    n, steps = args.n, STEPS
     cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
     s0 = tt.init_state(cfg)
     u, v, F, p = apply_bc(s0.u, s0.v, s0.F, s0.p)

@@ -104,8 +104,8 @@ def test_fullstep_dma_on_cpu_takes_any_alignment(ref):
 def test_fullstep_dma_matches_fullstep_on_card():
     """On a card: the kernel equals fullstep bit for bit, f64 and f32,
     both parities, at 64^2 and 63^2 (65^2 = 4225 cells, not a multiple of
-    4: the ragged tail goes by plain stores), with the allocator's blocks
-    poisoned with NaN first so that a chunk never stored shows; f64 within
+    4: the ragged tail goes by plain stores), with the outputs on memory
+    filled with NaN first so that a chunk never stored shows; f64 within
     1e-12 of its plain version; a misaligned view raises ValueError."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -124,17 +124,28 @@ def test_fullstep_dma_matches_fullstep_on_card():
             st = [a.to(dtype).contiguous() for a in (F, u, v, p)]
             for even in (False, True):
                 want = K.fullstep(cfg, *st, even)
-                poison = [torch.full_like(st[0], float("nan")) for _ in range(16)]
-                del poison
-                K.reset_launch_counts()
-                got = K.fullstep_dma(cfg, *st, even)
-                torch.cuda.synchronize()
+                # the outputs go to a private pool that the same allocations
+                # (four fields, then the (7,) + shape scratch) filled with NaN
+                pool = torch.cuda.MemPool()
+                with torch.cuda.use_mem_pool(pool):
+                    poison = [torch.full_like(st[0], float("nan")) for _ in range(4)]
+                    poison.append(torch.full((7,) + tuple(st[0].shape), float("nan"),
+                                             dtype=dtype, device="cuda"))
+                    spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in poison]
+                    del poison
+                    K.reset_launch_counts()
+                    got = K.fullstep_dma(cfg, *st, even)
+                    torch.cuda.synchronize()
                 assert K.LAUNCHES["fullstep_dma"] == 1
+                for g_ in got:
+                    assert any(lo <= g_.data_ptr() and g_.data_ptr() + g_.nbytes <= hi
+                               for lo, hi in spans), "an output missed the poisoned blocks"
                 for name, g_, w_ in zip("Fuvp", got, want):
                     assert torch.equal(g_, w_), (n, dtype, even, name)
                 if dtype == torch.float64:
                     for g_, w_ in zip(got, K.fullstep_dma_plain(cfg, *st, even)):
                         assert _rel(g_.cpu(), w_.cpu()) <= TOL
+                del got
         shape = st[0].shape
         buf = torch.zeros(st[0].numel() + 1, dtype=torch.float32, device="cuda")
         misaligned = buf[1:].view(shape)

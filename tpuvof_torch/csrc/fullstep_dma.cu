@@ -363,6 +363,24 @@ int resident_blocks() {
   return cached;
 }
 
+// The launch's shape for an E0 x E1 block: CTAs, chunks of kThreads cells
+// the busiest CTA owns (its rounds), and the entry chunks of p each CTA
+// copies into shared memory; or a CUDA error.
+struct Plan {
+  int blocks, rounds, pin_slots;
+};
+
+template <typename T>
+int plan_fullstep_dma(int E0, int E1, Plan& plan) {
+  const int resident = resident_blocks<T>();
+  if (resident < 0) return -resident;
+  const long long want = (static_cast<long long>(E0) * E1 + kThreads - 1) / kThreads;
+  plan.blocks = static_cast<int>(want < resident ? want : resident);
+  plan.rounds = static_cast<int>((want + plan.blocks - 1) / plan.blocks);
+  plan.pin_slots = plan.rounds < pin_slots_max<T>() ? plan.rounds : pin_slots_max<T>();
+  return 0;
+}
+
 template <typename T>
 int launch_fullstep_dma(const void* const* fields, void* const* outs, void* scratch,
                         tv::Block b, int n_jacobi, int even_step, const double* pc,
@@ -391,17 +409,14 @@ int launch_fullstep_dma(const void* const* fields, void* const* outs, void* scra
   a.sy = tv::sweep_params<T>(b.ny, b.nx, syc, full_dv, clamp);
   a.n_jacobi = n_jacobi;
   a.even_step = even_step;
-  const int resident = resident_blocks<T>();
-  if (resident < 0) return -resident;
-  const long long want = (static_cast<long long>(n) + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < resident ? want : resident);
-  const long long rounds = (want + blocks - 1) / blocks;  // chunks of the busiest CTA
-  a.pin_slots = static_cast<int>(rounds < pin_slots_max<T>() ? rounds : pin_slots_max<T>());
+  Plan plan;
+  if (const int e = plan_fullstep_dma<T>(b.E0, b.E1, plan)) return e;
+  a.pin_slots = plan.pin_slots;
   const size_t smem = static_cast<size_t>(a.pin_slots + kRing) * kThreads * sizeof(T);
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fullstep_dma_kernel<T>), dim3(blocks), dim3(kThreads),
-      args, smem, stream);
+      reinterpret_cast<const void*>(fullstep_dma_kernel<T>), dim3(plan.blocks),
+      dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -432,4 +447,21 @@ extern "C" int tv_fullstep_dma_f64(const void* const* fields, void* const* outs,
                                      tv::Block{E0, E1, oi, oj, nx, ny}, n_jacobi,
                                      even_step, pc, jc, sxc, syc, full_dv, clamp,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// The launch's shape for an E0 x E1 block: plan[0..2] <- CTAs, the busiest
+// CTA's rounds, the entry chunks of p each CTA pins in shared memory (the
+// rest of its entry p is read from global memory at the seed).
+extern "C" int tv_fullstep_dma_plan_f32(int E0, int E1, int* plan) {
+  Plan pl{};
+  const int e = plan_fullstep_dma<float>(E0, E1, pl);
+  plan[0] = pl.blocks, plan[1] = pl.rounds, plan[2] = pl.pin_slots;
+  return e;
+}
+
+extern "C" int tv_fullstep_dma_plan_f64(int E0, int E1, int* plan) {
+  Plan pl{};
+  const int e = plan_fullstep_dma<double>(E0, E1, pl);
+  plan[0] = pl.blocks, plan[1] = pl.rounds, plan[2] = pl.pin_slots;
+  return e;
 }

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
     "tv_fullstep_dma": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
+    "tv_fullstep_dma_plan": [_I, _I, ctypes.POINTER(_I)],
     "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
     "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
     "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
