@@ -39,14 +39,16 @@ Phases, each fatal on failure:
      on a perturbed, developed dam-break state at the main path's 200^3,
      f64 and f32:
      predict3d_rhs (csf off and on), correct3d, fct3d_sweep (x, y, z, with
-     and without mirror_out), jacobi3d, and each on an i-slab (gi_base != 0).
+     and without mirror_out), jacobi3d (10 iterations, and 7: launches of
+     unequal depth), and each on an i-slab (gi_base != 0).
   8. 3-D golden: 32^3 in f64 through 'cuda' against
      tests/golden_dambreak3d_32_300.npz at steps 100 and 300 (resumed with
      istep0); the f32 drift at 300.
   9. 3-D paths, counts set to 0 before and read after each: the 3-D main
-     path, simulate_3d at 200^3 f32 x 1000 steps on 'cuda' (1000 / 10000 /
+     path, simulate_3d at 200^3 f32 x 1000 steps on 'cuda' (1000 / 3000 /
      1000 / 3000 launches of predict3d_rhs / jacobi3d / correct3d /
-     fct3d_sweep and no other); csf=True, 100 steps at 200^3 (two
+     fct3d_sweep and no other: jacobi3d_plan(10) is three launches, of 4, 3
+     and 3 iterations); csf=True, 100 steps at 200^3 (two
      predict3d_rhs launches a step: the curvature pre-pass); the hybrid,
      pressure_solver='auto' (mg) at 64^3 x 20. Finiteness, 0 <= F <= 1, mass.
  10. 3-D timing: the main path's host-clock ms/step (best of 3), its
@@ -142,6 +144,7 @@ N3_MAIN = 200
 STEPS3_MAIN = 1000
 STEPS3_CSF = 100
 N3_CHECK = N3_MAIN
+N3_JACOBI = 10  # the step's fixed Jacobi iterations (simulate_3d's n_jacobi)
 N3_HYBRID = 64
 STEPS3_HYBRID = 20
 STEPS3_PLAIN = 30
@@ -497,8 +500,10 @@ def kernel_cases_3d(K3, g, fl, blocks, dt):
                               (K3.fct3d_sweep(g, DT3_SWEEP, F, vel, axis, mirror, **org),),
                               (K3.fct3d_sweep_plain(g, DT3_SWEEP, F, vel, axis, mirror,
                                                     **org),), ("F",)))
-        cases.append((f"jacobi3d{tag}", (K3.jacobi3d(g, 10, p, rhs, **org),),
-                      (K3.jacobi3d_plain(g, 10, p, rhs, **org),), ("p",)))
+        for n_iter in (N3_JACOBI, 7):
+            cases.append((f"jacobi3d n_iter={n_iter}{tag}",
+                          (K3.jacobi3d(g, n_iter, p, rhs, **org),),
+                          (K3.jacobi3d_plain(g, n_iter, p, rhs, **org),), ("p",)))
     return cases
 
 
@@ -567,13 +572,14 @@ def time_kernels_3d(K3, g, fl, dt, s, org, tag):
     their mean (the paths run them equally often)."""
     F, u, v, w, p = s
     us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, **org)
+    jacobi_plan = K3.jacobi3d_plan(N3_JACOBI)
     timed = {
         "predict3d_rhs": (lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, **org),
                           lambda: K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, **org)),
         "correct3d": (lambda: K3.correct3d(g, fl, dt, us, vs, ws, p, F, **org),
                       lambda: K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, **org)),
-        "jacobi3d": (lambda: K3.jacobi3d(g, 10, p, rhs, **org),
-                     lambda: K3.jacobi3d_plain(g, 10, p, rhs, **org)),
+        "jacobi3d": (lambda: K3.jacobi3d(g, N3_JACOBI, p, rhs, **org),
+                     lambda: K3.jacobi3d_plain(g, N3_JACOBI, p, rhs, **org)),
     }
     for axis, vel in enumerate((u, v, w)):
         timed[f"fct3d_sweep_{'xyz'[axis]}"] = (
@@ -589,13 +595,14 @@ def time_kernels_3d(K3, g, fl, dt, s, org, tag):
         ops_ms = 1e3 * OPS_PER_CELL[base] * cells / F32_OPS_PER_S
         t["bound_ms"] = max(bytes_ms, ops_ms)
         t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        per = " (10 launches)" if name == "jacobi3d" else ""
+        per = (f" ({N3_JACOBI} iterations in {len(jacobi_plan)} launches)"
+               if name == "jacobi3d" else "")
         mode = f" {org}" if org else ""
         print(f"{tag} {name:15s} {tuple(F.shape)}{mode} f32: kernel {1e3 * t['ms']:.2f} "
               f"us/call{per} on the device ({1e3 * t['host_ms']:.2f} us per call from "
               f"Python); plain {1e3 * t['plain_ms']:.2f} us/call on the device; bound "
               f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
-    times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / 10
+    times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / len(jacobi_plan)
     xyz = [times.pop(f"fct3d_sweep_{a}") for a in "xyz"]
     times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
                             else xyz[0][k] for k in xyz[0]}
@@ -963,7 +970,8 @@ def main() -> int:
     counters = (K, K3)
     g3 = tt.Grid3D(N3_MAIN, N3_MAIN, N3_MAIN)
     s3 = tt.init_state_3d(g3)
-    per_step = {"predict3d_rhs": 1, "jacobi3d": 10, "correct3d": 1, "fct3d_sweep": 3}
+    per_step = {"predict3d_rhs": 1, "jacobi3d": len(K3.jacobi3d_plan(N3_JACOBI)),
+                "correct3d": 1, "fct3d_sweep": 3}
     launches, s3_serial = run_path_3d(tt, counters, "3-D main path (cuda)", g3, s3,
                                       STEPS3_MAIN,
                                       {k: n * STEPS3_MAIN for k, n in per_step.items()})

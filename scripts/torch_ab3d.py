@@ -1,25 +1,43 @@
 #!/usr/bin/env python3
-"""A/B of the serial 3-D kernels of two tpuvof_torch trees on one CUDA card.
+"""A/B of the 3-D kernels of two tpuvof_torch trees on one CUDA card.
 
     python3 scripts/torch_ab3d.py TREE_A TREE_B [--sass] [--out FILE]
 
 Each tree is a directory holding a ``tpuvof_torch`` package (for example
-the parent commit unpacked with ``git archive`` beside the working tree).
-The legs run in the order A, B, B, A, each in a process of its own that
-imports that tree's package, builds its kernels from that tree's sources
-and times, at 200^3 f32 on a developed dam-break state, each serial 3-D
-kernel (``predict3d_rhs``, ``jacobi3d`` for 10 iterations, ``correct3d``,
-the three sweeps) and the serial step (a step triple), on the device alone:
-CUDA events around the replay of a CUDA graph of the calls, best of 5.
-With ``--sass`` each leg also compiles the tree's four 3-D sources to
-cubins with the tree's own nvcc flags and counts, per kernel function, its
-registers and its SASS instructions (``cuobjdump``). It prints one line
-per leg, a table of the four legs, and the card's name and power limit;
-``--out`` also writes the legs as JSON.
+the parent commit unpacked with ``git archive`` into a git-ignored
+directory of the checkout, against ``.``). The legs run in the order A, B, B, A,
+each in a process of its own that imports that tree's package and builds
+its kernels from that tree's sources. On a 200^3 dam-break state developed
+for 20 steps on the plain path (which both trees share, so both legs'
+kernels see the same inputs), each leg:
+
+- times on the device alone (CUDA events around the replay of a CUDA graph
+  of the calls, best of 5), in f32: each serial 3-D kernel
+  (``predict3d_rhs``, ``jacobi3d`` for 10 iterations, ``correct3d``, the
+  three sweeps), ``predict3d_rhs`` and ``jacobi3d`` on the 2x2 pencil
+  engine's block of shard (1, 1), the serial step (a step triple), and, in
+  a tree whose plan has a depth (``JACOBI_LEVELS``), ``jacobi3d`` at every
+  depth up to it;
+- the first A and B legs also write every output of ``predict3d_rhs``
+  (csf off and on) and ``jacobi3d`` (1, 2, 3 and 10 iterations), f32 and
+  f64, on the whole grid, an i-slab (gi_base 40) and the pencil block; the
+  script compares A's and B's with ``torch.equal`` and exits 1 unless all
+  are equal (a redesign that changes only where values are computed keeps
+  them bit for bit);
+- with ``--sass``, the first A and B legs compile the tree's four 3-D
+  sources to cubins with the tree's own nvcc flags and report, per kernel
+  function, ptxas's registers, stack frame and spill stores and loads
+  (``-Xptxas -v``) and the SASS instruction count (``cuobjdump``), and the
+  launch shape of ``predict3d_kernel`` and ``jacobi3d_kernel`` (threads and
+  shared bytes a CTA, CTAs resident an SM).
+
+It prints one line per leg, the comparison, a table of the four legs, and
+the card's name and power limit; ``--out`` also writes the legs as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -30,6 +48,10 @@ from pathlib import Path
 
 N = 200
 DEVELOP_STEPS = 20
+SLAB = (40, 50)  # (gi_base, nloc) of the i-slab
+PENCIL_SHARD = (1, 1)  # of the 2x2 engine: gi_base = gj_base = 86
+PENCIL_SHAPE = (130, 130, 202)
+N_ITERS = (1, 2, 3, 10)
 SOURCES = ("predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
 
 
@@ -60,9 +82,25 @@ def device_ms(torch, fn, n: int) -> float:
     return best
 
 
+def occupancy(regs: int, threads: int, smem: int) -> tuple[int, float]:
+    """(CTAs resident per SM, share of the SM's 64 warp slots) of a kernel
+    with ``regs`` registers a thread, ``threads`` a CTA and ``smem`` bytes of
+    shared memory a CTA, on an H100 SM (65536 registers allocated in units
+    of 256 a warp, 2048 threads, 32 CTAs, 228 KB of shared memory of which
+    1 KB a CTA is reserved)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    ctas = min(32, 2048 // threads, (65536 // per_warp) // warps,
+               233472 // (smem + 1024))
+    return ctas, ctas * warps / 64
+
+
 def sass_counts(build, csrc: Path) -> dict:
-    """{kernel function: [registers, SASS instructions]} of the tree's 3-D
-    sources, compiled with its flags (one nvcc per source, in parallel)."""
+    """{kernel function: {regs, stack, spill_st, spill_ld, sass}} of the
+    tree's 3-D sources, compiled with its flags (one nvcc per source, in
+    parallel): ptxas's registers, stack frame and spill stores and loads
+    in bytes (``-Xptxas -v``), and the SASS instruction count
+    (``cuobjdump``)."""
     nvcc = build._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     flags = [f for f in build._FLAGS if f not in ("-Xcompiler", "-fPIC")]
@@ -78,10 +116,15 @@ def sass_counts(build, csrc: Path) -> dict:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {cubin.stem}.cu:\n{err}")
-            regs = {}
-            for m in re.finditer(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
-                                 err, re.S):
-                regs[m.group(1)] = int(m.group(2))
+            ptxas = {}
+            for chunk in err.split("Compiling entry function '")[1:]:
+                name = chunk.split("'", 1)[0]
+                frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                  r"(\d+) bytes spill loads", chunk)
+                regs = re.search(r"Used (\d+) registers", chunk)
+                ptxas[name] = {"regs": int(regs.group(1)) if regs else None,
+                               **dict(zip(("stack", "spill_st", "spill_ld"),
+                                          map(int, frame.groups() if frame else (-1,) * 3)))}
             dump = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True,
                                   text=True, check=True).stdout
             for block in dump.split("Function : ")[1:]:
@@ -92,11 +135,80 @@ def sass_counts(build, csrc: Path) -> dict:
                 short = re.search(r"((?:predict3d|kappa3d|correct3d|fct3d|jacobi3d)_kernel)"
                                   r"I(\w*?)EEvP", mangled)
                 key = f"{short.group(1)}<{short.group(2)}>" if short else mangled
-                out[key] = [regs.get(mangled), n_ins]
+                out[key] = {**ptxas.get(mangled, {}), "sass": n_ins}
     return out
 
 
-def leg(tree: str, sass: bool) -> dict:
+def launch_shapes(lib, sass: dict, depth: int | None) -> dict:
+    """{kernel: [threads a CTA, shared bytes a CTA, CTAs resident per SM,
+    share of the SM's warp slots]} of predict3d_kernel and jacobi3d_kernel
+    (at ``depth`` iterations a launch) on the whole grid without csf, f32
+    and f64. A tree whose library reports its launch shapes (``tv_*_shape``,
+    with the runtime's own occupancy) is read; an older one launches 32 x 8
+    threads with no shared memory (``tv::block3d()``) and is computed from
+    its registers."""
+    out = {}
+    for kern, stem in (("predict3d", "tv_predict3d_shape"), ("jacobi3d", "tv_jacobi3d_shape")):
+        for suffix, t in (("_f32", "f"), ("_f64", "d")):
+            label = f"{kern} {suffix[1:]}"
+            if hasattr(lib, stem + suffix):
+                shape = (ctypes.c_int * 3)()
+                args = (0, 0, shape) if kern == "predict3d" else (0, depth, shape)
+                if getattr(lib, stem + suffix)(*args) != 0:
+                    raise RuntimeError(f"{stem}{suffix} failed")
+                threads, smem, ctas = shape
+                out[label] = [threads, smem, ctas, ctas * threads / 2048]
+            else:
+                regs = next(v["regs"] for k, v in sass.items()
+                            if k.startswith(f"{kern}_kernel<{t}Lb0"))
+                out[label] = [256, 0, *occupancy(regs, 256, 0)]
+    return out
+
+
+def blocks_of(tt, g, s, dtype):
+    """(tag, state, origin) of the three block kinds the kernels run on: the
+    whole grid, an i-slab with gi_base != 0, and the 2x2 pencil engine's
+    block of shard (1, 1) (its high x and y walls mid-block)."""
+    from tpuvof_torch.parallel import Decomp3D, make_mesh
+
+    s = tt.State3D(*(a.to(dtype).contiguous() for a in s))
+    gi0, nloc = SLAB
+    slab = tt.State3D(*(a[gi0:gi0 + nloc + 2].contiguous() for a in s))
+    dec = Decomp3D(g, make_mesh(devices=[s.F.device] * 4))
+    k = dec.coords.index(PENCIL_SHARD)
+    pencil = dec.widen(dec.scatter_state(s))[k]
+    return (("grid", s, {}), (f"slab@{gi0}", slab, {"gi_base": gi0}),
+            (f"pencil{PENCIL_SHARD}", pencil, dec.origin(k)))
+
+
+def dump_outputs(torch, tt, K3, g, fl, dt, s, where: Path) -> list[str]:
+    """Write every compared output of predict3d_rhs (csf off and on) and
+    jacobi3d (N_ITERS, from the plain version's rhs, so that both trees'
+    Jacobi inputs are the same), f32 and f64, on each block kind, one file
+    each under ``where``; returns their names in order."""
+    names = []
+
+    def put(name, t):
+        torch.save(t.cpu(), where / f"{len(names)}.pt")
+        names.append(name)
+
+    for dtype in (torch.float32, torch.float64):
+        for tag, (F, u, v, w, p), org in blocks_of(tt, g, s, dtype):
+            key = f"{tag} {str(dtype)[6:]}"
+            for field, t in zip("Fuvwp", (F, u, v, w, p)):
+                put(f"{key} input {field}", t)
+            for csf in (False, True):
+                outs = K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf, **org)
+                for out_name, t in zip(("u*", "v*", "w*", "rhs"), outs):
+                    put(f"{key} predict3d_rhs csf={csf} {out_name}", t)
+            rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, **org)[3]
+            for n in N_ITERS:
+                put(f"{key} jacobi3d n_iter={n}", K3.jacobi3d(g, n, p, rhs, **org))
+            torch.cuda.synchronize()
+    return names
+
+
+def leg(tree: str, sass: bool, dump: str | None) -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -114,7 +226,12 @@ def leg(tree: str, sass: bool) -> dict:
     g = tt.Grid3D(N, N, N)
     fl = tt.Fluid()
     dt = 4e-6
-    s = S3._with_bc(tt.simulate_3d(g, tt.init_state_3d(g), DEVELOP_STEPS))
+    # developed on the plain path, which both trees share, so that both
+    # legs' kernels see the same inputs
+    s = S3._with_bc(tt.simulate_3d(g, tt.init_state_3d(g), DEVELOP_STEPS, backend="torch"))
+    res = {"tree": tree}
+    if dump:
+        res["outputs"] = dump_outputs(torch, tt, K3, g, fl, dt, s, Path(dump))
     F, u, v, w, p = s
     us, vs, ws, rhs = K3.predict3d_rhs(g, fl, dt, u, v, w, F)
     timed = {
@@ -125,17 +242,46 @@ def leg(tree: str, sass: bool) -> dict:
     for axis, vel in enumerate((u, v, w)):
         timed[f"fct3d_sweep {'xyz'[axis]}"] = (
             lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, F, vel, axis))
+    _, (Fp, up, vp, wp, pp), org = blocks_of(tt, g, s, torch.float32)[2]
+    rhs_p = K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, **org)[3]
+    timed["pencil predict3d_rhs"] = lambda: K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, **org)
+    timed["pencil jacobi3d (10)"] = lambda: K3.jacobi3d(g, 10, pp, rhs_p, **org)
 
     def triple():
         for ph in (1, 2, 0):
             S3._step_3d_cuda_lean(g, fl, dt, 10, s, ph, "jacobi", 1.7, 1e-3, 200, False, 0.0)
 
-    res = {"tree": tree, "us": {name: 1e3 * device_ms(torch, fn, 20)
-                                for name, fn in timed.items()}}
+    res["us"] = {name: 1e3 * device_ms(torch, fn, 20) for name, fn in timed.items()}
     res["us"]["step"] = 1e3 * device_ms(torch, triple, 5) / 3
+    if hasattr(K3, "JACOBI_LEVELS"):  # the Jacobi at each depth a launch
+        chosen = K3.JACOBI_LEVELS
+        for depth in range(1, chosen + 1):
+            K3.JACOBI_LEVELS = depth
+            res["us"][f"jacobi3d (10) depth {depth}"] = 1e3 * device_ms(
+                torch, timed["jacobi3d (10)"], 20)
+            res["us"][f"pencil jacobi3d (10) depth {depth}"] = 1e3 * device_ms(
+                torch, timed["pencil jacobi3d (10)"], 20)
+        K3.JACOBI_LEVELS = chosen
     if sass:
         res["sass"] = sass_counts(build, pkg / "csrc")
+        res["occupancy"] = launch_shapes(build.load_library(), res["sass"],
+                                         getattr(K3, "JACOBI_LEVELS", None))
     return res
+
+
+def compare(torch, dir_a: Path, names_a: list, dir_b: Path, names_b: list) -> list[str]:
+    """The names of the outputs that differ between the two dumps (not
+    torch.equal), with their max |A - B|."""
+    if names_a != names_b:
+        return [f"the legs dumped different outputs: {names_a} != {names_b}"]
+    bad = []
+    for i, name in enumerate(names_a):
+        a = torch.load(dir_a / f"{i}.pt")
+        b = torch.load(dir_b / f"{i}.pt")
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max().item() if a.shape == b.shape else None
+            bad.append(f"{name}: max|A - B| {diff}")
+    return bad
 
 
 def main() -> int:
@@ -144,9 +290,10 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true", help="count registers and SASS")
     ap.add_argument("--out", help="write the legs as JSON here")
     ap.add_argument("--leg", help=argparse.SUPPRESS)
+    ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.leg:
-        print("LEG " + json.dumps(leg(args.leg, args.sass)))
+        print("LEG " + json.dumps(leg(args.leg, args.sass, args.dump)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees")
@@ -156,10 +303,13 @@ def main() -> int:
     print(card)
     a, b = args.trees
     legs = []
+    dumps = tempfile.TemporaryDirectory()
     for label, tree in (("A", a), ("B", b), ("B", b), ("A", a)):
         cmd = [sys.executable, os.path.abspath(__file__), "--leg", tree]
-        if args.sass and len(legs) < 2:
-            cmd.append("--sass")
+        if len(legs) < 2:  # the first A and B legs: SASS and the outputs
+            where = Path(dumps.name) / label
+            where.mkdir()
+            cmd += ["--dump", str(where)] + (["--sass"] if args.sass else [])
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout + out.stderr)
@@ -169,19 +319,44 @@ def main() -> int:
         legs.append(res)
         print(f"leg {label} {tree}: " + ", ".join(f"{k} {v:.2f} us"
                                                   for k, v in res["us"].items()))
-    names = list(legs[0]["us"])
-    print(f"[{card}] device us per call, 200^3 f32, order A B B A "
-          f"(A = {a}, B = {b}):")
+    import torch
+
+    bad = compare(torch, Path(dumps.name) / "A", legs[0]["outputs"],
+                  Path(dumps.name) / "B", legs[1]["outputs"])
+    dumps.cleanup()
+    n_out = len(legs[0]["outputs"])
+    print(f"bitwise A vs B: {n_out} tensors (inputs, predict3d_rhs csf off and on, jacobi3d "
+          f"n_iter {N_ITERS}; f32 and f64; grid, slab, pencil block): "
+          + ("all torch.equal" if not bad else f"{len(bad)} differ"))
+    for line in bad:
+        print(f"  DIFFERS {line}")
+    names = [k for k in legs[0]["us"] if all(k in r["us"] for r in legs)]
+    print(f"[{card}] device us per call, f32, 200^3 and the pencil block "
+          f"{PENCIL_SHAPE}, order A B B A (A = {a}, B = {b}):")
     for name in names:
-        print(f"  {name:16s} " + " / ".join(f"{r['us'][name]:.2f}" for r in legs))
+        print(f"  {name:22s} " + " / ".join(f"{r['us'][name]:.2f}" for r in legs))
+    for name in sorted(set(legs[1]["us"]) - set(names)):
+        print(f"  {name:22s} B only: " + " / ".join(
+            f"{r['us'][name]:.2f}" for r in legs if name in r["us"]))
     if args.sass:
-        print("registers, SASS instructions (A | B):")
+        def row(r):
+            if r is None:
+                return "-"
+            return (f"{r.get('regs')} regs, stack {r.get('stack')} B, spill st/ld "
+                    f"{r.get('spill_st')}/{r.get('spill_ld')} B, {r['sass']} SASS")
+
+        print("ptxas and cuobjdump per kernel function (A | B):")
         for fn in sorted(set(legs[0]["sass"]) | set(legs[1]["sass"])):
-            print(f"  {fn:40s} {legs[0]['sass'].get(fn)} | {legs[1]['sass'].get(fn)}")
+            print(f"  {fn:34s} {row(legs[0]['sass'].get(fn))} | "
+                  f"{row(legs[1]['sass'].get(fn))}")
+        print("launch shape: threads/CTA, shared bytes/CTA, CTAs/SM, warp-slot share (A | B):")
+        for k in legs[0]["occupancy"]:
+            print(f"  {k:14s} {legs[0]['occupancy'][k]} | {legs[1]['occupancy'][k]}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({"card": card, "legs": legs}, indent=1))
-    return 0
+        Path(args.out).write_text(json.dumps({"card": card, "legs": legs, "differ": bad},
+                                             indent=1))
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

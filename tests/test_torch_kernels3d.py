@@ -10,9 +10,11 @@ fields jk-padded to its (8, 128) tiling (solver3d._pad_jk) and is compared
 on the unpadded region. An i-slab (gi_base != 0) is compared beyond the
 stencil's reach of its lower edge, where both sides are exact; its upper
 edge is the grid's wall. The wrappers must route CPU tensors to the plain
-versions and count no launch. The ``cuda``-marked test holds the CUDA
-kernels against the plain versions on a card; it needs no jax, so on a
-machine without jax it runs with
+versions and count no launch, and jacobi3d's launch plan must split every
+iteration count. The ``cuda``-marked tests hold the CUDA kernels against
+the plain versions on a card, the tiled ones also on shapes that fill no
+tile and slabs with a wall mid-block; they need no jax, so on a machine
+without jax they run with
 ``pytest tests/test_torch_kernels3d.py --noconftest -m cuda``.
 """
 import numpy as np
@@ -266,3 +268,102 @@ def test_kernels3d_match_plain_on_card():
         K3.fct3d_sweep(g, DT, F[:, :-1], u[:, :-1], 0)  # wrong plane shape
     with pytest.raises(ValueError):
         K3.correct3d(g, fl, DT, u, v, w, p, F.transpose(1, 2))  # not contiguous
+
+
+@pytest.mark.parametrize("n_iter", range(1, 13))
+def test_jacobi3d_plan_splits_every_iteration_count(n_iter):
+    """The launch plan of jacobi3d: ceil(n_iter / JACOBI_LEVELS) launches of
+    1..JACOBI_LEVELS iterations, near-equal and the deeper first, that sum
+    to n_iter (so n_iter that the depth does not divide still works)."""
+    plan = K3.jacobi3d_plan(n_iter)
+    assert sum(plan) == n_iter
+    assert len(plan) == -(-n_iter // K3.JACOBI_LEVELS)
+    assert all(1 <= d <= K3.JACOBI_LEVELS for d in plan)
+    assert list(plan) == sorted(plan, reverse=True) and plan[0] - plan[-1] <= 1
+    assert K3.jacobi3d_plan(10) == (4, 3, 3)  # the step's solve: three launches
+
+
+@pytest.mark.parametrize("n_iter", [0, -1])
+def test_jacobi3d_refuses_fewer_than_one_iteration(n_iter):
+    g = tt.Grid3D(8, 8, 8)
+    p = torch.zeros(g.shape, dtype=torch.float64)
+    with pytest.raises(ValueError, match="n_iter >= 1"):
+        K3.jacobi3d_plan(n_iter)
+    with pytest.raises(ValueError, match="n_iter >= 1"):
+        K3.jacobi3d(g, n_iter, p, p)
+
+
+def test_3d_wrappers_refuse_wrong_shapes_before_any_launch():
+    """A field whose planes are not (n1, nz+2), or with fewer than 3
+    planes, is refused on the CPU as on the card."""
+    g, fl = tt.Grid3D(8, 8, 8), tt.Fluid()
+    ok = torch.zeros(g.shape, dtype=torch.float64)
+    for bad in (ok[:, :-1], ok[:, :, :-1], ok[:2], ok[0]):
+        with pytest.raises(ValueError, match="a field is"):
+            K3.jacobi3d(g, 2, bad.contiguous(), bad.contiguous())
+        with pytest.raises(ValueError, match="a field is"):
+            K3.predict3d_rhs(g, fl, DT, *(bad.contiguous(),) * 4)
+
+
+@pytest.mark.parametrize("n_iter", [1, 5, 7, 11])
+def test_jacobi3d_on_cpu_runs_plain_and_counts_nothing(n_iter):
+    """On CPU tensors the wrapper is the plain version, whatever the launch
+    plan would be on the card, and counts no launch."""
+    g = tt.Grid3D(9, 7, 6, Ly=0.1 * 7 / 9, Lz=0.1 * 6 / 9)
+    rng = np.random.default_rng(n_iter)
+    p, rhs = (torch.as_tensor(rng.normal(0, 1, g.shape)) for _ in range(2))
+    K3.reset_launch_counts()
+    assert torch.equal(K3.jacobi3d(g, n_iter, p, rhs), K3.jacobi3d_plain(g, n_iter, p, rhs))
+    assert K3.LAUNCHES["jacobi3d"] == 0
+
+
+def _card_state(g, seed, device="cuda"):
+    """A random BC-consistent state on the card (F, u, v, w, p), f64."""
+    from tpuvof_torch.ops import apply_bc_3d
+
+    rng = np.random.default_rng(seed)
+    shape = g.shape
+    F = torch.as_tensor(np.clip(rng.normal(0.5, 0.4, shape), 0, 1), device=device)
+    u, v, w = (torch.as_tensor(rng.normal(0, 1.0, shape), device=device) for _ in range(3))
+    p = torch.as_tensor(rng.normal(0, 10.0, shape), device=device)
+    u[0] = 0.0
+    v[:, 0] = 0.0
+    w[:, :, 0] = 0.0
+    u, v, w, F, p = apply_bc_3d(u, v, w, F, p)
+    return F, u, v, w, p
+
+
+@pytest.mark.cuda
+def test_tiled_kernels3d_edge_shapes_match_plain_on_card():
+    """The tiled predict3d_rhs (csf off and on) and the multi-level jacobi3d
+    (n_iter 1 to 12: depths the launch plan does not divide) against their
+    plain versions, f64 (1e-12) and f32 (1e-5, p 1e-4), on a 13 x 17 x 23
+    grid (n1 = 19 and n2 = 25 fill no tile) and on i-slabs of it with the
+    low and the high x wall mid-block (zeros beyond the walls, as the slab
+    engine's edge shards hold them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    nx, ny, nz = 13, 17, 23
+    g = tt.Grid3D(nx, ny, nz, Ly=0.1 * ny / nx, Lz=0.1 * nz / nx)
+    fl = tt.Fluid()
+    fields = _card_state(g, 21)
+    big = [torch.nn.functional.pad(a, (0, 0, 0, 0, 4, 4)) for a in fields]  # 4 planes a side
+    blocks = (("grid", fields, 0), ("slab low wall", [a[:12].contiguous() for a in big], -4),
+              ("slab high wall", [a[9:].contiguous() for a in big], 5))
+    for dtype, tol, tol_p in ((torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-4)):
+        for tag, block, gi_base in blocks:
+            F, u, v, w, p = (a.to(dtype) for a in block)
+            K3.reset_launch_counts()
+            for csf in (False, True):
+                got = K3.predict3d_rhs(g, fl, DT, u, v, w, F, csf, gi_base)
+                want = K3.predict3d_rhs_plain(g, fl, DT, u, v, w, F, csf, gi_base)
+                for name, g_, w_ in zip(("u*", "v*", "w*", "rhs"), got, want):
+                    assert _rel(g_.cpu(), w_.cpu()) <= tol, (tag, dtype, csf, name)
+            rhs = want[3]
+            for n_iter in range(1, 13):
+                got = K3.jacobi3d(g, n_iter, p, rhs, gi_base)
+                want_p = K3.jacobi3d_plain(g, n_iter, p, rhs, gi_base)
+                assert _rel(got.cpu(), want_p.cpu()) <= tol_p, (tag, dtype, n_iter)
+            torch.cuda.synchronize()
+            assert K3.LAUNCHES["predict3d_rhs"] == 3
+            assert K3.LAUNCHES["jacobi3d"] == sum(len(K3.jacobi3d_plan(n)) for n in range(1, 13))

@@ -13,9 +13,11 @@ and is compared on the unpadded region beyond 4 cells of each block edge
 (where tpuvof's rolls wrap and the port reads zeros). Bar: 1e-12 of the
 field's scale, f64 (both sides do the same operations per element).
 
-The ``cuda``-marked test holds the CUDA kernels in pencil mode against
-these plain versions on a card; it needs no jax, so on a machine without
-jax it runs with ``pytest tests/test_torch_pencil3d.py --noconftest -m cuda``.
+The ``cuda``-marked tests hold the CUDA kernels in pencil mode against
+these plain versions on a card (jacobi3d for 1 to 12 iterations, on shards
+with a negative row origin and with rows past ny + 1); they need no jax, so
+on a machine without jax they run with
+``pytest tests/test_torch_pencil3d.py --noconftest -m cuda``.
 """
 import numpy as np
 import pytest
@@ -262,3 +264,31 @@ def test_pencil_kernels_match_plain_on_card():
                     assert _rel(g_.cpu(), w_.cpu()) <= tol
             got = K3.jacobi3d(g, 10, p, rhs, **org)
             assert _rel(got.cpu(), K3.jacobi3d_plain(g, 10, p, rhs, **org).cpu()) <= tol_p
+
+
+@pytest.mark.cuda
+def test_tiled_pencil_kernels_match_plain_on_card():
+    """The tiled predict3d_rhs (csf off and on) and the multi-level jacobi3d
+    (n_iter 1 to 12) in pencil mode against their plain versions, f64
+    (1e-12) and f32 (1e-5, p 1e-4), on the shards whose row origin is
+    negative (0, 0) and whose rows run past ny + 1 (2, 2), each with an x
+    and a y wall mid-block, and on the interior shard (1, 1). The
+    blocks' 22 rows and 10 columns fill no (j, k) tile of either kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, fl = tt.Grid3D(N, N, NZ, Lz=0.1 * NZ / N), tt.Fluid()
+    fields = _random_fields(g.shape, 17, _port_bc)
+    for dtype, tol, tol_p in ((torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-4)):
+        for xi, yi in ((0, 0), (2, 2), (1, 1)):
+            org = _origin(xi, yi)
+            u, v, w, F, p = (_t(_pencil(a, xi, yi)).to("cuda", dtype) for a in fields)
+            for csf in (False, True):
+                got = K3.predict3d_rhs(g, fl, DT, u, v, w, F, csf, **org)
+                want = K3.predict3d_rhs_plain(g, fl, DT, u, v, w, F, csf, **org)
+                for name, g_, w_ in zip(("u*", "v*", "w*", "rhs"), got, want):
+                    assert _rel(g_.cpu(), w_.cpu()) <= tol, ((xi, yi), dtype, csf, name)
+            rhs = want[3]
+            for n_iter in range(1, 13):
+                got = K3.jacobi3d(g, n_iter, p, rhs, **org)
+                want_p = K3.jacobi3d_plain(g, n_iter, p, rhs, **org)
+                assert _rel(got.cpu(), want_p.cpu()) <= tol_p, ((xi, yi), dtype, n_iter)

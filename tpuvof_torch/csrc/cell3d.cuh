@@ -8,9 +8,11 @@
 // n1 = ny+2; an i-slab of a larger grid (tpuvof's (nloc, gi_base) origin)
 // has n0 = nloc+2; an (x, y) pencil (tpuvof's pencil mode (njl, gj_base))
 // also has n1 = njl+2. Masks are taken at global i and j.
-// Every kernel runs one thread per cell with k on threadIdx.x, so the loads
-// of a warp are one coalesced row segment; offsets are 64-bit (a 512^3
-// field with ghosts has 1.36e8 cells).
+// Every kernel runs k on threadIdx.x, so the loads of a warp are one
+// coalesced row segment; offsets are 64-bit (a 512^3 field with ghosts has
+// 1.36e8 cells). correct3d and fct3d run one thread per cell; predict3d and
+// jacobi3d give each CTA a (j, k) tile that marches along l over a chunk of
+// planes (plane_chunk).
 //
 // A read past the array's edge is 0, and so is every quantity derived at
 // such a position (the plain versions shift with zero fill). tpuvof's
@@ -87,6 +89,34 @@ inline dim3 block3d() { return dim3(kBlock3X, kBlock3Y, 1); }
 // Covers a field with block3d() blocks, one grid layer per plane l.
 inline dim3 grid3d(const Vol& g) {
   return dim3((g.n2 + kBlock3X - 1) / kBlock3X, (g.n1 + kBlock3Y - 1) / kBlock3Y, g.n0);
+}
+
+// Planes per chunk of a kernel whose CTAs each march along l over one
+// chunk of a (j, k) tile plus ``halo`` steps of their own: the chunking
+// that takes the fewest steps in all when the card runs ``resident`` CTAs
+// an SM in waves (waves x steps a CTA). One chunk per tile leaves SMs idle
+// on a block of few tiles; many short chunks pay the halo steps again.
+// The SM count is read once per process.
+inline int plane_chunk(int n0, int tiles, int resident, int halo) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const long long slots = static_cast<long long>(sms) * (resident > 0 ? resident : 1);
+  int best_lc = n0;
+  long long best = -1;
+  for (int chunks = 1; chunks <= n0 && chunks <= 64; ++chunks) {
+    const int lc = (n0 + chunks - 1) / chunks;
+    const long long ctas = static_cast<long long>(tiles) * ((n0 + lc - 1) / lc);
+    const long long cost = (ctas + slots - 1) / slots * (lc + halo);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_lc = lc;
+    }
+  }
+  return best_lc;
 }
 
 }  // namespace tv

@@ -9,23 +9,51 @@
 // What bounds it on the H100: it must read u, v, w, F and write u*, v*, w*,
 // rhs: 8 fields, 263.8 MB at 200^3 f32, 78.7 us at 3.35 TB/s.
 //
-// What the design does about it: one thread per output cell, and no
-// intermediate field on the csf=False path. The rhs at a cell needs u* at
-// i+1, v* at j+1 and w* at k+1, so each thread also recomputes those three
-// (the star_* functions are pure functions of the loaded state): twice the
-// arithmetic of the predictor, no second pass over device memory. The
-// neighbours' loads hit L1/L2. With csf a pre-pass kernel (kappa3d_kernel)
-// writes the curvature field, each thread recomputing the six normals its
-// central differences need; the predictor then reads kappa.
+// What the first design cost: one thread per cell, each evaluating u*, v*
+// and w* at its own cell and again at i+1, j+1 and k+1 for the rhs (six
+// momentum updates where three do), each update making ~14 velocity loads
+// through FixedVel, whose every load repeats the bounds test, the
+// jc/kc/ic mirror maps and the wall branches. At 200^3 f32 it took ~1.1 ms,
+// 14x its bound: instructions, not bytes.
 //
-// The state's velocity ghosts are not maintained between steps: every
-// velocity load goes through FixedVel, which returns what set_BC (y, then
-// x, then z faces) would have left there, as a pure index map onto interior
-// values (_bc_fix_uvw, step3d.py:165-206).
+// What this design does: a CTA of 32 (k) x 8 (j) threads owns a (j, k)
+// tile and marches along l over a chunk of planes. It stages u, v, w and F
+// (and kappa with csf) for the tile and its halo into shared memory once,
+// one plane per step into a ring of four planes, applying FixedVel's rules
+// as it stages each value (0 on the wall faces, mirrored into the ghosts,
+// 0 off the array); the stencils then read plain shared memory. The halo
+// per field, from star_u/v/w at the faces the tile needs (u* at its cells
+// and at l+1, v* also at row j0+8, w* also at column k0+32):
+//   u: planes l..l+2, rows j0-1..j0+8, columns k0-1..k0+32
+//   v: planes l-1..l+1, rows j0-1..j0+9, columns k0-1..k0+32
+//   w: planes l-1..l+1, rows j0-1..j0+8, columns k0-1..k0+33
+//   F, kappa: planes l..l+1, rows j0-1..j0+8, columns k0-1..k0+32
+// so the staged region is planes l-1..l+2 x rows j0-1..j0+9 x columns
+// k0-1..k0+33 for every field. Each face's u*, v*, w* is computed once per
+// CTA: u* at l+1 is kept in a register and becomes the next plane's own
+// u*; v* and w* of the plane go to shared memory, the extra row and column
+// computed by warps 0 and 1; the rhs is built from those. Only a chunk's
+// first plane of u* is computed by two CTAs.
 //
-// The arithmetic follows _predict_block term by term, in its order, with
-// the constants folded on the host in double as the JAX package folds
-// them, and the library is built with --fmad=false.
+// The chunk of planes is chosen at launch from the tiles and the CTAs an
+// SM keeps resident (tv::plane_chunk), so that a block of few tiles, as a
+// pencil's, still fills the card.
+//
+// A thread issues the reads of the plane it stages next (l+3) before it
+// computes plane l, and writes them to shared memory a step later, so the
+// reads' latency hides behind the stencils: 2 x 4 (5 with csf) values in
+// registers, indexed only by unrolled loops. The three updates are
+// evaluated one after another from shared memory. Nothing spills: 61
+// registers in f32, 105 in f64, no stack frame (scripts/torch_ab3d.py
+// --sass). Measured on the H100 at 200^3 f32: ~192 us against the first
+// form's ~1116, 2.4x the bound (~245 before the reads were issued a step
+// ahead; a 32 x 16 tile took ~277).
+//
+// The arithmetic of star_u/v/w and of the rhs is _predict_block's term by
+// term, in its order, with the constants folded on the host in double as
+// the JAX package folds them; the library is built with --fmad=false.
+// Only where the operands come from changed, so the outputs are those of
+// the one-thread-per-cell form bit for bit.
 #include "cell3d.cuh"
 
 namespace {
@@ -86,12 +114,6 @@ struct FixedVel {
     return w[g.at(ic, g.jc(j), k)];
   }
 };
-
-template <typename T>
-__device__ __forceinline__ T rho_at(const T* __restrict__ F, const tv::Vol& g, int l,
-                                    int j, int k, const P3Params<T>& q) {
-  return g.inside(l, j, k) ? tv::mix_rho(F[g.at(l, j, k)], q.rho_l, q.rho_g) : T(0);
-}
 
 // The Youngs normal of a cell of the global interior (young_msum_3d and
 // normalize_normals_3d, in their accumulation order); 0 elsewhere.
@@ -174,11 +196,101 @@ __global__ void kappa3d_kernel(const T* __restrict__ F, T* __restrict__ kappa,
   kappa[g.at(l, j, k)] = kap;
 }
 
-// u* at global i in [2, nx], global j and k interior; 0 elsewhere and off
-// the array. kappa is null without csf.
+// The tile of one CTA: kTK columns (k, one per lane) by kTJ rows (j, one
+// per warp). Its staged region has a one-cell halo below and two above on
+// each of j and k, and a ring of four planes.
+constexpr int kTK = 32;
+constexpr int kTJ = 8;
+constexpr int kRK = kTK + 3;     // staged columns k0-1 .. k0+kTK+1
+constexpr int kRJ = kTJ + 3;     // staged rows j0-1 .. j0+kTJ+1
+constexpr int kRing = 4;         // staged planes l-1 .. l+2
+constexpr int kPlane = kRJ * kRK;
+constexpr int kThreads = kTK * kTJ;
+constexpr int kFieldU = 0, kFieldV = 1, kFieldW = 2, kFieldF = 3, kFieldK = 4;
+
+template <bool CSF>
+__host__ __device__ constexpr int staged_fields() {
+  return CSF ? 5 : 4;
+}
+
+// Bytes of dynamic shared memory: the ring of every staged field, then v*
+// of the tile's rows and one more (kTJ + 1) x kTK, then w* of its columns
+// and one more kTJ x (kTK + 1).
+template <typename T, bool CSF>
+constexpr size_t predict_smem_bytes() {
+  return sizeof(T) * (staged_fields<CSF>() * kRing * kPlane + (kTJ + 1) * kTK +
+                      kTJ * (kTK + 1));
+}
+
+// The staged tile, read as the fields themselves: U, V, W are FixedVel's
+// values, F and K (kappa) read 0 off the array; rho is rho_at's (0 off the
+// array). Valid for planes l-1 .. l+2 of the step that staged l+2, rows
+// j0-1 .. j0+kTJ+1, columns k0-1 .. k0+kTK+1.
 template <typename T>
-__device__ __forceinline__ T star_u(const FixedVel<T>& X, const T* __restrict__ F,
-                                    const T* __restrict__ kappa, int l, int j, int k,
+struct Staged {
+  const T* s;
+  int j0, k0;
+  tv::Vol g;
+
+  __device__ __forceinline__ T at(int f, int l, int j, int k) const {
+    return s[((f * kRing + ((l + 1) & (kRing - 1))) * kRJ + (j - j0 + 1)) * kRK + (k - k0 + 1)];
+  }
+  __device__ __forceinline__ T U(int l, int j, int k) const { return at(kFieldU, l, j, k); }
+  __device__ __forceinline__ T V(int l, int j, int k) const { return at(kFieldV, l, j, k); }
+  __device__ __forceinline__ T W(int l, int j, int k) const { return at(kFieldW, l, j, k); }
+  __device__ __forceinline__ T F(int l, int j, int k) const { return at(kFieldF, l, j, k); }
+  __device__ __forceinline__ T K(int l, int j, int k) const { return at(kFieldK, l, j, k); }
+  __device__ __forceinline__ T rho(int l, int j, int k, const P3Params<T>& q) const {
+    return g.inside(l, j, k) ? tv::mix_rho(F(l, j, k), q.rho_l, q.rho_g) : T(0);
+  }
+};
+
+// A plane of the region as one thread stages it: its cells idx = tid,
+// tid + kThreads, ... of the plane, each field by FixedVel's rules for u,
+// v, w and 0 off the array for F and kappa. load() issues the reads,
+// store() writes them into the plane's ring slot; the kernel loads plane
+// l+3 while it computes plane l, so the reads' latency hides behind the
+// stencils.
+constexpr int kStaged = (kPlane + kThreads - 1) / kThreads;
+
+template <typename T, bool CSF>
+struct PlaneCells {
+  T val[kStaged][5];
+
+  __device__ __forceinline__ void load(const FixedVel<T>& X, const T* __restrict__ F,
+                                       const T* __restrict__ kappa, int l, int j0, int k0,
+                                       int tid) {
+#pragma unroll
+    for (int i = 0; i < kStaged; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < kPlane) {
+        const int j = j0 - 1 + idx / kRK;
+        const int k = k0 - 1 + idx % kRK;
+        val[i][kFieldU] = X.U(l, j, k);
+        val[i][kFieldV] = X.V(l, j, k);
+        val[i][kFieldW] = X.W(l, j, k);
+        val[i][kFieldF] = tv::ld3(F, X.g, l, j, k);
+        if (CSF) val[i][kFieldK] = tv::ld3(kappa, X.g, l, j, k);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(T* s, int l, int tid) const {
+    T* const slot = s + ((l + 1) & (kRing - 1)) * kPlane;
+#pragma unroll
+    for (int i = 0; i < kStaged; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < kPlane) {
+#pragma unroll
+        for (int f = 0; f < staged_fields<CSF>(); ++f) slot[f * kRing * kPlane + idx] = val[i][f];
+      }
+    }
+  }
+};
+
+// u* at global i in [2, nx], global j and k interior; 0 elsewhere and off
+// the array.
+template <typename T, bool CSF>
+__device__ __forceinline__ T star_u(const Staged<T>& X, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
@@ -196,23 +308,22 @@ __device__ __forceinline__ T star_u(const FixedVel<T>& X, const T* __restrict__ 
   const T dudx = uc > T(0) ? (uc - uw) * q.dxi : (ue - uc) * q.dxi;
   const T dudy = v_here > T(0) ? (uc - us) * q.dyi : (un - uc) * q.dyi;
   const T dudz = w_here > T(0) ? (uc - ub) * q.dzi : (uf - uc) * q.dzi;
-  const T Fc = F[g.at(l, j, k)];
+  const T Fc = X.F(l, j, k);
   const T nu = tv::mix_nu(Fc, q.nu_l, q.nu_g);
   T acc = nu * (uw - T(2) * uc + ue) * q.dxi2 + nu * (us - T(2) * uc + un) * q.dyi2 +
           nu * (ub - T(2) * uc + uf) * q.dzi2 - uc * dudx - v_here * dudy -
           w_here * dudz + q.gx;
-  if (kappa) {
-    const T kap = (kappa[g.at(l, j, k)] + tv::ld3(kappa, g, l - 1, j, k)) * T(0.5);
-    const T fx = q.neg_sigma * (Fc - tv::ld3(F, g, l - 1, j, k)) * kap / q.dx;
-    acc = acc + fx * T(2) / (rho_at(F, g, l, j, k, q) + rho_at(F, g, l - 1, j, k, q));
+  if (CSF) {
+    const T kap = (X.K(l, j, k) + X.K(l - 1, j, k)) * T(0.5);
+    const T fx = q.neg_sigma * (Fc - X.F(l - 1, j, k)) * kap / q.dx;
+    acc = acc + fx * T(2) / (X.rho(l, j, k, q) + X.rho(l - 1, j, k, q));
   }
   return uc + q.dt * acc;
 }
 
 // v* at global i in [1, nx], global j in [2, ny], k interior.
-template <typename T>
-__device__ __forceinline__ T star_v(const FixedVel<T>& X, const T* __restrict__ F,
-                                    const T* __restrict__ kappa, int l, int j, int k,
+template <typename T, bool CSF>
+__device__ __forceinline__ T star_v(const Staged<T>& X, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
@@ -230,23 +341,22 @@ __device__ __forceinline__ T star_v(const FixedVel<T>& X, const T* __restrict__ 
   const T dvdx = u_here > T(0) ? (vc - vw) * q.dxi : (ve - vc) * q.dxi;
   const T dvdy = vc > T(0) ? (vc - vs) * q.dyi : (vn - vc) * q.dyi;
   const T dvdz = w_here > T(0) ? (vc - vb) * q.dzi : (vf - vc) * q.dzi;
-  const T Fc = F[g.at(l, j, k)];
+  const T Fc = X.F(l, j, k);
   const T nu = tv::mix_nu(Fc, q.nu_l, q.nu_g);
   T acc = nu * (vw - T(2) * vc + ve) * q.dxi2 + nu * (vs - T(2) * vc + vn) * q.dyi2 +
           nu * (vb - T(2) * vc + vf) * q.dzi2 - u_here * dvdx - vc * dvdy -
           w_here * dvdz + q.gy;
-  if (kappa) {
-    const T kap = (kappa[g.at(l, j, k)] + tv::ld3(kappa, g, l, j - 1, k)) * T(0.5);
-    const T fy = q.neg_sigma * (Fc - tv::ld3(F, g, l, j - 1, k)) * kap / q.dy;
-    acc = acc + fy * T(2) / (rho_at(F, g, l, j, k, q) + rho_at(F, g, l, j - 1, k, q));
+  if (CSF) {
+    const T kap = (X.K(l, j, k) + X.K(l, j - 1, k)) * T(0.5);
+    const T fy = q.neg_sigma * (Fc - X.F(l, j - 1, k)) * kap / q.dy;
+    acc = acc + fy * T(2) / (X.rho(l, j, k, q) + X.rho(l, j - 1, k, q));
   }
   return vc + q.dt * acc;
 }
 
 // w* at global i in [1, nx], global j interior, k in [2, nz].
-template <typename T>
-__device__ __forceinline__ T star_w(const FixedVel<T>& X, const T* __restrict__ F,
-                                    const T* __restrict__ kappa, int l, int j, int k,
+template <typename T, bool CSF>
+__device__ __forceinline__ T star_w(const Staged<T>& X, int l, int j, int k,
                                     const P3Params<T>& q) {
   const tv::Vol& g = X.g;
   const int gi = l + g.gi_base;
@@ -264,68 +374,126 @@ __device__ __forceinline__ T star_w(const FixedVel<T>& X, const T* __restrict__ 
   const T dwdx = u_here > T(0) ? (wc - ww) * q.dxi : (we - wc) * q.dxi;
   const T dwdy = v_here > T(0) ? (wc - ws) * q.dyi : (wn - wc) * q.dyi;
   const T dwdz = wc > T(0) ? (wc - wb) * q.dzi : (wf - wc) * q.dzi;
-  const T Fc = F[g.at(l, j, k)];
+  const T Fc = X.F(l, j, k);
   const T nu = tv::mix_nu(Fc, q.nu_l, q.nu_g);
   T acc = nu * (ww - T(2) * wc + we) * q.dxi2 + nu * (ws - T(2) * wc + wn) * q.dyi2 +
           nu * (wb - T(2) * wc + wf) * q.dzi2 - u_here * dwdx - v_here * dwdy -
           wc * dwdz + q.gz;
-  if (kappa) {
-    const T kap = (kappa[g.at(l, j, k)] + tv::ld3(kappa, g, l, j, k - 1)) * T(0.5);
-    const T fz = q.neg_sigma * (Fc - tv::ld3(F, g, l, j, k - 1)) * kap / q.dz;
-    acc = acc + fz * T(2) / (rho_at(F, g, l, j, k, q) + rho_at(F, g, l, j, k - 1, q));
+  if (CSF) {
+    const T kap = (X.K(l, j, k) + X.K(l, j, k - 1)) * T(0.5);
+    const T fz = q.neg_sigma * (Fc - X.F(l, j, k - 1)) * kap / q.dz;
+    acc = acc + fz * T(2) / (X.rho(l, j, k, q) + X.rho(l, j, k - 1, q));
   }
   return wc + q.dt * acc;
 }
 
-// u*, v*, w* and rhs of one cell; all four are 0 on the array's first and
-// last planes (the Pallas kernel's zeroed ghost planes).
-template <typename T, bool PENCIL>
-__global__ void predict3d_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                                 const T* __restrict__ w, const T* __restrict__ F,
-                                 const T* __restrict__ kappa, T* __restrict__ us,
-                                 T* __restrict__ vs, T* __restrict__ ws,
-                                 T* __restrict__ rhs, const tv::Vol block,
-                                 const P3Params<T> q) {
+// u*, v*, w* and rhs of a (j, k) tile over planes [l0, l0 + lc); all four
+// are 0 on the array's first and last planes (the Pallas kernel's zeroed
+// ghost planes).
+template <typename T, bool PENCIL, bool CSF>
+__global__ void __launch_bounds__(kThreads)
+    predict3d_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
+                     const T* __restrict__ F, const T* __restrict__ kappa, T* __restrict__ us,
+                     T* __restrict__ vs, T* __restrict__ ws, T* __restrict__ rhs,
+                     const tv::Vol block, const P3Params<T> q, const int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  T* v_star = tile + staged_fields<CSF>() * kRing * kPlane;  // [kTJ + 1][kTK]
+  T* w_star = v_star + (kTJ + 1) * kTK;                      // [kTJ][kTK + 1]
   const tv::Vol g = tv::rows<PENCIL>(block);
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int l = blockIdx.z;
-  if (j >= g.n1 || k >= g.n2) return;
-  const long long o = g.at(l, j, k);
-  if (l == 0 || l == g.n0 - 1) {
-    us[o] = vs[o] = ws[o] = rhs[o] = T(0);
-    return;
-  }
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTK + tx;
+  const int k0 = blockIdx.x * kTK, j0 = blockIdx.y * kTJ;
+  const int k = k0 + tx, j = j0 + ty;
+  const int l0 = blockIdx.z * lc;
+  const int l1 = min(l0 + lc, g.n0);
   const FixedVel<T> X{u, v, w, g};
-  const T usc = star_u(X, F, kappa, l, j, k, q);
-  const T vsc = star_v(X, F, kappa, l, j, k, q);
-  const T wsc = star_w(X, F, kappa, l, j, k, q);
-  us[o] = usc;
-  vs[o] = vsc;
-  ws[o] = wsc;
-  T r = T(0);
-  if (g.interior(l, j, k)) {
-    const T rho = tv::mix_rho(F[o], q.rho_l, q.rho_g);
-    r = rho / q.dt *
-        ((star_u(X, F, kappa, l + 1, j, k, q) - usc) * q.dxi +
-         (star_v(X, F, kappa, l, j + 1, k, q) - vsc) * q.dyi +
-         (star_w(X, F, kappa, l, j, k + 1, q) - wsc) * q.dzi);
+  const Staged<T> S{tile, j0, k0, g};
+
+  PlaneCells<T, CSF> cells;
+  for (int l = l0 - 1; l <= l0 + 1; ++l) {
+    cells.load(X, F, kappa, l, j0, k0, tid);
+    cells.store(tile, l, tid);
   }
-  rhs[o] = r;
+  cells.load(X, F, kappa, l0 + 2, j0, k0, tid);
+  __syncthreads();
+  T u_cur = star_u<T, CSF>(S, l0, j, k, q);
+  for (int l = l0; l < l1; ++l) {
+    // plane l+2 takes the slot of plane l-2, last read before the previous
+    // step's second barrier; plane l+3's reads are issued now
+    cells.store(tile, l + 2, tid);
+    cells.load(X, F, kappa, l + 3, j0, k0, tid);
+    __syncthreads();
+    const T u_next = star_u<T, CSF>(S, l + 1, j, k, q);
+    v_star[ty * kTK + tx] = star_v<T, CSF>(S, l, j, k, q);
+    w_star[ty * (kTK + 1) + tx] = star_w<T, CSF>(S, l, j, k, q);
+    if (ty == 0) v_star[kTJ * kTK + tx] = star_v<T, CSF>(S, l, j0 + kTJ, k, q);
+    if (ty == 1 && tx < kTJ) {
+      w_star[tx * (kTK + 1) + kTK] = star_w<T, CSF>(S, l, j0 + tx, k0 + kTK, q);
+    }
+    __syncthreads();
+    if (j < g.n1 && k < g.n2) {
+      const long long o = g.at(l, j, k);
+      if (l == 0 || l == g.n0 - 1) {
+        us[o] = vs[o] = ws[o] = rhs[o] = T(0);
+      } else {
+        const T vsc = v_star[ty * kTK + tx];
+        const T wsc = w_star[ty * (kTK + 1) + tx];
+        us[o] = u_cur;
+        vs[o] = vsc;
+        ws[o] = wsc;
+        T r = T(0);
+        if (g.interior(l, j, k)) {
+          const T rho = tv::mix_rho(S.F(l, j, k), q.rho_l, q.rho_g);
+          r = rho / q.dt *
+              ((u_next - u_cur) * q.dxi + (v_star[(ty + 1) * kTK + tx] - vsc) * q.dyi +
+               (w_star[ty * (kTK + 1) + tx + 1] - wsc) * q.dzi);
+        }
+        rhs[o] = r;
+      }
+    }
+    u_cur = u_next;
+  }
 }
+
+// The kernel of one (type, mode, csf), with its shared memory granted and
+// the CTAs it keeps resident on an SM (asked once).
+template <typename T, bool PENCIL, bool CSF>
+struct Predict {
+  static constexpr size_t smem = predict_smem_bytes<T, CSF>();
+  static int resident() {
+    static const int ctas = [] {
+      cudaFuncSetAttribute(predict3d_kernel<T, PENCIL, CSF>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      int n = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, predict3d_kernel<T, PENCIL, CSF>,
+                                                    kThreads, smem);
+      return n;
+    }();
+    return ctas;
+  }
+  static int launch(const T* u, const T* v, const T* w, const T* F, const T* kappa, T* us,
+                    T* vs, T* ws, T* rhs, tv::Vol g, const P3Params<T>& q,
+                    cudaStream_t stream) {
+    const int tiles_k = (g.n2 + kTK - 1) / kTK, tiles_j = (g.n1 + kTJ - 1) / kTJ;
+    // a chunk stages three planes and computes one plane of u* of its own
+    const int lc = tv::plane_chunk(g.n0, tiles_k * tiles_j, resident(), 3);
+    const dim3 grid(tiles_k, tiles_j, (g.n0 + lc - 1) / lc);
+    predict3d_kernel<T, PENCIL, CSF><<<grid, dim3(kTK, kTJ), smem, stream>>>(
+        u, v, w, F, kappa, us, vs, ws, rhs, g, q, lc);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
 
 template <typename T, bool PENCIL>
 int launch_rows(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us, T* vs,
                 T* ws, T* rhs, tv::Vol g, const P3Params<T>& q, cudaStream_t stream) {
-  const dim3 grid = tv::grid3d(g);
-  if (kappa) {
-    kappa3d_kernel<T, PENCIL><<<grid, tv::block3d(), 0, stream>>>(F, kappa, g, q);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  predict3d_kernel<T, PENCIL><<<grid, tv::block3d(), 0, stream>>>(u, v, w, F, kappa, us, vs,
-                                                                 ws, rhs, g, q);
-  return static_cast<int>(cudaGetLastError());
+  if (!kappa) return Predict<T, PENCIL, false>::launch(u, v, w, F, kappa, us, vs, ws, rhs, g, q,
+                                                       stream);
+  kappa3d_kernel<T, PENCIL><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(F, kappa, g, q);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return Predict<T, PENCIL, true>::launch(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
 }
 
 template <typename T>
@@ -337,6 +505,24 @@ int launch_predict3d(const T* u, const T* v, const T* w, const T* F, T* kappa, T
     return launch_rows<T, true>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
   }
   return launch_rows<T, false>(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
+}
+
+// threads a CTA, shared bytes a CTA, CTAs resident per SM
+template <typename T, bool PENCIL, bool CSF>
+void shape_of(int* out) {
+  out[0] = kThreads;
+  out[1] = static_cast<int>(Predict<T, PENCIL, CSF>::smem);
+  out[2] = Predict<T, PENCIL, CSF>::resident();
+}
+
+template <typename T>
+int predict3d_shape(int pencil, int csf, int* out) {
+  if (pencil) {
+    csf ? shape_of<T, true, true>(out) : shape_of<T, true, false>(out);
+  } else {
+    csf ? shape_of<T, false, true>(out) : shape_of<T, false, false>(out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -371,4 +557,14 @@ extern "C" int tv_predict3d_f64(const void* u, const void* v, const void* w,
       static_cast<T*>(vs), static_cast<T*>(ws), static_cast<T*>(rhs),
       tv::Vol{n0, n1, nz + 2, gi_base, gj_base, nx, ny, nz}, pencil, c,
       static_cast<cudaStream_t>(stream));
+}
+
+// The predictor's launch shape: out = {threads a CTA, shared bytes a CTA,
+// CTAs resident per SM}.
+extern "C" int tv_predict3d_shape_f32(int pencil, int csf, int* out) {
+  return predict3d_shape<float>(pencil, csf, out);
+}
+
+extern "C" int tv_predict3d_shape_f64(int pencil, int csf, int* out) {
+  return predict3d_shape<double>(pencil, csf, out);
 }

@@ -46,7 +46,9 @@ _SIGNATURES = {
     "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
     "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
     "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
-    "tv_jacobi3d": [_P] * 4 + _VOL + [_I, _D, _P],
+    "tv_jacobi3d": [_P] * 4 + _VOL + [_I, ctypes.POINTER(_I), _D, _P],
+    "tv_predict3d_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_jacobi3d_shape": [_I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -34,9 +34,10 @@ A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
 and scratch with ``torch.empty``, launches on the current stream without
 synchronising, adds the number of kernels it launched to its entry of
-``LAUNCHES`` (``jacobi3d`` one per iteration; ``predict3d_rhs`` two with
-csf, the curvature pre-pass and the predictor; the others one), and raises
-if a launch is refused; it never falls back to the plain version.
+``LAUNCHES`` (``jacobi3d`` one per launch of ``jacobi3d_plan(n_iter)``,
+each running several iterations; ``predict3d_rhs`` two with csf, the
+curvature pre-pass and the predictor; the others one), and raises if a
+launch is refused; it never falls back to the plain version.
 
 The plain versions state what the kernels compute, the lean step's
 semantics included: the BC fix of the velocities inside predict, the
@@ -46,6 +47,7 @@ are 0 on both sides (ops/fct3d.shift3).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -65,6 +67,8 @@ __all__ = [
     "correct3d",
     "fct3d_sweep",
     "jacobi3d",
+    "jacobi3d_plan",
+    "JACOBI_LEVELS",
     "predict3d_rhs_plain",
     "correct3d_plain",
     "fct3d_sweep_plain",
@@ -75,9 +79,33 @@ __all__ = [
 LAUNCHES = {name: 0 for name in ("predict3d_rhs", "jacobi3d", "correct3d", "fct3d_sweep")}
 
 
+#: Jacobi iterations one launch of jacobi3d runs at most (1 to the
+#: kernel's kLevelsMax, 5, csrc/jacobi3d.cu): 4 took the least time for the
+#: step's 10 iterations at 200^3 f32 (scripts/torch_ab3d.py times every
+#: depth).
+JACOBI_LEVELS = 4
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def jacobi3d_plan(n_iter: int) -> tuple[int, ...]:
+    """The Jacobi iterations of each launch of ``jacobi3d``:
+    ceil(n_iter / JACOBI_LEVELS) launches of near-equal depth, the deeper
+    ones first (10 -> (4, 3, 3), 7 -> (4, 3), 12 -> (4, 4, 4))."""
+    n_iter = int(n_iter)
+    if n_iter < 1:
+        raise ValueError(f"jacobi3d needs n_iter >= 1, not {n_iter}")
+    n_launch = -(-n_iter // JACOBI_LEVELS)
+    depth, deeper = divmod(n_iter, n_launch)
+    return tuple(depth + 1 if i < deeper else depth for i in range(n_launch))
+
+
+@functools.lru_cache(maxsize=32)
+def _levels_array(plan: tuple[int, ...]):
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 # ----------------------------------------------------------------------
@@ -461,19 +489,19 @@ def fct3d_sweep(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
 def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0, njl: int | None = None,
              gj_base: int = 0):
     """p after ``n_iter`` >= 1 Jacobi iterations, with a zeroed ghost ring;
-    one launch per iteration. Counterpart of tpuvof's pallas_jacobi_3d and
-    streamed_jacobi_3d, which compute the same iteration."""
-    if n_iter < 1:
-        raise ValueError(f"jacobi3d needs n_iter >= 1, not {n_iter}")
+    one launch per entry of ``jacobi3d_plan(n_iter)``, each running its
+    iterations in shared memory. Counterpart of tpuvof's pallas_jacobi_3d
+    and streamed_jacobi_3d, which compute the same iteration."""
+    plan = jacobi3d_plan(n_iter)
     shape = _field_shape("jacobi3d", g, p, njl, gj_base)
     if _on_cpu(p):
         return jacobi3d_plain(g, n_iter, p, rhs, gi_base, njl, gj_base)
     lib, fn, stream = _checked("jacobi3d", shape, p, rhs)
     out = torch.empty_like(p)
-    tmp = torch.empty_like(p) if n_iter > 1 else out
+    tmp = torch.empty_like(p) if len(plan) > 1 else out
     status = fn(p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                *_vol(shape, g, gi_base, njl, gj_base), int(n_iter), _jacobi3d_constants(g),
-                stream)
+                *_vol(shape, g, gi_base, njl, gj_base), len(plan), _levels_array(plan),
+                _jacobi3d_constants(g), stream)
     _raise_on_error(lib, "jacobi3d", status)
-    LAUNCHES["jacobi3d"] += n_iter
+    LAUNCHES["jacobi3d"] += len(plan)
     return out
