@@ -10,7 +10,10 @@ Phases, each fatal on failure:
   2. build: the kernels of tpuvof_torch/csrc, compiled from this checkout
      (one nvcc per source, in parallel); the bulk-copy instructions in the
      fullstep_dma kernels' SASS, counted with cuobjdump.
-  3. kernel vs plain: every kernel against its plain PyTorch version on a
+  3. kernel vs plain: the whole-step kernel's split of the Jacobi sweeps
+     into stage groups (n_jacobi 0 to 20): the sweeps sum to n_jacobi in
+     the fewest groups of at most 4, of near-equal depth, the deeper first;
+     every kernel against its plain PyTorch version on a
      perturbed, developed 512^2 dam-break state, in f64 and f32: the phase
      kernels; fullstep and fullstep_dma (both parities), fullstep_win (an
      interior and a corner tile), fullstep_strips (NaN in the margins),
@@ -34,7 +37,9 @@ Phases, each fatal on failure:
   6. timing: the 512^2 x 1000 run on the mono, phase and plain-torch paths
      (host clock), each path's step on the device alone (a replayed CUDA
      graph), and each kernel's time per launch beside its plain version's
-     and its bound.
+     and its bound; the whole-step kernel's launch shape on each of its
+     blocks (threads and shared bytes a CTA, CTAs an SM, CTAs launched)
+     and its Jacobi groups at the main path's n_jacobi.
   7. 3-D kernel vs plain: the four 3-D kernels against their plain versions
      on a perturbed, developed dam-break state at the main path's 200^3,
      f64 and f32:
@@ -53,7 +58,8 @@ Phases, each fatal on failure:
      pressure_solver='auto' (mg) at 64^3 x 20. Finiteness, 0 <= F <= 1, mass.
  10. 3-D timing: the main path's host-clock ms/step (best of 3), its
      device-alone step (a CUDA graph of a step triple), the plain-torch path,
-     and each 3-D kernel beside its plain version and its bound.
+     and each 3-D kernel beside its plain version and its bound; each
+     sweep's launch shape.
  11. engine blocks vs plain: the four 3-D kernels against their plain
      versions on the blocks the 200^3 engines of phase 13 give them, of a
      perturbed, developed state, f64 and f32. In pencil mode (njl, gj_base)
@@ -679,6 +685,41 @@ def run_dist_path(tt, counters, label, dec, s0, steps, want_launches, serial_end
     return {"launches": launches, "block": blocks[k], "origin": dec.origin(k)}
 
 
+def fullstep_levels(lib, n_jacobi: int) -> list:
+    """The Jacobi sweeps of each of the whole-step kernel's stage groups
+    at n_jacobi, as the library splits them."""
+    out = (ctypes.c_int * 8)()
+    n_groups = lib.tv_fullstep_levels(n_jacobi, out, 8)
+    check(0 <= n_groups <= 8, f"tv_fullstep_levels({n_jacobi}) gave {n_groups} groups")
+    return list(out[:n_groups])
+
+
+def fullstep_shapes(lib, blocks) -> dict:
+    """{label: [threads a CTA, shared bytes a CTA, CTAs an SM, CTAs
+    launched, tile rows]} of the whole-step kernel on each (label, E0, E1,
+    dtype)."""
+    out = {}
+    for label, e0, e1, dtype in blocks:
+        shape = (ctypes.c_int * 5)()
+        fn = lib.tv_fullstep_shape_f64 if dtype == torch.float64 else lib.tv_fullstep_shape_f32
+        check(fn(e0, e1, shape) == 0, f"tv_fullstep_shape {label} failed")
+        out[label] = list(shape)
+    return out
+
+
+def sweep_shapes(lib) -> dict:
+    """{axis dtype mode: [threads a CTA, shared bytes a CTA, CTAs an SM]}
+    of the three sweeps' kernels."""
+    out = {}
+    for axis in range(3):
+        for dt, fn in (("f32", lib.tv_fct3d_shape_f32), ("f64", lib.tv_fct3d_shape_f64)):
+            for pencil in (0, 1):
+                shape = (ctypes.c_int * 3)()
+                check(fn(axis, pencil, shape) == 0, "tv_fct3d_shape failed")
+                out[f"{'xyz'[axis]} {dt}{' pencil' if pencil else ''}"] = list(shape)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -713,6 +754,16 @@ def main() -> int:
           f"the fullstep_dma kernels hold no bulk-copy instructions: {bulk}")
 
     # ---- 3. kernel vs plain on the card ----
+    lib = build.load_library()
+    for n_jacobi in range(0, 21):
+        depths = fullstep_levels(lib, n_jacobi)
+        check(sum(depths) == n_jacobi and len(depths) == -(-n_jacobi // 4)
+              and all(1 <= d <= 4 for d in depths)
+              and depths == sorted(depths, reverse=True)
+              and (not depths or depths[0] - depths[-1] <= 1),
+              f"fullstep's Jacobi groups at n_jacobi={n_jacobi}: {depths}")
+    print("fullstep's Jacobi groups, n_jacobi 0..20: sums, fewest groups of <= 4, "
+          "near-equal, deeper first")
     cfg64 = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda"))
     s64 = perturbed_state(tt, N_MAIN, 50)
     results = {}
@@ -748,7 +799,6 @@ def main() -> int:
             check(diff <= TOL_ENGINES, f"mono vs {label}: {diff:.3e}")
     # fullstep_dma == fullstep bit for bit, its outputs on NaN-poisoned
     # memory; N_PAST_PIN runs only f64, where the entry p is partly pinned
-    lib = build.load_library()
     f64_only = (torch.float64,)
     for n_b, s_b, dtypes in ((N_MAIN, s64, (torch.float64, torch.float32)),
                              (N_ODD, perturbed_state(tt, N_ODD, 50),
@@ -928,6 +978,16 @@ def main() -> int:
               f"{1e3 * t['plain_ms']:.2f} us/call on the device "
               f"({1e3 * t['plain_host_ms']:.2f} us from Python); bound "
               f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
+    shapes2d = fullstep_shapes(lib, (
+        ("fullstep f32", *F.shape, torch.float32), ("fullstep f64", *F.shape, torch.float64),
+        ("fullstep_win f32", *wb[0].shape, torch.float32),
+        ("fullstep_strips f32", *strips[0].shape, torch.float32)))
+    for label, (threads, smem, per_sm, ctas, rows) in shapes2d.items():
+        print(f"{tag} launch {label}: {threads} threads and {smem} shared bytes a CTA, "
+              f"{per_sm} CTAs an SM, {ctas} CTAs of {rows} x 32 tiles")
+    n_jacobi = cfg_mono.num.n_jacobi
+    print(f"fullstep at the main path's n_jacobi {n_jacobi}: Jacobi groups "
+          f"{fullstep_levels(lib, n_jacobi)}")
     # the paths run both sweeps equally often: one entry, their mean
     for name in ("fct_sweep", "fct_sweep_win"):
         x, y = times.pop(f"{name}_x"), times.pop(f"{name}_y")
@@ -1016,6 +1076,10 @@ def main() -> int:
               f"idle {100 * (1 - dev_ms / step_ms):.1f}% of the host-clock step")
 
     times.update(time_kernels_3d(K3, g3, fl, dt3, s3dev, {}, tag))
+    shapes3d = sweep_shapes(lib)
+    for label, (threads, smem, per_sm) in shapes3d.items():
+        print(f"{tag} launch fct3d_sweep {label}: {threads} threads and {smem} shared bytes "
+              f"a CTA, {per_sm} CTAs an SM")
 
     # ---- 11. the four 3-D kernels on the 200^3 engines' blocks vs plain ----
     from tpuvof_torch.parallel import Decomp3D, make_mesh
@@ -1125,6 +1189,9 @@ def main() -> int:
     fullstep = next(k for k in kernels if k["name"] == "fullstep")
     fullstep["variants"] = {name: {"launches": path_launches[name], **times[name]}
                             for name in ("fullstep_win", "fullstep_strips")}
+    # threads, shared bytes, CTAs an SM, CTAs, tile rows
+    fullstep["launch_shape"] = shapes2d
+    next(k for k in kernels if k["name"] == "fct3d_sweep")["launch_shape"] = shapes3d
     # fullstep_dma at every size of phase 14; its bulk-copy instructions
     fullstep_dma = next(k for k in kernels if k["name"] == "fullstep_dma")
     fullstep_dma["sizes"] = {str(n + 2): r for n, r in dma.items()}

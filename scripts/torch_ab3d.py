@@ -14,13 +14,19 @@ kernels see the same inputs), each leg:
 - times on the device alone (CUDA events around the replay of a CUDA graph
   of the calls, best of 5), in f32: each serial 3-D kernel
   (``predict3d_rhs``, ``jacobi3d`` for 10 iterations, ``correct3d``, the
-  three sweeps), ``predict3d_rhs`` and ``jacobi3d`` on the 2x2 pencil
-  engine's block of shard (1, 1), the serial step (a step triple), and, in
+  three sweeps, and the z sweep with ``mirror_out``), ``predict3d_rhs``,
+  ``jacobi3d`` and the three sweeps on the 2x2 pencil engine's block of
+  shard (1, 1), the serial step (a step triple), ``predict3d_rhs`` with
+  csf (and its curvature pre-pass ``kappa3d_kernel`` alone, from
+  torch.profiler's device activity where it shows one), and, in
   a tree whose plan has a depth (``JACOBI_LEVELS``), ``jacobi3d`` at every
   depth up to it;
 - the first A and B legs also write every output of ``predict3d_rhs``
-  (csf off and on) and ``jacobi3d`` (1, 2, 3 and 10 iterations), f32 and
-  f64, on the whole grid, an i-slab (gi_base 40) and the pencil block; the
+  (csf off and on), ``jacobi3d`` (1, 2, 3 and 10 iterations) and
+  ``fct3d_sweep`` (x, y and z, with and without ``mirror_out``, at a
+  step of 4e-4 on velocities perturbed by 0.5 from a seed, so that the
+  limiter fires), f32 and f64, on the whole grid, an i-slab (gi_base 40)
+  and the pencil block; the
   script compares A's and B's with ``torch.equal`` and exits 1 unless all
   are equal (a redesign that changes only where values are computed keeps
   them bit for bit);
@@ -28,8 +34,8 @@ kernels see the same inputs), each leg:
   sources to cubins with the tree's own nvcc flags and report, per kernel
   function, ptxas's registers, stack frame and spill stores and loads
   (``-Xptxas -v``) and the SASS instruction count (``cuobjdump``), and the
-  launch shape of ``predict3d_kernel`` and ``jacobi3d_kernel`` (threads and
-  shared bytes a CTA, CTAs resident an SM).
+  launch shape of ``predict3d_kernel``, ``jacobi3d_kernel`` and each
+  sweep's kernel (threads and shared bytes a CTA, CTAs resident an SM).
 
 It prints one line per leg, the comparison, a table of the four legs, and
 the card's name and power limit; ``--out`` also writes the legs as JSON.
@@ -53,6 +59,8 @@ PENCIL_SHARD = (1, 1)  # of the 2x2 engine: gi_base = gj_base = 86
 PENCIL_SHAPE = (130, 130, 202)
 N_ITERS = (1, 2, 3, 10)
 SOURCES = ("predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
+DT_SWEEP = 4e-4  # the sweeps' dump: Courant numbers up to ~0.3, the limiter fires
+VEL_NOISE = 0.5
 
 
 def device_ms(torch, fn, n: int) -> float:
@@ -82,6 +90,26 @@ def device_ms(torch, fn, n: int) -> float:
     return best
 
 
+def profiled_us(torch, fn, n: int, kernel: str) -> float | None:
+    """Mean device µs of the launches of kernels whose name holds
+    ``kernel`` over ``n`` calls of ``fn``, from torch.profiler's CUDA
+    activity; None where the profiler shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    return total / count if count and total > 0 else None
+
+
 def occupancy(regs: int, threads: int, smem: int) -> tuple[int, float]:
     """(CTAs resident per SM, share of the SM's 64 warp slots) of a kernel
     with ``regs`` registers a thread, ``threads`` a CTA and ``smem`` bytes of
@@ -95,9 +123,29 @@ def occupancy(regs: int, threads: int, smem: int) -> tuple[int, float]:
     return ctas, ctas * warps / 64
 
 
-def sass_counts(build, csrc: Path) -> dict:
+def kernel_key(mangled: str) -> str | None:
+    """``name<template arguments>`` of a mangled kernel function, without
+    its namespaces (an anonymous namespace's name carries a per-file hash,
+    so the two trees' names would not match): the last length-prefixed
+    name of the nested name, then the arguments up to the end of the
+    template argument list."""
+    if not mangled.startswith("_ZN"):
+        return None
+    pos, name = 3, None
+    while pos < len(mangled) and mangled[pos].isdigit():
+        end = pos
+        while mangled[end].isdigit():
+            end += 1
+        size = int(mangled[pos:end])
+        name, pos = mangled[end:end + size], end + size
+    args = re.match(r"I(\w*?)EEv", mangled[pos:])
+    return f"{name}<{args.group(1)}>" if name and args else None
+
+
+def sass_counts(build, csrc: Path, sources=SOURCES) -> dict:
     """{kernel function: {regs, stack, spill_st, spill_ld, sass}} of the
-    tree's 3-D sources, compiled with its flags (one nvcc per source, in
+    tree's ``sources`` (its 3-D ones by default), compiled with its flags
+    (one nvcc per source, in
     parallel): ptxas's registers, stack frame and spill stores and loads
     in bytes (``-Xptxas -v``), and the SASS instruction count
     (``cuobjdump``)."""
@@ -107,7 +155,7 @@ def sass_counts(build, csrc: Path) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for src in SOURCES:
+        for src in sources:
             cubin = Path(tmp) / (Path(src).stem + ".cubin")
             procs.append((cubin, subprocess.Popen(
                 [nvcc, *flags, "-cubin", "-o", str(cubin), str(csrc / src)],
@@ -132,18 +180,17 @@ def sass_counts(build, csrc: Path) -> dict:
                 n_ins = len(re.findall(r"/\*[0-9a-f]{4,}\*/", block))
                 # the kernel and its template arguments, without the
                 # per-file namespace hash, so the two trees' names match
-                short = re.search(r"((?:predict3d|kappa3d|correct3d|fct3d|jacobi3d)_kernel)"
-                                  r"I(\w*?)EEvP", mangled)
-                key = f"{short.group(1)}<{short.group(2)}>" if short else mangled
+                short = kernel_key(mangled)
+                key = short or mangled
                 out[key] = {**ptxas.get(mangled, {}), "sass": n_ins}
     return out
 
 
 def launch_shapes(lib, sass: dict, depth: int | None) -> dict:
     """{kernel: [threads a CTA, shared bytes a CTA, CTAs resident per SM,
-    share of the SM's warp slots]} of predict3d_kernel and jacobi3d_kernel
-    (at ``depth`` iterations a launch) on the whole grid without csf, f32
-    and f64. A tree whose library reports its launch shapes (``tv_*_shape``,
+    share of the SM's warp slots]} of predict3d_kernel, jacobi3d_kernel
+    (at ``depth`` iterations a launch) and the sweeps' kernels on the whole
+    grid without csf, f32 and f64. A tree whose library reports its launch shapes (``tv_*_shape``,
     with the runtime's own occupancy) is read; an older one launches 32 x 8
     threads with no shared memory (``tv::block3d()``) and is computed from
     its registers."""
@@ -159,9 +206,24 @@ def launch_shapes(lib, sass: dict, depth: int | None) -> dict:
                 threads, smem, ctas = shape
                 out[label] = [threads, smem, ctas, ctas * threads / 2048]
             else:
-                regs = next(v["regs"] for k, v in sass.items()
-                            if k.startswith(f"{kern}_kernel<{t}Lb0"))
-                out[label] = [256, 0, *occupancy(regs, 256, 0)]
+                regs = [v["regs"] for k, v in sass.items()
+                        if k.startswith(f"{kern}_kernel<{t}Lb0")]
+                out[label] = [256, 0, *occupancy(regs[0], 256, 0)] if regs else None
+    for axis in range(3):
+        for suffix, t in (("_f32", "f"), ("_f64", "d")):
+            label = f"fct3d {'xyz'[axis]} {suffix[1:]}"
+            if hasattr(lib, "tv_fct3d_shape" + suffix):
+                shape = (ctypes.c_int * 3)()
+                fn = getattr(lib, "tv_fct3d_shape" + suffix)
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                if fn(axis, 0, shape) != 0:
+                    raise RuntimeError(f"tv_fct3d_shape{suffix} failed")
+                threads, smem, ctas = shape
+                out[label] = [threads, smem, ctas, ctas * threads / 2048]
+            else:
+                regs = [v["regs"] for k, v in sass.items()
+                        if k.startswith(f"fct3d_kernel<{t}Li{axis}E")]
+                out[label] = [256, 0, *occupancy(max(regs), 256, 0)] if regs else None
     return out
 
 
@@ -182,10 +244,20 @@ def blocks_of(tt, g, s, dtype):
 
 
 def dump_outputs(torch, tt, K3, g, fl, dt, s, where: Path) -> list[str]:
-    """Write every compared output of predict3d_rhs (csf off and on) and
+    """Write every compared output of predict3d_rhs (csf off and on),
     jacobi3d (N_ITERS, from the plain version's rhs, so that both trees'
-    Jacobi inputs are the same), f32 and f64, on each block kind, one file
-    each under ``where``; returns their names in order."""
+    Jacobi inputs are the same) and fct3d_sweep (each axis, with and
+    without mirror_out, at DT_SWEEP on velocities with seeded noise), f32
+    and f64, on each block kind, one file each under ``where``; returns
+    their names in order."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    noise = [torch.as_tensor(rng.uniform(-VEL_NOISE, VEL_NOISE, s.F.shape), device=s.F.device)
+             for _ in range(3)]
+    s_sw = tt.State3D(s.F, *(a + d for a, d in zip((s.u, s.v, s.w), noise)), s.p)
+    sweep_blocks = {dtype: blocks_of(tt, g, s_sw, dtype)
+                    for dtype in (torch.float32, torch.float64)}
     names = []
 
     def put(name, t):
@@ -204,6 +276,11 @@ def dump_outputs(torch, tt, K3, g, fl, dt, s, where: Path) -> list[str]:
             rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, **org)[3]
             for n in N_ITERS:
                 put(f"{key} jacobi3d n_iter={n}", K3.jacobi3d(g, n, p, rhs, **org))
+            Fs, us_, vs_, ws_, _ = next(b[1] for b in sweep_blocks[dtype] if b[0] == tag)
+            for axis, vel in enumerate((us_, vs_, ws_)):
+                for mirror in (False, True):
+                    put(f"{key} fct3d_sweep axis={'xyz'[axis]} mirror_out={mirror}",
+                        K3.fct3d_sweep(g, DT_SWEEP, Fs, vel, axis, mirror, **org))
             torch.cuda.synchronize()
     return names
 
@@ -242,10 +319,14 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
     for axis, vel in enumerate((u, v, w)):
         timed[f"fct3d_sweep {'xyz'[axis]}"] = (
             lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, F, vel, axis))
+    timed["fct3d_sweep z mirror_out"] = lambda: K3.fct3d_sweep(g, dt, F, w, 2, True)
     _, (Fp, up, vp, wp, pp), org = blocks_of(tt, g, s, torch.float32)[2]
     rhs_p = K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, **org)[3]
     timed["pencil predict3d_rhs"] = lambda: K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, **org)
     timed["pencil jacobi3d (10)"] = lambda: K3.jacobi3d(g, 10, pp, rhs_p, **org)
+    for axis, vel in enumerate((up, vp, wp)):
+        timed[f"pencil fct3d_sweep {'xyz'[axis]}"] = (
+            lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, Fp, vel, axis, **org))
 
     def triple():
         for ph in (1, 2, 0):
@@ -253,6 +334,12 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
 
     res["us"] = {name: 1e3 * device_ms(torch, fn, 20) for name, fn in timed.items()}
     res["us"]["step"] = 1e3 * device_ms(torch, triple, 5) / 3
+    res["us"]["predict3d_rhs csf"] = 1e3 * device_ms(
+        torch, lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, True), 20)
+    kappa = profiled_us(torch, lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, True), 20,
+                        "kappa3d_kernel")
+    if kappa is not None:
+        res["us"]["kappa3d_kernel (profiler)"] = kappa
     if hasattr(K3, "JACOBI_LEVELS"):  # the Jacobi at each depth a launch
         chosen = K3.JACOBI_LEVELS
         for depth in range(1, chosen + 1):
@@ -326,7 +413,8 @@ def main() -> int:
     dumps.cleanup()
     n_out = len(legs[0]["outputs"])
     print(f"bitwise A vs B: {n_out} tensors (inputs, predict3d_rhs csf off and on, jacobi3d "
-          f"n_iter {N_ITERS}; f32 and f64; grid, slab, pencil block): "
+          f"n_iter {N_ITERS}, fct3d_sweep x/y/z with and without mirror_out; f32 and f64; "
+          "grid, slab, pencil block): "
           + ("all torch.equal" if not bad else f"{len(bad)} differ"))
     for line in bad:
         print(f"  DIFFERS {line}")

@@ -12,8 +12,11 @@ The port's engines are held against each other at tpuvof's own bar
 between its engines (atol 1e-13, tests/test_pallas.py), and the public
 routes against tpuvof's eager simulate. Sizes: 32^2 grids; the windows run
 n_jacobi = 4, so a whole-step window is 8 + 2*16 + 2 = 42 cells wide.
-The ``cuda``-marked test holds the CUDA kernels against the plain versions
-on a card.
+The fullstep wrapper is also held to pallas_fullstep at every n_jacobi
+from 0 to 20, which the kernel splits into different groups of Jacobi
+sweeps. The ``cuda``-marked tests hold the CUDA kernels against the plain
+versions on a card, the whole-step kernel also on grids that fill no
+32 x 32 tile and at every n_jacobi from 1 to 12.
 """
 import dataclasses
 
@@ -294,3 +297,80 @@ def test_step_kernels_match_plain_on_card():
     for other in (_step_cuda_tiled(cfg, s64, True, tile=16), _step_cuda_strips(cfg, s64, True)):
         for g_, w_ in zip(other, mono):
             assert torch.max(torch.abs(g_ - w_)).item() <= 1e-13
+
+
+@pytest.mark.parametrize("n_jacobi", range(0, 21))
+def test_fullstep_matches_pallas_fullstep_at_every_jacobi_count(ref, n_jacobi):
+    """The fullstep wrapper on CPU tensors (its plain version, which the
+    kernel is held to on the card) against tpuvof's pallas_fullstep at
+    every n_jacobi the kernel splits into different Jacobi groups (0 to
+    20: none to five groups of depths 1 to 4), the parity alternating;
+    no launch is counted."""
+    tv, pk, cfg, (F, u, v, p) = ref
+    cfg = cfg.replace(num=dataclasses.replace(cfg.num, n_jacobi=n_jacobi))
+    even = n_jacobi % 2 == 0
+    want = pk.pallas_fullstep(cfg, F, u, v, p, even, interpret=True)
+    K.reset_launch_counts()
+    got = K.fullstep(config_from_tpuvof(cfg), *map(_t, (F, u, v, p)), even)
+    assert not any(K.LAUNCHES.values())
+    for name, g_, w_ in zip("Fuvp", got, want):
+        assert _rel(g_, w_) <= TOL, name
+
+
+@pytest.mark.cuda
+def test_fullstep_edge_shapes_match_plain_on_card():
+    """fullstep, fullstep_win and fullstep_strips against their plain
+    versions on grids whose ghost-included extents fill no 32 x 32 tile
+    (63^2 and 67^2: 65 and 69 cells a side) and lie one past a tile
+    boundary (127^2: 129), at every n_jacobi from 1 to 12 (the Jacobi
+    groups' depths 1 to 4 and 1 to 3 groups), both parities, f64 within
+    1e-12 and f32 within 1e-4 of the field's scale. The library's split
+    of the Jacobi sweeps (n_jacobi 0 to 20) sums to n_jacobi in the
+    fewest groups of at most 4 sweeps, of near-equal depth, the deeper
+    first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import ctypes
+
+    from tpuvof_torch.kernels.build import load_library
+    from tpuvof_torch.ops import apply_bc
+
+    lib = load_library()
+    for n_jacobi in range(0, 21):
+        out = (ctypes.c_int * 8)()
+        depths = list(out[:lib.tv_fullstep_levels(n_jacobi, out, 8)])
+        assert sum(depths) == n_jacobi and len(depths) == -(-n_jacobi // 4), depths
+        assert all(1 <= d <= 4 for d in depths), depths
+        assert depths == sorted(depths, reverse=True), depths
+        assert not depths or depths[0] - depths[-1] <= 1, depths
+    rng = np.random.default_rng(22)
+    for n in (63, 67, 127):
+        plain = tt.dam_break_2d(n, num=tt.Numerics(backend="torch"))
+        s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), 10)
+        F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape), device="cuda")
+                      for a in s)
+        u, v, F, p = apply_bc(u, v, F, p)
+        for n_jacobi in range(1, 13):
+            cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono", n_jacobi=n_jacobi))
+            W = K.STEP_HALO(cfg)
+            w2 = K.strips_halo(cfg)
+            for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+                st = [a.to(dtype).contiguous() for a in (F, u, v, p)]
+                tag = (n, n_jacobi, str(dtype))
+                for even in (False, True):
+                    want = K.fullstep_plain(cfg, *st, even)
+                    for name, g_, w_ in zip("Fuvp", K.fullstep(cfg, *st, even), want):
+                        assert _rel(g_.cpu(), w_.cpu()) <= tol, (*tag, even, name)
+                    r0 = n // 3  # a window of 40 rows, all columns
+                    blocks = [torch.nn.functional.pad(a, (W,) * 4)[r0:r0 + 40 + 2 * W]
+                              .contiguous() for a in st]
+                    got = K.fullstep_win(cfg, *blocks, r0 - W, -W, even)
+                    want_w = K.fullstep_win_plain(cfg, *blocks, r0 - W, -W, even)
+                    for name, g_, w_ in zip("Fuvp", got, want_w):
+                        assert _rel(g_[W:-W, W:-W].cpu(), w_[W:-W, W:-W].cpu()) <= tol, (
+                            *tag, even, "win", name)
+                    padded = [torch.nn.functional.pad(a, (w2,) * 4, value=float("nan"))
+                              for a in st]
+                    for name, g_, w_ in zip("Fuvp", K.fullstep_strips(cfg, *padded, even), want):
+                        assert _rel(g_[w2:-w2, w2:-w2].cpu(), w_.cpu()) <= tol, (
+                            *tag, even, "strips", name)

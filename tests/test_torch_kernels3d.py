@@ -335,12 +335,15 @@ def _card_state(g, seed, device="cuda"):
 
 @pytest.mark.cuda
 def test_tiled_kernels3d_edge_shapes_match_plain_on_card():
-    """The tiled predict3d_rhs (csf off and on) and the multi-level jacobi3d
-    (n_iter 1 to 12: depths the launch plan does not divide) against their
-    plain versions, f64 (1e-12) and f32 (1e-5, p 1e-4), on a 13 x 17 x 23
-    grid (n1 = 19 and n2 = 25 fill no tile) and on i-slabs of it with the
-    low and the high x wall mid-block (zeros beyond the walls, as the slab
-    engine's edge shards hold them)."""
+    """The tiled predict3d_rhs (csf off and on), the multi-level jacobi3d
+    (n_iter 1 to 12: depths the launch plan does not divide) and the three
+    marching / warp-shuffle sweeps (with and without mirror_out, at a step
+    where the limiter fires) against their plain versions, f64 (1e-12) and
+    f32 (1e-5, p 1e-4), on a 13 x 17 x 23 grid (n1 = 19 and n2 = 25 fill
+    no tile) and on i-slabs of it with the low and the high x wall
+    mid-block (zeros beyond the walls, as the slab engine's edge shards
+    hold them); the sweeps also on pencil blocks with the low and the high
+    y wall mid-block (gj_base -4 and 6, rows past ny + 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     nx, ny, nz = 13, 17, 23
@@ -364,6 +367,27 @@ def test_tiled_kernels3d_edge_shapes_match_plain_on_card():
                 got = K3.jacobi3d(g, n_iter, p, rhs, gi_base)
                 want_p = K3.jacobi3d_plain(g, n_iter, p, rhs, gi_base)
                 assert _rel(got.cpu(), want_p.cpu()) <= tol_p, (tag, dtype, n_iter)
+            _check_sweeps_on_card(g, F, (u, v, w), tol, (tag, dtype), gi_base=gi_base)
             torch.cuda.synchronize()
             assert K3.LAUNCHES["predict3d_rhs"] == 3
             assert K3.LAUNCHES["jacobi3d"] == sum(len(K3.jacobi3d_plan(n)) for n in range(1, 13))
+            assert K3.LAUNCHES["fct3d_sweep"] == 6
+        # pencil blocks: rows 0..13 (gj_base -4) and 10..25 (gj_base 6) of the
+        # fields padded by 4 zero rows a side along y
+        wide = [torch.nn.functional.pad(a, (0, 0, 4, 4)) for a in fields]
+        for r0, njl in ((0, 12), (10, 14)):
+            F, u, v, w, _ = (a[:, r0:r0 + njl + 2].contiguous().to(dtype) for a in wide)
+            K3.reset_launch_counts()
+            _check_sweeps_on_card(g, F, (u, v, w), tol, (f"pencil rows {r0}", dtype),
+                                  njl=njl, gj_base=r0 - 4)
+            assert K3.LAUNCHES["fct3d_sweep"] == 6
+
+
+def _check_sweeps_on_card(g, F, vels, tol, tag, **org):
+    """The three sweeps with and without mirror_out against their plain
+    versions on one block."""
+    for axis, vel in enumerate(vels):
+        for mirror in (False, True):
+            got = K3.fct3d_sweep(g, DT_SWEEP, F, vel, axis, mirror, **org)
+            want = K3.fct3d_sweep_plain(g, DT_SWEEP, F, vel, axis, mirror, **org)
+            assert _rel(got.cpu(), want.cpu()) <= tol, (*tag, axis, mirror)

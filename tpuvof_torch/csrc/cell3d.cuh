@@ -96,15 +96,16 @@ inline dim3 grid3d(const Vol& g) {
 // that takes the fewest steps in all when the card runs ``resident`` CTAs
 // an SM in waves (waves x steps a CTA). One chunk per tile leaves SMs idle
 // on a block of few tiles; many short chunks pay the halo steps again.
-// The SM count is read once per process.
+// The SM count is read once a device.
 inline int plane_chunk(int n0, int tiles, int resident, int halo) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> cache[kMaxDevices];
+  const int sms = per_device(cache, [](int dev) {
+    int n = 0;
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n;
-  }();
-  const long long slots = static_cast<long long>(sms) * (resident > 0 ? resident : 1);
+  });
+  const long long slots =
+      static_cast<long long>(sms > 0 ? sms : 1) * (resident > 0 ? resident : 1);
   int best_lc = n0;
   long long best = -1;
   for (int chunks = 1; chunks <= n0 && chunks <= 64; ++chunks) {

@@ -12,12 +12,33 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace tv {
 
 constexpr int kBlockX = 32;  // along j, the contiguous axis
 constexpr int kBlockY = 8;   // along i
 
 inline dim3 block2d() { return dim3(kBlockX, kBlockY); }
+
+constexpr int kMaxDevices = 64;
+
+// ask(dev) for the current device, asked once a device and kept there: a
+// kernel's shared-memory grant, its occupancy and the SM count belong to
+// one device. A result <= 0 (none, or a negated CUDA error) is not kept.
+template <class Ask>
+int per_device(std::atomic<int> (&cache)[kMaxDevices], const Ask& ask) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return -static_cast<int>(cudaErrorInvalidDevice);
+  int n = cache[dev].load(std::memory_order_relaxed);
+  if (n <= 0) {
+    n = ask(dev);
+    if (n > 0) cache[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
 
 // Covers an (n0, n1) field with block2d() blocks.
 inline dim3 grid2d(int n0, int n1) {
@@ -28,6 +49,18 @@ inline dim3 grid2d(int n0, int n1) {
 template <typename T>
 __device__ __forceinline__ T clamp01(T x) {
   return x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
+}
+
+// x / y, rounded as IEEE division rounds it, but without the division
+// when x is zero and y a non-zero number: the division's instruction
+// sequence leaves its fast path for a zero numerator (2.8x slower in f32,
+// 3.7x in f64 on the H100, scripts/torch_div_probe.py), and the step's
+// fluxes, gradients and volume fractions are zero over wide regions. The
+// quotient is then x * copysign(1, y), the same signed zero.
+template <typename T>
+__device__ __forceinline__ T quot(T x, T y) {
+  if (x == T(0) && y == y && y != T(0)) return x * copysign(T(1), y);
+  return x / y;
 }
 
 // max/min of two finite values (the JAX and torch versions propagate NaN

@@ -16,31 +16,45 @@
 //
 // What bounds it on the H100: the step's stages depend on each other across
 // cells (kappa at +-1 feeds the momentum, u* at +1 the rhs, each Jacobi
-// sweep the next, the correction the sweeps, the sweeps the BCs): n_jacobi
-// + 7 stages. The compulsory traffic is 4 fields in and 4 out, ~8.5 MB at
-// 514^2 f32 (~2.5 us at 3.35 TB/s); the intermediates (7 block-sized
-// scratch fields, ~7.4 MB) stay in the 50 MB L2. With 16 stages of a few
-// microseconds each, the grid-wide barriers and the per-stage latency
-// bound it, not bytes or arithmetic.
+// sweep the next, the correction the sweeps, the sweeps the BCs). The
+// compulsory traffic is 4 fields in and 4 out, ~8.5 MB at 514^2 f32 (~2.5
+// us at 3.35 TB/s). What the card spends is latency: each stage's chain of
+// dependent loads and divisions, and a grid-wide barrier between two
+// dependent stages (n_jacobi + 7 stages, 16 barriers at n_jacobi 10, ~21
+// of the 144 us at 514^2 in the per-stage form; PERF.md).
 //
-// What the design does about it: design (a), one cooperative launch
-// (cudaLaunchCooperativeKernel). Each stage is a grid-stride loop over the
-// block's cells, one thread per cell at a time, and cooperative_groups'
-// grid.sync() separates the stages; the intermediates live in global
-// scratch that the wrapper allocates. The grid is sized to what the card
-// holds resident at once (occupancy x SMs), as a grid-wide barrier needs.
-// One launch replaces the phase route's 16 kernels and ~23 torch ops per
-// step, and the same code serves every block layout and both dtypes. Halo-
-// cone tiles in shared memory (design (b)) would cut the barriers; that is
-// later work.
+// What the design does about it: one cooperative launch
+// (cudaLaunchCooperativeKernel) whose grid is what the card holds resident
+// at once, running the stages in a few stage groups with one grid-wide
+// barrier (cooperative_groups' grid.sync()) between two groups. In each
+// group a CTA of 32 x 8 threads takes tiles of TH rows x 32 columns in
+// turn, loads the tile and a rim that covers the group's reach into shared
+// memory (every load of a thread issued before its first store), runs the
+// group's stages there with a __syncthreads() between two, each pass over
+// the cells of a compile-time region, and writes the tile's outputs:
+//   predict: the Youngs normals once a cell (rim 3 of F), kappa, u*/v* on
+//            the tile and one row/column beyond, rhs; writes u*, v*, rhs;
+//   jacobi:  d <= kJacobiLevels Jacobi sweeps on overlapped tiles (rim d,
+//            one less valid ring a sweep), a group per split of n_jacobi
+//            (jacobi_depth: 10 -> 4, 3, 3); writes p;
+//   finish:  the correction on the tile +4 (rim 5 of F and p), the first
+//            sweep on the tile +1 across it and +4 along the second, the
+//            second sweep and the clamp on the tile +1, each quantity of a
+//            sweep once a position (a warp a line segment, neighbours by
+//            shuffles), the BCs; writes F, u, v, p.
+// Four barriers a step at n_jacobi 10, and kappa, the normals, the
+// corrected velocities and both sweeps' F never leave shared memory. A
+// CTA's group is a chain of dependent passes, so the tile is small: 16
+// rows when all of a block's 16-row tiles fit on the card at once, else 24
+// (plan_launch). Every stage runs step_cell.cuh's ``*_of`` function on a
+// Tile accessor, so each value is the same IEEE operations on the same
+// inputs as before; a value at a position outside the block is 0, as ld()
+// reads it from a block-sized field.
 //
-// Jacobi stays out of place with two ping-pong buffers, both seeded with
-// the sanitized entry p; it updates cells of the global interior that are
-// not on the block's edge, so every other p keeps its entry value (the
-// global ghost ring, then overwritten by the BCs). The end-of-step BCs read
-// neighbours written by other threads in the stage before, so they run
-// after a barrier, from the clamped scratch into the outputs, in tpuvof's
-// j-then-i corner order.
+// Jacobi runs out of place, ping-ponging two scratch blocks; it updates
+// cells of the global interior that are not on the block's edge, so every
+// other p keeps its sanitized entry value (the global ghost ring, then
+// overwritten by the BCs).
 #include <cooperative_groups.h>
 
 #include "step_cell.cuh"
@@ -49,13 +63,42 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTX = 32;  // threads along j (the contiguous axis)
+constexpr int kTY = 8;   // along i
+constexpr int kThreads = kTX * kTY;
+constexpr int kTW = 32;            // a tile's output cells along j (16 or 24 along i)
+constexpr int kJacobiLevels = 4;   // the most Jacobi sweeps a stage group
+
+// The Jacobi sweeps of each stage group: ceil(n_jacobi / kJacobiLevels)
+// groups of near-equal depth, the deeper ones first (10 -> 4, 3, 3;
+// exported as tv_fullstep_levels).
+__host__ __device__ __forceinline__ int jacobi_groups(int n_jacobi) {
+  return (n_jacobi + kJacobiLevels - 1) / kJacobiLevels;
+}
+
+__host__ __device__ __forceinline__ int jacobi_depth(int n_jacobi, int group) {
+  const int n = jacobi_groups(n_jacobi);
+  return n_jacobi / n + (group < n_jacobi % n ? 1 : 0);
+}
+
+// Shared values of T a CTA needs for tiles of TH rows: the largest stage
+// group's boxes. predict: F (rim 3), u and v, kappa, the normals (u*/v*
+// reuse their space); jacobi: two levels and rhs (rim kJacobiLevels);
+// finish: F and p (rim 5), u*, v*, u, v (rim 4), at odd pitches.
+constexpr int smem_values(int th) {
+  const int predict = (th + 6) * (kTW + 6) + 2 * (th + 3) * (kTW + 3) + (th + 2) * (kTW + 2) +
+                      2 * (th + 4) * (kTW + 4);
+  const int jacobi = 3 * (th + 2 * kJacobiLevels) * (kTW + 2 * kJacobiLevels);
+  const int finish = 2 * (th + 10) * (kTW + 11) + 4 * (th + 8) * (kTW + 9);
+  const int m = predict > jacobi ? predict : jacobi;
+  return m > finish ? m : finish;
+}
 
 template <typename T>
 struct StepArgs {
-  const T *F, *u, *v, *p;      // entry block fields
+  const T *F, *u, *v, *p;  // entry block fields
   T *F_out, *u_out, *v_out, *p_out;
-  T *kr, *us, *vs, *pa, *pb, *un, *vn;  // scratch, each one block
+  T *us, *vs, *rhs, *pa, *pb;  // scratch, each one block
   tv::Block b;
   tv::PredictParams<T> pq;
   tv::ProjectParams<T> jq;
@@ -63,92 +106,387 @@ struct StepArgs {
   int n_jacobi, even_step;
 };
 
+// A box of a field in shared memory: block cell (i, j) at
+// s[(i - i0) * w + (j - j0)].
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fullstep_kernel(const StepArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  const tv::Block& b = a.b;
-  const int n = b.E0 * b.E1;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-#define TV_CELLS for (int c = first, i = c / b.E1, j = c % b.E1; c < n; \
-                      c += stride, i = c / b.E1, j = c % b.E1)
+struct Box {
+  T* s;
+  int i0, j0, w;
+  __device__ __forceinline__ T& operator()(int i, int j) const {
+    return s[(i - i0) * w + (j - j0)];
+  }
+  __device__ __forceinline__ T* end(int h) const { return s + h * w; }
+};
 
-  // kappa; both Jacobi buffers <- the sanitized entry p
-  TV_CELLS {
-    a.kr[c] = tv::curvature_at(a.F, b, i, j, a.pq);
-    const T pv = tv::ld(a.p, b, i, j);
-    a.pa[c] = pv;
-    a.pb[c] = pv;
+// A box read at offsets from one cell (step_cell.cuh's accessor form).
+template <typename T>
+struct Tile {
+  const T* s;
+  int w;
+  __device__ __forceinline__ Tile(const Box<T>& box, int i, int j) : s(&box(i, j)), w(box.w) {}
+  __device__ __forceinline__ T operator()(int di, int dj) const { return s[di * w + dj]; }
+};
+
+// Every block cell (i, j) of the H x W region at (i0, j0): the CTA's
+// threads take consecutive cells of the flattened region, so that every
+// lane has a cell while cells remain; H and W are compile-time, so the
+// split of the index is a multiply and the loop is unrolled.
+template <int H, int W, class Body>
+__device__ __forceinline__ void for_cells(int i0, int j0, const Body& body) {
+  constexpr int N = H * W;
+  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < (N + kThreads - 1) / kThreads; ++k) {
+    const int idx = tid + k * kThreads;
+    if (N % kThreads == 0 || idx < N) body(i0 + idx / W, j0 + idx % W);
   }
-  grid.sync();
-  TV_CELLS { tv::momentum_at(a.u, a.v, a.F, a.kr, b, i, j, a.pq, a.us[c], a.vs[c]); }
-  grid.sync();
-  // rhs over kappa's buffer (kappa is dead)
-  TV_CELLS { a.kr[c] = b.interior(i, j) ? tv::rhs_at(a.F, a.us, a.vs, b, i, j, a.jq) : T(0); }
-  grid.sync();
-  T* src = a.pa;
-  T* dst = a.pb;
-  for (int it = 0; it < a.n_jacobi; ++it) {
-    TV_CELLS {
-      if (b.interior(i, j) && i >= 1 && i < b.E0 - 1 && j >= 1 && j < b.E1 - 1)
-        dst[c] = tv::jacobi_at(src, a.kr[c], b, i, j, a.jq);
+}
+
+// Loads the H x W cells at each box's origin of its block field into the
+// box through ld(), each thread issuing all its loads of all NF fields
+// before its first store, so that their latencies overlap.
+template <int H, int W, int NF, typename T>
+__device__ __forceinline__ void stage(const tv::Block& b, const Box<T> (&box)[NF],
+                                      const T* const (&src)[NF]) {
+  constexpr int N = H * W, K = (N + kThreads - 1) / kThreads;
+  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
+  T r[NF][K];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int idx = tid + k * kThreads;
+      r[f][k] = N % kThreads == 0 || idx < N
+                    ? tv::ld(src[f], b, box[f].i0 + idx / W, box[f].j0 + idx % W)
+                    : T(0);
     }
-    grid.sync();
-    T* t = src;
-    src = dst;
-    dst = t;
   }
-  const T* p = src;
-  TV_CELLS {
-    tv::correct_at(a.F, a.us, a.vs, p, a.u, a.v, b, i, j, a.jq, a.un[c], a.vn[c]);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int idx = tid + k * kThreads;
+      if (N % kThreads == 0 || idx < N) box[f].s[idx / W * box[f].w + idx % W] = r[f][k];
+    }
   }
-  grid.sync();
-  // the two sweeps: the first into us' buffer, the second, clamped, into vs'
-  // (u* and v* are dead)
-  const int ax1 = a.even_step ? 1 : 0;
-  TV_CELLS {
-    a.us[c] = ax1 ? tv::sweep_at<T, 1>(a.F, a.vn, b, i, j, a.sy)
-                  : tv::sweep_at<T, 0>(a.F, a.un, b, i, j, a.sx);
+}
+
+// predict: u*, v* and rhs of the tile at (ti, tj).
+template <int TH, typename T>
+__device__ __forceinline__ void predict_tile(const StepArgs<T>& a, T* sm, int ti, int tj) {
+  const tv::Block& b = a.b;
+  constexpr int H = TH, W = kTW;
+  const Box<T> F{sm, ti - 3, tj - 3, W + 6};
+  const Box<T> u{F.end(H + 6), ti - 1, tj - 1, W + 3};
+  const Box<T> v{u.end(H + 3), ti - 1, tj - 1, W + 3};
+  const Box<T> K{v.end(H + 3), ti - 1, tj - 1, W + 2};
+  const Box<T> mx{K.end(H + 2), ti - 2, tj - 2, W + 4};
+  const Box<T> my{mx.end(H + 4), ti - 2, tj - 2, W + 4};
+  const Box<T> us{mx.s, ti, tj, W + 1};  // over the normals, dead by then
+  const Box<T> vs{us.end(H + 1), ti, tj, W + 1};
+  static_assert(2 * (H + 1) * (W + 1) <= 2 * (H + 4) * (W + 4), "u*/v* fit over the normals");
+  stage<H + 6, W + 6, 1, T>(b, {F}, {a.F});
+  stage<H + 3, W + 3, 2, T>(b, {u, v}, {a.u, a.v});
+  __syncthreads();
+  // the normals, once a cell (zero off the global interior)
+  for_cells<H + 4, W + 4>(ti - 2, tj - 2, [&](int i, int j) {
+    T x = T(0), y = T(0);
+    if (b.interior(i, j)) tv::normal_of(Tile<T>(F, i, j), a.pq, x, y);
+    mx(i, j) = x;
+    my(i, j) = y;
+  });
+  __syncthreads();
+  // kappa, 0 off the global interior and outside the block
+  for_cells<H + 2, W + 2>(ti - 1, tj - 1, [&](int i, int j) {
+    K(i, j) = b.inside(i, j) && b.interior(i, j)
+                  ? tv::curvature_of(mx(i + 1, j), mx(i - 1, j), my(i, j + 1), my(i, j - 1),
+                                     a.pq)
+                  : T(0);
+  });
+  __syncthreads();
+  // u*, v* on the tile and one row / column beyond it (rhs reads +1)
+  for_cells<H + 1, W + 1>(ti, tj, [&](int i, int j) {
+    T x, y;
+    tv::momentum_of(Tile<T>(u, i, j), Tile<T>(v, i, j), Tile<T>(F, i, j), Tile<T>(K, i, j), b,
+                    i, j, a.pq, x, y);
+    const bool in = b.inside(i, j);
+    us(i, j) = in ? x : T(0);
+    vs(i, j) = in ? y : T(0);
+    if (in && i < ti + H && j < tj + W) {
+      a.us[i * b.E1 + j] = x;
+      a.vs[i * b.E1 + j] = y;
+    }
+  });
+  __syncthreads();
+  for_cells<H, W>(ti, tj, [&](int i, int j) {
+    if (b.inside(i, j)) {
+      a.rhs[i * b.E1 + j] = b.interior(i, j)
+                                ? tv::rhs_of(Tile<T>(F, i, j), Tile<T>(us, i, j),
+                                             Tile<T>(vs, i, j), a.jq)
+                                : T(0);
+    }
+  });
+  __syncthreads();  // the next tile reuses the boxes
+}
+
+// Sweeps M..D of a jacobi group, from cur into nxt: sweep M is exact on
+// the box less M rings.
+template <int TH, int D, int M, typename T>
+__device__ __forceinline__ void jacobi_sweeps(const StepArgs<T>& a, const Box<T>& cur,
+                                              const Box<T>& nxt, const Box<T>& rhs, int ti,
+                                              int tj) {
+  if constexpr (M <= D) {
+    const tv::Block& b = a.b;
+    for_cells<TH + 2 * (D - M), kTW + 2 * (D - M)>(ti - D + M, tj - D + M, [&](int i, int j) {
+      const bool upd = b.interior(i, j) && i >= 1 && i < b.E0 - 1 && j >= 1 && j < b.E1 - 1;
+      nxt(i, j) = upd ? tv::jacobi_of(Tile<T>(cur, i, j), rhs(i, j), b, i, j, a.jq) : cur(i, j);
+    });
+    __syncthreads();
+    jacobi_sweeps<TH, D, M + 1>(a, nxt, cur, rhs, ti, tj);
   }
-  grid.sync();
-  TV_CELLS {
-    a.vs[c] = tv::clamp01(ax1 ? tv::sweep_at<T, 0>(a.us, a.un, b, i, j, a.sx)
-                              : tv::sweep_at<T, 1>(a.us, a.vn, b, i, j, a.sy));
+}
+
+// jacobi: D sweeps of the tile at (ti, tj), from src into dst.
+template <int TH, int D, typename T>
+__device__ __forceinline__ void jacobi_tile(const StepArgs<T>& a, T* sm, int ti, int tj,
+                                            const T* src, T* dst) {
+  const tv::Block& b = a.b;
+  constexpr int H = TH + 2 * D, W = kTW + 2 * D;
+  const Box<T> p0{sm, ti - D, tj - D, W};
+  const Box<T> p1{p0.end(H), ti - D, tj - D, W};
+  const Box<T> rhs{p1.end(H), ti - D, tj - D, W};
+  stage<H, W, 2, T>(b, {p0, rhs}, {src, a.rhs});  // rhs is 0 off the global interior
+  __syncthreads();
+  jacobi_sweeps<TH, D, 1>(a, p0, p1, rhs, ti, tj);
+  const Box<T>& out = D % 2 ? p1 : p0;
+  for_cells<TH, kTW>(ti, tj, [&](int i, int j) {
+    if (b.inside(i, j)) dst[i * b.E1 + j] = out(i, j);
+  });
+  __syncthreads();
+}
+
+// jacobi_tile at a depth d <= D known at run time.
+template <int TH, int D, typename T>
+__device__ __forceinline__ void jacobi_depth_tile(int d, const StepArgs<T>& a, T* sm, int ti,
+                                                  int tj, const T* src, T* dst) {
+  if constexpr (D > 1) {
+    if (d < D) {
+      jacobi_depth_tile<TH, D - 1>(d, a, sm, ti, tj, src, dst);
+      return;
+    }
   }
-  grid.sync();
+  jacobi_tile<TH, D>(a, sm, ti, tj, src, dst);
+}
+
+// One FCT sweep along AXIS (then the clamp, with CLAMP) of the cells of
+// rows [r0, r1) x columns [c0, c1), from F and the velocity vel into out,
+// every quantity once a position (step_cell.cuh's sweep_* functions): a
+// warp takes 32 consecutive positions of one line, k0 - 3 .. k0 + 28,
+// passes neighbours' values by shuffles, and its lanes 3..28 hold the
+// complete windows of cells k0 .. k0 + 25. The boxes hold the lines 3
+// positions past the region at both ends. A result outside the block is
+// 0, as ld() would read it.
+template <typename T, int AXIS, bool CLAMP>
+__device__ __forceinline__ void sweep_lines(const Box<T>& F, const Box<T>& vel,
+                                            const Box<T>& out, int r0, int r1, int c0, int c1,
+                                            const tv::Block& b, const tv::SweepParams<T>& q) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kOut = kTX - 6;
+  const int lane = static_cast<int>(threadIdx.x);
+  const int p0 = AXIS == 0 ? r0 : c0;  // the region along the line
+  const int p1 = AXIS == 0 ? r1 : c1;
+  const int l0 = AXIS == 0 ? c0 : r0;  // and its lines
+  const int segs = (p1 - p0 + kOut - 1) / kOut;
+  const int tasks = segs * (AXIS == 0 ? c1 - c0 : r1 - r0);
+  for (int task = static_cast<int>(threadIdx.y); task < tasks; task += kTY) {
+    const int line = l0 + task / segs;
+    const int k0 = p0 + task % segs * kOut;
+    const int pos = k0 - 3 + lane;
+    const int i = AXIS == 0 ? pos : line;
+    const int j = AXIS == 0 ? line : pos;
+    const bool held = pos < p1 + 3;  // the boxes end 3 past the region
+    const T Fz = held ? F(i, j) : T(0);
+    const T uz = held ? vel(i, j) : T(0);
+    const int k = AXIS == 0 ? i + b.oi : j + b.oj;  // global index along
+    const int m = AXIS == 0 ? j + b.oj : i + b.oi;  // and across the sweep
+    T fL, fH;
+    tv::sweep_fluxes(uz, __shfl_up_sync(kAll, Fz, 1), Fz, q, fL, fH);
+    const T av = tv::sweep_anti(k, fL, fH);
+    const T dv = tv::sweep_dv(uz, __shfl_down_sync(kAll, uz, 1), q);
+    const T Ftd = tv::sweep_ftd(k, Fz, fL, __shfl_down_sync(kAll, fL, 1), dv, q);
+    const T a_hi = __shfl_down_sync(kAll, av, 1);
+    T rp, rm;
+    tv::sweep_ratios(k, __shfl_up_sync(kAll, Ftd, 1), Ftd, __shfl_down_sync(kAll, Ftd, 1), av,
+                     a_hi, q, rp, rm);
+    const T c = tv::sweep_factor(av, __shfl_up_sync(kAll, rp, 1), __shfl_up_sync(kAll, rm, 1),
+                                 rp, rm);
+    const T c_hi = __shfl_down_sync(kAll, c, 1);
+    if (lane >= 3 && lane < 3 + kOut && pos < p1) {
+      T s = k < 1 || k > q.n_ax || m < 1 || m > q.n_ot
+                ? Fz
+                : tv::sweep_result(Ftd, av, c, a_hi, c_hi, dv, q);
+      if (CLAMP) s = tv::clamp01(s);
+      out(i, j) = b.inside(i, j) ? s : T(0);
+    }
+  }
+}
+
+// finish: the correction, both sweeps, the clamp and the BCs of the tile
+// at (ti, tj), with p the last Jacobi output.
+template <int TH, typename T>
+__device__ __forceinline__ void finish_tile(const StepArgs<T>& a, T* sm, int ti, int tj,
+                                            const T* p) {
+  const tv::Block& b = a.b;
+  constexpr int H = TH, W = kTW;
+  // odd pitches: a warp reading down a column hits 32 banks
+  const Box<T> F{sm, ti - 5, tj - 5, W + 11};
+  const Box<T> P{F.end(H + 10), ti - 5, tj - 5, W + 11};
+  const Box<T> un{P.end(H + 10), ti - 4, tj - 4, W + 9};  // u*, then the corrected u
+  const Box<T> vn{un.end(H + 8), ti - 4, tj - 4, W + 9};  // v*, then the corrected v
+  const Box<T> s1{vn.end(H + 8), ti - 4, tj - 4, W + 9};  // u, then the first sweep
+  const Box<T> s2{s1.end(H + 8), ti - 4, tj - 4, W + 9};  // v, then the second
+  stage<H + 10, W + 10, 2, T>(b, {F, P}, {a.F, p});
+  stage<H + 8, W + 8, 4, T>(b, {un, vn, s1, s2}, {a.us, a.vs, a.u, a.v});
+  __syncthreads();
+  // the correction, in place: a cell reads u*, v*, u, v only at itself
+  for_cells<H + 8, W + 8>(ti - 4, tj - 4, [&](int i, int j) {
+    T x, y;
+    tv::correct_of(Tile<T>(F, i, j), Tile<T>(un, i, j), Tile<T>(vn, i, j), Tile<T>(P, i, j),
+                   Tile<T>(s1, i, j), Tile<T>(s2, i, j), b, i, j, a.jq, x, y);
+    const bool in = b.inside(i, j);
+    un(i, j) = in ? x : T(0);
+    vn(i, j) = in ? y : T(0);
+  });
+  __syncthreads();
+  // the first sweep, where the second reads it: the tile +1 across it,
+  // +4 along the second sweep's axis
+  if (a.even_step) {
+    sweep_lines<T, 1, false>(F, vn, s1, ti - 4, ti + H + 4, tj - 1, tj + W + 1, b, a.sy);
+  } else {
+    sweep_lines<T, 0, false>(F, un, s1, ti - 1, ti + H + 1, tj - 4, tj + W + 4, b, a.sx);
+  }
+  __syncthreads();
+  // the second sweep and the clamp on the tile +1 (the BCs read +-1)
+  if (a.even_step) {
+    sweep_lines<T, 0, true>(s1, un, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sx);
+  } else {
+    sweep_lines<T, 1, true>(s1, vn, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sy);
+  }
+  __syncthreads();
   // wall BCs at global indices (tpuvof's _bc_values): u mirrored across
   // the j-walls then zero on the i-wall faces; v zero on the j-wall faces
   // then mirrored across the i-walls; F and p mirrored j first, then i.
-  TV_CELLS {
-    const int gi = i + b.oi, gj = j + b.oj;
-    const int di = gi == 0 ? 1 : (gi == b.nx + 1 ? -1 : 0);
-    const int dj = gj == 0 ? 1 : (gj == b.ny + 1 ? -1 : 0);
-    a.u_out[c] = gi == 1 || gi == b.nx + 1 ? T(0) : tv::ld(a.un, b, i, j + dj);
-    a.v_out[c] = gj == 1 || gj == b.ny + 1 ? T(0) : tv::ld(a.vn, b, i + di, j);
-    a.F_out[c] = tv::ld(a.vs, b, i + di, j + dj);
-    a.p_out[c] = tv::ld(p, b, i + di, j + dj);
-  }
-#undef TV_CELLS
+  for_cells<H, W>(ti, tj, [&](int i, int j) {
+    if (b.inside(i, j)) {
+      const int gi = i + b.oi, gj = j + b.oj;
+      const int di = gi == 0 ? 1 : (gi == b.nx + 1 ? -1 : 0);
+      const int dj = gj == 0 ? 1 : (gj == b.ny + 1 ? -1 : 0);
+      const int c = i * b.E1 + j;
+      a.u_out[c] = gi == 1 || gi == b.nx + 1 ? T(0) : un(i, j + dj);
+      a.v_out[c] = gj == 1 || gj == b.ny + 1 ? T(0) : vn(i + di, j);
+      a.F_out[c] = s2(i + di, j + dj);
+      a.p_out[c] = P(i + di, j + dj);
+    }
+  });
+  __syncthreads();
 }
 
-// Blocks of kThreads that the card holds resident at once (the most a
-// cooperative launch may have), or a negative CUDA error.
+// At least 3 CTAs an SM in f32, so that the 374 tiles of a 514^2 grid run
+// at once (the f64 boxes allow 2).
+template <typename T, int TH>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
+    fullstep_kernel(const StepArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  cg::grid_group grid = cg::this_grid();
+  const int tiles_j = (a.b.E1 + kTW - 1) / kTW;
+  const int n_tiles = tiles_j * ((a.b.E0 + TH - 1) / TH);
+#define TV_TILES for (int t = blockIdx.x, ti = t / tiles_j * TH, tj = t % tiles_j * kTW; \
+                      t < n_tiles; t += gridDim.x, ti = t / tiles_j * TH,                  \
+                      tj = t % tiles_j * kTW)
+
+  TV_TILES predict_tile<TH>(a, sm, ti, tj);
+  grid.sync();
+  const T* p = a.p;
+  T* dst = a.pa;
+  for (int g = 0, n = jacobi_groups(a.n_jacobi); g < n; ++g) {
+    const int d = jacobi_depth(a.n_jacobi, g);
+    TV_TILES jacobi_depth_tile<TH, kJacobiLevels>(d, a, sm, ti, tj, p, dst);
+    grid.sync();
+    p = dst;
+    dst = dst == a.pa ? a.pb : a.pa;
+  }
+  TV_TILES finish_tile<TH>(a, sm, ti, tj, p);
+#undef TV_TILES
+}
+
+// The kernel with TH-row tiles: its shared bytes (granted once a device)
+// and the CTAs an SM holds with them (asked once a device), or a negative
+// CUDA error.
+template <typename T, int TH>
+struct Step {
+  static constexpr int smem = smem_values(TH) * static_cast<int>(sizeof(T));
+  static int per_sm() {
+    static std::atomic<int> cache[tv::kMaxDevices];
+    return tv::per_device(cache, [](int dev) {
+      int coop, ctas = 0;
+      cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+      if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(fullstep_kernel<T, TH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fullstep_kernel<T, TH>,
+                                                          kThreads, smem);
+      if (e == cudaSuccess && ctas < 1) e = cudaErrorLaunchOutOfResources;
+      return e == cudaSuccess ? ctas : -static_cast<int>(e);
+    });
+  }
+  static long long tiles(int E0, int E1) {
+    return static_cast<long long>((E0 + TH - 1) / TH) * ((E1 + kTW - 1) / kTW);
+  }
+};
+
+int sm_count() {
+  static std::atomic<int> cache[tv::kMaxDevices];
+  return tv::per_device(cache, [](int dev) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  });
+}
+
+// The launch on an (E0, E1) block: the tile height and the CTAs, one a
+// tile up to what the card holds resident (a grid-wide barrier needs all
+// of them resident). A CTA's stage groups are chains of dependent passes,
+// shorter on a smaller tile: 16 rows when the block's 16-row tiles all fit
+// on the card at once (a small block, spread over more SMs), else 24, whose
+// sweep lines (26 cells across a tile) fit one warp and which beat 32 rows
+// at 562^2 to 2050^2 (PERF.md). Negative CTAs: a CUDA error.
 template <typename T>
-int resident_blocks() {
-  static int cached = 0;
-  if (cached > 0) return cached;
-  int dev, sms, per_sm, coop;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fullstep_kernel<T>,
-                                                      kThreads, 0);
-  if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cached = per_sm * sms;
-  return cached;
+void plan_launch(int E0, int E1, int& th, int& ctas) {
+  const int n16 = Step<T, 16>::per_sm(), n24 = Step<T, 24>::per_sm();
+  if (n16 < 0 || n24 < 0) {
+    th = 24;
+    ctas = n16 < 0 ? n16 : n24;
+    return;
+  }
+  const long long tiles16 = Step<T, 16>::tiles(E0, E1), tiles24 = Step<T, 24>::tiles(E0, E1);
+  const long long resident16 = static_cast<long long>(n16) * sm_count();
+  const long long resident24 = static_cast<long long>(n24) * sm_count();
+  th = tiles16 <= resident16 ? 16 : 24;
+  ctas = static_cast<int>(th == 16 ? tiles16 : (tiles24 < resident24 ? tiles24 : resident24));
+}
+
+template <typename T>
+const void* kernel_of(int th) {
+  return th == 16 ? reinterpret_cast<const void*>(fullstep_kernel<T, 16>)
+                  : reinterpret_cast<const void*>(fullstep_kernel<T, 24>);
+}
+
+template <typename T>
+int smem_of(int th) {
+  return th == 16 ? Step<T, 16>::smem : Step<T, 24>::smem;
 }
 
 template <typename T>
@@ -156,6 +494,7 @@ int launch_fullstep(const void* const* fields, void* const* outs, void* scratch,
                     tv::Block b, int n_jacobi, int even_step, const double* pc,
                     const double* jc, const double* sxc, const double* syc,
                     int full_dv, int clamp, cudaStream_t stream) {
+  if (n_jacobi < 0) return static_cast<int>(cudaErrorInvalidValue);
   StepArgs<T> a;
   a.F = static_cast<const T*>(fields[0]);
   a.u = static_cast<const T*>(fields[1]);
@@ -167,8 +506,8 @@ int launch_fullstep(const void* const* fields, void* const* outs, void* scratch,
   a.p_out = static_cast<T*>(outs[3]);
   T* s = static_cast<T*>(scratch);
   const size_t n = static_cast<size_t>(b.E0) * b.E1;
-  T** bufs[] = {&a.kr, &a.us, &a.vs, &a.pa, &a.pb, &a.un, &a.vn};
-  for (int k = 0; k < 7; ++k) *bufs[k] = s + k * n;
+  T** bufs[] = {&a.us, &a.vs, &a.rhs, &a.pa, &a.pb};
+  for (int k = 0; k < 5; ++k) *bufs[k] = s + k * n;
   a.b = b;
   a.pq = tv::predict_params<T>(pc);
   a.jq = tv::project_params<T>(jc);
@@ -176,24 +515,38 @@ int launch_fullstep(const void* const* fields, void* const* outs, void* scratch,
   a.sy = tv::sweep_params<T>(b.ny, b.nx, syc, full_dv, clamp);
   a.n_jacobi = n_jacobi;
   a.even_step = even_step;
-  const int resident = resident_blocks<T>();
-  if (resident < 0) return -resident;
-  const long long want = (static_cast<long long>(n) + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < resident ? want : resident);
+  int th, ctas;
+  plan_launch<T>(b.E0, b.E1, th, ctas);
+  if (ctas < 0) return -ctas;
   void* args[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fullstep_kernel<T>), dim3(blocks), dim3(kThreads),
-      args, 0, stream);
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel_of<T>(th), dim3(ctas),
+                                                    dim3(kTX, kTY), args, smem_of<T>(th),
+                                                    stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out = {threads a CTA, shared bytes a CTA, CTAs an SM, CTAs launched, tile
+// rows} on an (E0, E1) block
+template <typename T>
+int fullstep_shape(int E0, int E1, int* out) {
+  int th, ctas;
+  plan_launch<T>(E0, E1, th, ctas);
+  if (ctas < 0) return -ctas;
+  out[0] = kThreads;
+  out[1] = smem_of<T>(th);
+  out[2] = th == 16 ? Step<T, 16>::per_sm() : Step<T, 24>::per_sm();
+  out[3] = ctas;
+  out[4] = th;
+  return 0;
+}
+
 }  // namespace
 
-// fields: F, u, v, p (inputs); outs: F, u, v, p (outputs); scratch: 7
-// blocks; all (E0, E1) blocks whose (0, 0) is global (oi, oj) of an nx x ny
-// grid. pc, jc, sxc, syc: the predict, project, x-sweep and y-sweep
-// constants (kernels/step_kernels.py).
+// fields: F, u, v, p (inputs); outs: F, u, v, p (outputs); scratch: 5
+// blocks; all (E0, E1) blocks whose (0, 0) is global (oi, oj) of
+// an nx x ny grid. pc, jc, sxc, syc: the predict, project, x-sweep and
+// y-sweep constants (kernels/step_kernels.py).
 extern "C" int tv_fullstep_f32(const void* const* fields, void* const* outs,
                                void* scratch, int E0, int E1, int oi, int oj,
                                int nx, int ny, int n_jacobi, int even_step,
@@ -216,4 +569,22 @@ extern "C" int tv_fullstep_f64(const void* const* fields, void* const* outs,
                                  tv::Block{E0, E1, oi, oj, nx, ny}, n_jacobi,
                                  even_step, pc, jc, sxc, syc, full_dv, clamp,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The launch shape on an (E0, E1) block: out = {threads a CTA, shared
+// bytes a CTA, CTAs an SM, CTAs launched, tile rows}.
+extern "C" int tv_fullstep_shape_f32(int E0, int E1, int* out) {
+  return fullstep_shape<float>(E0, E1, out);
+}
+
+extern "C" int tv_fullstep_shape_f64(int E0, int E1, int* out) {
+  return fullstep_shape<double>(E0, E1, out);
+}
+
+// The Jacobi sweeps of each stage group for n_jacobi: writes at most cap
+// depths to out and returns the number of groups.
+extern "C" int tv_fullstep_levels(int n_jacobi, int* out, int cap) {
+  const int n = n_jacobi > 0 ? jacobi_groups(n_jacobi) : 0;
+  for (int g = 0; g < n && g < cap; ++g) out[g] = jacobi_depth(n_jacobi, g);
+  return n;
 }

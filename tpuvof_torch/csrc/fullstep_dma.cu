@@ -340,27 +340,25 @@ __global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T
 
 // Blocks of kThreads that the card holds resident at once with the most
 // dynamic shared memory a launch asks for (the most a cooperative launch
-// may have), or a negative CUDA error.
+// may have), asked once a device, or a negative CUDA error.
 template <typename T>
 int resident_blocks() {
-  static int cached = 0;
-  if (cached > 0) return cached;
-  int dev, sms, per_sm, coop;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fullstep_dma_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes_max<T>());
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fullstep_dma_kernel<T>,
-                                                      kThreads, smem_bytes_max<T>());
-  if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cached = per_sm * sms;
-  return cached;
+  static std::atomic<int> cache[tv::kMaxDevices];
+  return tv::per_device(cache, [](int dev) {
+    int sms, per_sm, coop;
+    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fullstep_dma_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes_max<T>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fullstep_dma_kernel<T>,
+                                                        kThreads, smem_bytes_max<T>());
+    if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
+    return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
+  });
 }
 
 // The launch's shape for an E0 x E1 block: CTAs, chunks of kThreads cells

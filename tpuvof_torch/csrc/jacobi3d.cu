@@ -196,20 +196,20 @@ __global__ void __launch_bounds__(Depth<T, NLEV>::threads)
 }
 
 // The kernel of one (type, mode, depth), with its shared memory granted and
-// the CTAs it keeps resident on an SM (asked once).
+// the CTAs it keeps resident on an SM (asked once a device).
 template <typename T, bool PENCIL, int NLEV>
 struct Jacobi {
   using D = Depth<T, NLEV>;
   static int resident() {
-    static const int ctas = [] {
+    static std::atomic<int> cache[tv::kMaxDevices];
+    return tv::per_device(cache, [](int) {
       cudaFuncSetAttribute(jacobi3d_kernel<T, PENCIL, NLEV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(D::smem));
       int n = 0;
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, jacobi3d_kernel<T, PENCIL, NLEV>,
                                                     D::threads, D::smem);
       return n;
-    }();
-    return ctas;
+    });
   }
   static int launch(const T* src, const T* rhs, T* dst, tv::Vol g, const J3Params<T>& q,
                     cudaStream_t stream) {

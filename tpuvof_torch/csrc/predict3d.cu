@@ -457,20 +457,20 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The kernel of one (type, mode, csf), with its shared memory granted and
-// the CTAs it keeps resident on an SM (asked once).
+// the CTAs it keeps resident on an SM (asked once a device).
 template <typename T, bool PENCIL, bool CSF>
 struct Predict {
   static constexpr size_t smem = predict_smem_bytes<T, CSF>();
   static int resident() {
-    static const int ctas = [] {
+    static std::atomic<int> cache[tv::kMaxDevices];
+    return tv::per_device(cache, [](int) {
       cudaFuncSetAttribute(predict3d_kernel<T, PENCIL, CSF>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       int n = 0;
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, predict3d_kernel<T, PENCIL, CSF>,
                                                     kThreads, smem);
       return n;
-    }();
-    return ctas;
+    });
   }
   static int launch(const T* u, const T* v, const T* w, const T* F, const T* kappa, T* us,
                     T* vs, T* ws, T* rhs, tv::Vol g, const P3Params<T>& q,

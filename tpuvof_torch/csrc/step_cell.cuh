@@ -3,8 +3,13 @@
 //
 // Every function computes one cell of one stage on a Block: a row-major
 // (E0, E1) array whose (0, 0) sits at global index (oi, oj) of a grid with
-// nx x ny interior cells. The phase kernels on the whole grid are the case
-// oi = oj = 0, (E0, E1) = (nx+2, ny+2). Masks are taken at global indices,
+// nx x ny interior cells. Each stage's arithmetic is written once, in a
+// function ``*_of`` that reads its fields through accessors: A(di, dj) is
+// the field at (i + di, j + dj), zero outside the block and the global
+// domain. The ``*_at`` functions take global-memory fields (Near, Ld);
+// fullstep.cu calls the ``*_of`` functions on shared-memory tiles. The
+// phase kernels on the whole grid are the case oi = oj = 0,
+// (E0, E1) = (nx+2, ny+2). Masks are taken at global indices,
 // and ld() zeroes every value outside the global ghost-included domain
 // (tpuvof's load sanitizer, step_kernels.py:472-482, 836-851) and past the
 // block's own edges, whose values feed only the block's junk margin.
@@ -65,6 +70,19 @@ struct Near {
   }
 };
 
+// ld() at offsets from cell (i, j), as an accessor.
+template <typename T>
+struct Ld {
+  const T* __restrict__ a;
+  const Block& b;
+  int i, j;
+  __device__ __forceinline__ Ld(const T* __restrict__ a_, const Block& b_, int i_, int j_)
+      : a(a_), b(b_), i(i_), j(j_) {}
+  __device__ __forceinline__ T operator()(int di, int dj) const {
+    return ld(a, b, i + di, j + dj);
+  }
+};
+
 // ---- predict: materials, Youngs normals, curvature, momentum ----
 
 template <typename T>
@@ -100,19 +118,11 @@ PredictParams<T> predict_params(const double* c) {
   return q;
 }
 
-// Youngs normal of cell (i, j): the mean of the four corner gradients,
-// normalized unless both components are below 1e-10; zero off the global
-// interior.
-template <typename T>
-__device__ __forceinline__ void normal_at(const T* __restrict__ F, const Block& b,
-                                          int i, int j, const PredictParams<T>& q,
-                                          T& mx, T& my) {
-  if (!b.interior(i, j)) {
-    mx = T(0);
-    my = T(0);
-    return;
-  }
-  const Near<T> f(F, b, i, j);
+// Youngs normal of a cell of the global interior: the mean of the four
+// corner gradients, normalized unless both components are below 1e-10.
+template <typename T, class A>
+__device__ __forceinline__ void normal_of(const A& f, const PredictParams<T>& q, T& mx,
+                                          T& my) {
   const T mx1 = q.neg_inv2dx * (f(1, 1) + f(1, 0) - f(0, 1) - f(0, 0));
   const T my1 = q.neg_inv2dy * (f(1, 1) - f(1, 0) + f(0, 1) - f(0, 0));
   const T mx2 = q.neg_inv2dx * (f(1, 0) + f(1, -1) - f(0, 0) - f(0, -1));
@@ -126,8 +136,29 @@ __device__ __forceinline__ void normal_at(const T* __restrict__ F, const Block& 
   const bool degenerate = fabs(mxsum) < T(1e-10) && fabs(mysum) < T(1e-10);
   const T mag_sq = mxsum * mxsum + mysum * mysum;
   const T safe_mag = sqrt(degenerate ? T(1) : mag_sq);
-  mx = degenerate ? mxsum : mxsum / safe_mag;
-  my = degenerate ? mysum : mysum / safe_mag;
+  mx = degenerate ? mxsum : quot(mxsum, safe_mag);
+  my = degenerate ? mysum : quot(mysum, safe_mag);
+}
+
+// Youngs normal of cell (i, j); zero off the global interior.
+template <typename T>
+__device__ __forceinline__ void normal_at(const T* __restrict__ F, const Block& b,
+                                          int i, int j, const PredictParams<T>& q,
+                                          T& mx, T& my) {
+  if (!b.interior(i, j)) {
+    mx = T(0);
+    my = T(0);
+    return;
+  }
+  normal_of(Near<T>(F, b, i, j), q, mx, my);
+}
+
+// kappa = -div(normal) at a cell of the global interior, from the normals
+// of its four neighbours.
+template <typename T>
+__device__ __forceinline__ T curvature_of(T mx_e, T mx_w, T my_n, T my_s,
+                                          const PredictParams<T>& q) {
+  return -(q.inv2dx * (mx_e - mx_w) + q.inv2dy * (my_n - my_s));
 }
 
 // kappa = -div(normal) on the global interior, 0 elsewhere.
@@ -140,23 +171,18 @@ __device__ __forceinline__ T curvature_at(const T* __restrict__ F, const Block& 
   normal_at(F, b, i - 1, j, q, mx_w, my_w);
   normal_at(F, b, i, j + 1, q, mx_n, my_n);
   normal_at(F, b, i, j - 1, q, mx_s, my_s);
-  return -(q.inv2dx * (mx_e - mx_w) + q.inv2dy * (my_n - my_s));
+  return curvature_of(mx_e, mx_w, my_n, my_s, q);
 }
 
 // u* on global rows [2, nx+1) x cols [1, ny+1), v* on [1, nx+1) x
 // [2, ny+1), 0 elsewhere; kappa is curvature_at's field.
-template <typename T>
-__device__ __forceinline__ void momentum_at(const T* __restrict__ u,
-                                            const T* __restrict__ v,
-                                            const T* __restrict__ F,
-                                            const T* __restrict__ kappa,
+template <typename T, class A>
+__device__ __forceinline__ void momentum_of(const A& U, const A& V, const A& Fv, const A& K,
                                             const Block& b, int i, int j,
-                                            const PredictParams<T>& q, T& us,
-                                            T& vs) {
+                                            const PredictParams<T>& q, T& us, T& vs) {
   us = T(0);
   vs = T(0);
   if (!b.interior(i, j)) return;
-  const Near<T> U(u, b, i, j), V(v, b, i, j), Fv(F, b, i, j), K(kappa, b, i, j);
   const T rho_c = mix_rho(Fv(0, 0), q.rho_l, q.rho_g);
   const T nu_c = mix_nu(Fv(0, 0), q.nu_l, q.nu_g);
   if (i + b.oi >= 2) {
@@ -165,12 +191,12 @@ __device__ __forceinline__ void momentum_at(const T* __restrict__ u,
     const T dudx = uc > T(0) ? (uc - U(-1, 0)) * q.dxi : (U(1, 0) - uc) * q.dxi;
     const T dudy = v_here > T(0) ? (uc - U(0, -1)) * q.dyi : (U(0, 1) - uc) * q.dyi;
     const T kap_u = (K(0, 0) + K(-1, 0)) * T(0.5);
-    const T fx_kappa = q.neg_sigma * (Fv(0, 0) - Fv(-1, 0)) * kap_u / q.dx;
+    const T fx_kappa = quot(q.neg_sigma * (Fv(0, 0) - Fv(-1, 0)) * kap_u, q.dx);
     const T rho_w = mix_rho(Fv(-1, 0), q.rho_l, q.rho_g);
     us = uc + q.dt * (nu_c * (U(-1, 0) - T(2) * uc + U(1, 0)) * q.dxi2 +
                       nu_c * (U(0, -1) - T(2) * uc + U(0, 1)) * q.dyi2 -
                       uc * dudx - v_here * dudy + q.gx +
-                      fx_kappa * T(2) / (rho_c + rho_w));
+                      quot(fx_kappa * T(2), rho_c + rho_w));
   }
   if (j + b.oj >= 2) {
     const T vc = V(0, 0);
@@ -178,13 +204,25 @@ __device__ __forceinline__ void momentum_at(const T* __restrict__ u,
     const T dvdx = u_here > T(0) ? (vc - V(-1, 0)) * q.dxi : (V(1, 0) - vc) * q.dxi;
     const T dvdy = vc > T(0) ? (vc - V(0, -1)) * q.dyi : (V(0, 1) - vc) * q.dyi;
     const T kap_v = (K(0, 0) + K(0, -1)) * T(0.5);
-    const T fy_kappa = q.neg_sigma * (Fv(0, 0) - Fv(0, -1)) * kap_v / q.dy;
+    const T fy_kappa = quot(q.neg_sigma * (Fv(0, 0) - Fv(0, -1)) * kap_v, q.dy);
     const T rho_s = mix_rho(Fv(0, -1), q.rho_l, q.rho_g);
     vs = vc + q.dt * (nu_c * (V(-1, 0) - T(2) * vc + V(1, 0)) * q.dxi2 +
                       nu_c * (V(0, -1) - T(2) * vc + V(0, 1)) * q.dyi2 -
                       u_here * dvdx - vc * dvdy + q.gy +
-                      fy_kappa * T(2) / (rho_c + rho_s));
+                      quot(fy_kappa * T(2), rho_c + rho_s));
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void momentum_at(const T* __restrict__ u,
+                                            const T* __restrict__ v,
+                                            const T* __restrict__ F,
+                                            const T* __restrict__ kappa,
+                                            const Block& b, int i, int j,
+                                            const PredictParams<T>& q, T& us,
+                                            T& vs) {
+  momentum_of(Near<T>(u, b, i, j), Near<T>(v, b, i, j), Near<T>(F, b, i, j),
+              Near<T>(kappa, b, i, j), b, i, j, q, us, vs);
 }
 
 // ---- projection: rhs, Jacobi, correction ----
@@ -214,22 +252,25 @@ ProjectParams<T> project_params(const double* c) {
 }
 
 // rhs = rho/dt * div(u*) at a cell of the global interior.
+template <typename T, class A>
+__device__ __forceinline__ T rhs_of(const A& F, const A& us, const A& vs,
+                                    const ProjectParams<T>& q) {
+  const T rho = mix_rho(F(0, 0), q.rho_l, q.rho_g);
+  return rho / q.dt * ((us(1, 0) - us(0, 0)) * q.dxi + (vs(0, 1) - vs(0, 0)) * q.dyi);
+}
+
 template <typename T>
 __device__ __forceinline__ T rhs_at(const T* __restrict__ F, const T* __restrict__ us,
                                     const T* __restrict__ vs, const Block& b, int i,
                                     int j, const ProjectParams<T>& q) {
-  const T rho = mix_rho(ld(F, b, i, j), q.rho_l, q.rho_g);
-  return rho / q.dt *
-         ((ld(us, b, i + 1, j) - ld(us, b, i, j)) * q.dxi +
-          (ld(vs, b, i, j + 1) - ld(vs, b, i, j)) * q.dyi);
+  return rhs_of(Ld<T>(F, b, i, j), Ld<T>(us, b, i, j), Ld<T>(vs, b, i, j), q);
 }
 
 // One Jacobi update of a cell of the global interior; the edge
 // coefficients are zero on the global walls and ap_inv is picked from the
 // four edge-class constants (_inline_poisson_coeffs).
-template <typename T>
-__device__ __forceinline__ T jacobi_at(const T* __restrict__ src, T rhs,
-                                       const Block& b, int i, int j,
+template <typename T, class A>
+__device__ __forceinline__ T jacobi_of(const A& src, T rhs, const Block& b, int i, int j,
                                        const ProjectParams<T>& q) {
   const int gi = i + b.oi, gj = j + b.oj;
   const T ae = gi == b.nx ? T(0) : q.dxi2;
@@ -238,13 +279,38 @@ __device__ __forceinline__ T jacobi_at(const T* __restrict__ src, T rhs,
   const T a_s = gj == 1 ? T(0) : q.dyi2;
   const int x_edge = gi == 1 || gi == b.nx;
   const int y_edge = gj == 1 || gj == b.ny;
-  return (rhs - ae * ld(src, b, i + 1, j) - aw * ld(src, b, i - 1, j) -
-          an * ld(src, b, i, j + 1) - a_s * ld(src, b, i, j - 1)) *
+  return (rhs - ae * src(1, 0) - aw * src(-1, 0) - an * src(0, 1) - a_s * src(0, -1)) *
          q.ap_inv[x_edge][y_edge];
+}
+
+template <typename T>
+__device__ __forceinline__ T jacobi_at(const T* __restrict__ src, T rhs,
+                                       const Block& b, int i, int j,
+                                       const ProjectParams<T>& q) {
+  return jacobi_of(Ld<T>(src, b, i, j), rhs, b, i, j, q);
 }
 
 // u on global rows [2, nx+1) x cols [1, ny+1) and v on [1, nx+1) x
 // [2, ny+1) from u*, v* and grad p; elsewhere the (sanitized) entry u, v.
+template <typename T, class A>
+__device__ __forceinline__ void correct_of(const A& F, const A& us, const A& vs, const A& p,
+                                           const A& u, const A& v, const Block& b, int i,
+                                           int j, const ProjectParams<T>& q, T& uo, T& vo) {
+  uo = u(0, 0);
+  vo = v(0, 0);
+  if (!b.interior(i, j)) return;
+  const T rho_c = mix_rho(F(0, 0), q.rho_l, q.rho_g);
+  const T pc = p(0, 0);
+  if (i + b.oi >= 2) {
+    const T r_u = (rho_c + mix_rho(F(-1, 0), q.rho_l, q.rho_g)) * T(0.5);
+    uo = us(0, 0) - q.dt / r_u * (pc - p(-1, 0)) * q.dxi;
+  }
+  if (j + b.oj >= 2) {
+    const T r_v = (rho_c + mix_rho(F(0, -1), q.rho_l, q.rho_g)) * T(0.5);
+    vo = vs(0, 0) - q.dt / r_v * (pc - p(0, -1)) * q.dyi;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void correct_at(const T* __restrict__ F,
                                            const T* __restrict__ us,
@@ -254,19 +320,8 @@ __device__ __forceinline__ void correct_at(const T* __restrict__ F,
                                            const T* __restrict__ v, const Block& b,
                                            int i, int j, const ProjectParams<T>& q,
                                            T& uo, T& vo) {
-  uo = ld(u, b, i, j);
-  vo = ld(v, b, i, j);
-  if (!b.interior(i, j)) return;
-  const T rho_c = mix_rho(ld(F, b, i, j), q.rho_l, q.rho_g);
-  const T pc = ld(p, b, i, j);
-  if (i + b.oi >= 2) {
-    const T r_u = (rho_c + mix_rho(ld(F, b, i - 1, j), q.rho_l, q.rho_g)) * T(0.5);
-    uo = ld(us, b, i, j) - q.dt / r_u * (pc - ld(p, b, i - 1, j)) * q.dxi;
-  }
-  if (j + b.oj >= 2) {
-    const T r_v = (rho_c + mix_rho(ld(F, b, i, j - 1), q.rho_l, q.rho_g)) * T(0.5);
-    vo = ld(vs, b, i, j) - q.dt / r_v * (pc - ld(p, b, i, j - 1)) * q.dyi;
-  }
+  correct_of(Ld<T>(F, b, i, j), Ld<T>(us, b, i, j), Ld<T>(vs, b, i, j), Ld<T>(p, b, i, j),
+             Ld<T>(u, b, i, j), Ld<T>(v, b, i, j), b, i, j, q, uo, vo);
 }
 
 // ---- one Rudman/Zalesak FCT sweep ----
@@ -298,86 +353,123 @@ SweepParams<T> sweep_params(int n_ax, int n_ot, const double* c, int full_dv,
   return q;
 }
 
+// The sweep's quantities at one position of its line, global index k
+// along the sweep (a face is the lower face of its cell, between cells
+// k - 1 and k): each is a function of its position alone. sweep_of
+// evaluates them on a 7-cell window around every cell; fullstep.cu
+// evaluates each once a position. Ftd, rp, rm and a are zero off their
+// global ranges, as in _sweep_body.
+
+// low- and high-order fluxes through face k (velocity u at k, donor cells
+// F_lo at k - 1 and F at k)
+template <typename T>
+__device__ __forceinline__ void sweep_fluxes(T u, T F_lo, T F, const SweepParams<T>& q, T& fL,
+                                             T& fH) {
+  const T udt = u * q.dt;
+  fL = udt * (u >= T(0) ? F_lo : F);
+  fH = udt * (u <= T(0) ? F_lo : F);
+}
+
+// anti-diffusive flux through face k, zero below face 1
+template <typename T>
+__device__ __forceinline__ T sweep_anti(int k, T fL, T fH) {
+  return k >= 1 ? fH - fL : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T sweep_dv(T u, T u_hi, const SweepParams<T>& q) {
+  return q.dxdy - q.dtdy * (u_hi - u);
+}
+
+// the low-order update of cell k (fluxes through its faces k and k + 1)
+template <typename T>
+__device__ __forceinline__ T sweep_ftd(int k, T F, T fL, T fL_hi, T dv,
+                                       const SweepParams<T>& q) {
+  const T netflux = quot((fL - fL_hi) * q.dy, q.dxdy);
+  T ftd = q.full_dv ? quot((F + netflux) * q.dx * q.dy, dv)
+                    : F + quot(netflux * q.dx * q.dy, dv);
+  if (q.clamp) ftd = clamp01(ftd);
+  return k >= 1 && k <= q.n_ax ? ftd : T(0);
+}
+
+// limiter ratios of cell k, zero off the interior and where the limiter
+// does not fire (a_lo, a_hi: the fluxes through its lower and upper faces)
+template <typename T>
+__device__ __forceinline__ void sweep_ratios(int k, T Ftd_lo, T Ftd, T Ftd_hi, T a_lo, T a_hi,
+                                             const SweepParams<T>& q, T& rp, T& rm) {
+  const bool cell = k >= 1 && k <= q.n_ax;
+  const T fmax = tmax(Ftd, tmax(Ftd_lo, Ftd_hi));
+  const T fmin = tmin(Ftd, tmin(Ftd_lo, Ftd_hi));
+  const T pp = tmax(T(0), a_lo) - tmin(T(0), a_hi);
+  const T qp = (fmax - Ftd) * q.dx;
+  rp = cell && pp > q.guard_eps ? tmin(T(1), quot(qp, pp + q.denom_eps)) : T(0);
+  const T pm = tmax(T(0), a_hi) - tmin(T(0), a_lo);
+  const T qm = (Ftd - fmin) * q.dx;
+  rm = cell && pm > q.guard_eps ? tmin(T(1), quot(qm, pm + q.denom_eps)) : T(0);
+}
+
+// corrected flux factor on face k from the ratios of cells k - 1 and k
+template <typename T>
+__device__ __forceinline__ T sweep_factor(T a, T rp_lo, T rm_lo, T rp, T rm) {
+  return a >= T(0) ? tmin(rp, rm_lo) : tmin(rp_lo, rm);
+}
+
+// the limited anti-diffusion of cell k (faces k: a, c; k + 1: a_hi, c_hi)
+template <typename T>
+__device__ __forceinline__ T sweep_result(T Ftd, T a, T c, T a_hi, T c_hi, T dv,
+                                          const SweepParams<T>& q) {
+  const T corr = quot(a_hi * c_hi - a * c, q.dy);
+  T f_new = Ftd - quot(corr * q.dx * q.dy, dv);
+  if (q.clamp) f_new = clamp01(f_new);
+  return f_new;
+}
+
 // F at cell (i, j) after one sweep along i (AXIS 0) or j (AXIS 1); off the
 // global interior the (sanitized) entry F. The output depends on F and the
 // velocity within +-3 along the axis: the thread loads that 7-cell line
-// and recomputes the face quantities it needs (fluxes on 6 faces, Ftd on
-// 5 cells, rp/rm on 3, c on 2). Ftd, rp, rm, a and c are zero off their
-// global ranges, as in _sweep_body.
-template <typename T, int AXIS>
-__device__ __forceinline__ T sweep_at(const T* __restrict__ F,
-                                      const T* __restrict__ vel, const Block& b,
-                                      int i, int j, const SweepParams<T>& q) {
+// and evaluates the quantities it needs (fluxes on 6 faces, Ftd on 5
+// cells, rp/rm on 3, c on 2).
+template <typename T, int AXIS, class A>
+__device__ __forceinline__ T sweep_of(const A& F, const A& vel, const Block& b, int i, int j,
+                                      const SweepParams<T>& q) {
   const int k = AXIS == 0 ? i + b.oi : j + b.oj;  // global index along
   const int m = AXIS == 0 ? j + b.oj : i + b.oi;  // and across the sweep
-  if (k < 1 || k > q.n_ax || m < 1 || m > q.n_ot) return ld(F, b, i, j);
+  if (k < 1 || k > q.n_ax || m < 1 || m > q.n_ot) return F(0, 0);
 
   // position r of the line holds global index k - 3 + r along the sweep
   T Fw[7], uw[7];
 #pragma unroll
   for (int r = 0; r < 7; ++r) {
-    const int ii = AXIS == 0 ? i + r - 3 : i;
-    const int jj = AXIS == 0 ? j : j + r - 3;
-    Fw[r] = ld(F, b, ii, jj);
-    uw[r] = ld(vel, b, ii, jj);
+    const int di = AXIS == 0 ? r - 3 : 0;
+    const int dj = AXIS == 0 ? 0 : r - 3;
+    Fw[r] = F(di, dj);
+    uw[r] = vel(di, dj);
   }
-
-  // low- and high-order fluxes on faces k-2 .. k+3 (r = 1..6); face r is
-  // the lower face of cell r, with donor cells r-1 below and r above
-  T fL[7], fH[7];
+  // fluxes on faces r = 1..6, a on faces 2..5, Ftd on cells 1..5, the
+  // ratios on cells 2..4, c on faces 3 and 4
+  T fL[7], fH[7], a[7], Ftd[7], dv[7], rp[7], rm[7];
 #pragma unroll
-  for (int r = 1; r < 7; ++r) {
-    const T udt = uw[r] * q.dt;
-    fL[r] = udt * (uw[r] >= T(0) ? Fw[r - 1] : Fw[r]);
-    fH[r] = udt * (uw[r] <= T(0) ? Fw[r - 1] : Fw[r]);
-  }
-
-  // anti-diffusive flux on faces k-1 .. k+2 (r = 2..5), zero below face 1
-  T a[7];
+  for (int r = 1; r < 7; ++r) sweep_fluxes(uw[r], Fw[r - 1], Fw[r], q, fL[r], fH[r]);
 #pragma unroll
-  for (int r = 2; r < 6; ++r) a[r] = k - 3 + r >= 1 ? fH[r] - fL[r] : T(0);
-
-  // pass 1: Ftd on cells k-2 .. k+2 (r = 1..5), zero off the interior
-  T Ftd[7], dv[7];
+  for (int r = 2; r < 6; ++r) a[r] = sweep_anti(k - 3 + r, fL[r], fH[r]);
 #pragma unroll
   for (int r = 1; r < 6; ++r) {
-    const int kk = k - 3 + r;
-    dv[r] = q.dxdy - q.dtdy * (uw[r + 1] - uw[r]);
-    const T netflux = (fL[r] - fL[r + 1]) * q.dy / q.dxdy;
-    T ftd = q.full_dv ? (Fw[r] + netflux) * q.dx * q.dy / dv[r]
-                      : Fw[r] + netflux * q.dx * q.dy / dv[r];
-    if (q.clamp) ftd = clamp01(ftd);
-    Ftd[r] = kk >= 1 && kk <= q.n_ax ? ftd : T(0);
+    dv[r] = sweep_dv(uw[r], uw[r + 1], q);
+    Ftd[r] = sweep_ftd(k - 3 + r, Fw[r], fL[r], fL[r + 1], dv[r], q);
   }
-
-  // pass 2: limiter ratios on cells k-1 .. k+1 (r = 2..4), zero off the
-  // interior and where the limiter does not fire
-  T rp[7], rm[7];
 #pragma unroll
-  for (int r = 2; r < 5; ++r) {
-    const int kk = k - 3 + r;
-    const bool cell = kk >= 1 && kk <= q.n_ax;
-    const T fmax = tmax(Ftd[r], tmax(Ftd[r - 1], Ftd[r + 1]));
-    const T fmin = tmin(Ftd[r], tmin(Ftd[r - 1], Ftd[r + 1]));
-    const T a_lo = a[r];      // flux through the cell's lower face
-    const T a_hi = a[r + 1];  // flux through its upper face
-    const T pp = tmax(T(0), a_lo) - tmin(T(0), a_hi);
-    const T qp = (fmax - Ftd[r]) * q.dx;
-    rp[r] = cell && pp > q.guard_eps ? tmin(T(1), qp / (pp + q.denom_eps)) : T(0);
-    const T pm = tmax(T(0), a_hi) - tmin(T(0), a_lo);
-    const T qm = (Ftd[r] - fmin) * q.dx;
-    rm[r] = cell && pm > q.guard_eps ? tmin(T(1), qm / (pm + q.denom_eps)) : T(0);
-  }
+  for (int r = 2; r < 5; ++r)
+    sweep_ratios(k - 3 + r, Ftd[r - 1], Ftd[r], Ftd[r + 1], a[r], a[r + 1], q, rp[r], rm[r]);
+  const T c3 = sweep_factor(a[3], rp[2], rm[2], rp[3], rm[3]);
+  const T c4 = sweep_factor(a[4], rp[3], rm[3], rp[4], rm[4]);
+  return sweep_result(Ftd[3], a[3], c3, a[4], c4, dv[3], q);
+}
 
-  // pass 3: corrected flux factor on faces k and k+1 (r = 3, 4), both >= 1
-  const T c3 = a[3] >= T(0) ? tmin(rp[3], rm[2]) : tmin(rp[2], rm[3]);
-  const T c4 = a[4] >= T(0) ? tmin(rp[4], rm[3]) : tmin(rp[3], rm[4]);
-
-  // pass 4: the limited anti-diffusion
-  const T corr = (a[4] * c4 - a[3] * c3) / q.dy;
-  T f_new = Ftd[3] - corr * q.dx * q.dy / dv[3];
-  if (q.clamp) f_new = clamp01(f_new);
-  return f_new;
+template <typename T, int AXIS>
+__device__ __forceinline__ T sweep_at(const T* __restrict__ F,
+                                      const T* __restrict__ vel, const Block& b,
+                                      int i, int j, const SweepParams<T>& q) {
+  return sweep_of<T, AXIS>(Ld<T>(F, b, i, j), Ld<T>(vel, b, i, j), b, i, j, q);
 }
 
 }  // namespace tv

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "tv_jacobi3d": [_P] * 4 + _VOL + [_I, ctypes.POINTER(_I), _D, _P],
     "tv_predict3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_jacobi3d_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_fct3d_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_fullstep_shape": [_I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()
@@ -136,6 +138,8 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
         lib.tv_error_string.argtypes = [ctypes.c_int]
         lib.tv_error_string.restype = ctypes.c_char_p
+        lib.tv_fullstep_levels.argtypes = [_I, ctypes.POINTER(_I), _I]
+        lib.tv_fullstep_levels.restype = ctypes.c_int
         _lib = lib
         return lib
 

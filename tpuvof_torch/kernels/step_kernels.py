@@ -23,6 +23,12 @@ grid. Their outputs are exact on the cells at least the phase's halo
 (PHASE_HALO, STEP_HALO) away from the block's edges; closer, they are
 junk by contract, and callers keep the centre.
 
+``fullstep``, ``fullstep_win`` and ``fullstep_strips`` are one kernel
+that runs the step in stage groups separated by grid-wide barriers: the
+predictor and rhs, the Jacobi sweeps in groups of at most four (the
+library reports its split, ``tv_fullstep_levels``), and the correction,
+both sweeps, the clamp and the BCs.
+
 ``fullstep_dma`` computes ``fullstep``'s step bit for bit and moves the
 state by bulk asynchronous copies. As in tpuvof, no solver route calls
 it: its callers are its A/B script (scripts/torch_mono_dma_ab.py) and the
@@ -348,11 +354,16 @@ def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
     return _launch_sweep("fct_sweep_win", cfg, F, vel, axis, shape, int(oi), int(oj))
 
 
+#: Block-sized scratch fields each whole-step entry point takes.
+_SCRATCH_BLOCKS = {"fullstep": 5, "fullstep_dma": 7}
+
+
 def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step, entry="fullstep"):
     lib, fn, stream = _checked(entry, shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
     outs = [torch.empty_like(F) for _ in range(4)]
-    scratch = torch.empty((7,) + tuple(shape), dtype=F.dtype, device=F.device)
+    scratch = torch.empty((_SCRATCH_BLOCKS[entry],) + tuple(shape), dtype=F.dtype,
+                          device=F.device)
     ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
     out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
     status = fn(ins, out_ptrs, scratch.data_ptr(), *shape, oi, oj, g.nx, g.ny,
