@@ -34,18 +34,24 @@ Phases, each fatal on failure:
      2000); the hybrid, pressure_solver='auto' (mg)
      over 100 steps on 'cuda'; a few hybrid steps tile by tile (predict_win,
      fct_sweep_win). Finiteness, 0 <= F <= 1, mass; the 64^2 f32 drift.
-  6. timing: the 512^2 x 1000 run on the mono, phase and plain-torch paths
+  6. project against its plain version at n_jacobi 1, 3, 4, 5 and 11 (one
+     stage group, the split's edges, three groups), f64 and f32, on phase
+     3's state; then timing: the 512^2 x 1000 run on the mono, phase and
+     plain-torch paths
      (host clock), each path's step on the device alone (a replayed CUDA
      graph), and each kernel's time per launch beside its plain version's
      and its bound; the whole-step kernel's launch shape on each of its
-     blocks (threads and shared bytes a CTA, CTAs an SM, CTAs launched)
-     and its Jacobi groups at the main path's n_jacobi.
+     blocks (threads and shared bytes a CTA, CTAs an SM, CTAs launched),
+     project's at 514^2, and the Jacobi groups at the main path's n_jacobi.
   7. 3-D kernel vs plain: the four 3-D kernels against their plain versions
      on a perturbed, developed dam-break state at the main path's 200^3,
      f64 and f32:
      predict3d_rhs (csf off and on), correct3d, fct3d_sweep (x, y, z, with
      and without mirror_out), jacobi3d (10 iterations, and 7: launches of
-     unequal depth), and each on an i-slab (gi_base != 0).
+     unequal depth), and each on an i-slab (gi_base != 0); and the csf
+     predict3d_rhs on the dam break's noise-free initial state (F exactly 0
+     or 1: degenerate normals and zero differences almost everywhere), on
+     the grid and the i-slab.
   8. 3-D golden: 32^3 in f64 through 'cuda' against
      tests/golden_dambreak3d_32_300.npz at steps 100 and 300 (resumed with
      istep0); the f32 drift at 300.
@@ -57,9 +63,11 @@ Phases, each fatal on failure:
      predict3d_rhs launches a step: the curvature pre-pass); the hybrid,
      pressure_solver='auto' (mg) at 64^3 x 20. Finiteness, 0 <= F <= 1, mass.
  10. 3-D timing: the main path's host-clock ms/step (best of 3), its
-     device-alone step (a CUDA graph of a step triple), the plain-torch path,
-     and each 3-D kernel beside its plain version and its bound; each
-     sweep's launch shape.
+     device-alone step (a CUDA graph of a step triple), the csf route's
+     (csf=True, 100 steps) and the plain-torch path's, and each 3-D kernel
+     beside its plain version and its bound; the csf predict3d_rhs call and
+     its curvature pre-pass kappa3d_kernel alone (torch.profiler's device
+     time); each sweep's launch shape.
  11. engine blocks vs plain: the four 3-D kernels against their plain
      versions on the blocks the 200^3 engines of phase 13 give them, of a
      perturbed, developed state, f64 and f32. In pencil mode (njl, gj_base)
@@ -67,7 +75,10 @@ Phases, each fatal on failure:
      gj_base = 86 (its high x and y walls mid-block) and the y-edge shard at
      gj_base = -14 (its low y wall mid-block). In slab mode on the (4,)
      engine's (80, 202, 202) blocks: the x-edge shards at gi_base = -14 and
-     136, each with an x wall mid-block.
+     136, each with an x wall mid-block. The csf predict3d_rhs also on the
+     noise-free initial state's blocks of the pencil shards (0, 0) and (0,
+     1) (a low and a high y wall mid-block, the water's faces in both) and
+     of the slab shard at gi_base = -14.
  12. distributed golden: the 32^3 dam break in f64 through Decomp3D on a
      virtual 2x2 pencil mesh and a (2,) slab mesh, all shards on cuda:0,
      against tests/golden_dambreak3d_32_300.npz at steps 100 and 300
@@ -98,6 +109,7 @@ line. With no CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -159,6 +171,9 @@ N3_GOLDEN_MESHES = ((2, 2), (2,))  # phase 12: 2x2 pencils and (2,) slabs at 32^
 # phase 13: the 2x2 pencil mesh (this slice's main path) and (4,) slabs at 200^3
 N3_DIST_MESHES = ((2, 2), (4,))
 PENCIL_SHARDS = ((1, 1), (1, 0))  # phase 11: gj_base 86 and -14
+# phase 11, the noise-free dam break: the water sits at low x and y
+DAM_PENCIL_SHARDS = ((0, 0), (0, 1))
+PROJECT_N_JACOBI = (1, 3, 4, 5, 11)  # phase 6: one stage group, the split's edges, three
 SLAB_SHARDS = ((0, 0), (3, 0))  # phase 11: gi_base -14 and 136 on the (4,) engine
 DT3_SWEEP = 4e-4   # the sweeps' check: Courant numbers up to ~0.3, the limiter fires
 # Per cell, counted once from the bodies in tpuvof_torch/csrc (the kernels'
@@ -170,6 +185,15 @@ DT3_SWEEP = 4e-4   # the sweeps' check: Courant numbers up to ~0.3, the limiter 
 # vel -> F; jacobi3d (all iterations) p, rhs -> p.
 OPS_PER_CELL.update({"predict3d_rhs": 160, "correct3d": 30, "fct3d_sweep": 45,
                      "jacobi3d": 13 * 10})
+# csf: a Youngs normal once a cell ~189 (54 distinct differences, 72 corner
+# sums, 24 corner divisions, 21 accumulations, the mean and the
+# normalisation), or 30 where the cell's 3x3x3 cube of F holds one value
+# (27 compares; the normal is then the signed zeros the arithmetic would
+# give), kappa 9, the three sigma face terms ~60. The pre-pass
+# kappa3d_kernel reads F and writes kappa. The csf entries' operations are
+# counted from each run's F (csf_ops_per_cell).
+NORMAL_OPS, NORMAL_UNIFORM_OPS, KAPPA_OPS, SIGMA_OPS = 189, 30, 9, 60
+FIELDS_MOVED.update({"kappa3d": 2, "predict3d_rhs csf": 8})
 FIELDS_MOVED.update({"predict3d_rhs": 8, "correct3d": 8, "fct3d_sweep": 3, "jacobi3d": 3})
 
 
@@ -259,6 +283,38 @@ def kernel_cases(K, cfg, s):
                           (K.fct_sweep_win_plain(cfg, Fb, vel, axis, oi, oj),),
                           ("F(x)",) if axis == 0 else ("F(y)",), centre))
     return cases
+
+
+def bound_of(name: str, cells: int, ops_per_cell: float | None = None) -> dict:
+    """The least time the card could take for function ``name`` on
+    ``cells`` f32 cells: the larger of its compulsory bytes over the memory
+    rate and its operations (``ops_per_cell``, else OPS_PER_CELL's) over
+    the f32 rate."""
+    ops = OPS_PER_CELL[name] if ops_per_cell is None else ops_per_cell
+    bytes_ms = 1e3 * FIELDS_MOVED[name] * cells * 4 / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops * cells / F32_OPS_PER_S
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def profiled_ms(fn, n: int, kernel: str) -> float | None:
+    """Mean device ms of the launches of kernels whose name holds
+    ``kernel`` over ``n`` calls of ``fn``, from torch.profiler's CUDA
+    activity; None where the profiler shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    return total / count / 1e3 if count and total > 0 else None
 
 
 def host_ms(fn, n: int) -> float:
@@ -433,9 +489,6 @@ def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
     for name in ("mono", "dma", "dma", "mono"):  # device alone, in turns
         dev = device_ms(lambda k=kernels[name]: step_pairs(k, cfg, s_dma, 2), 10) / 2
         out.setdefault(name, []).append(dev)
-    cells = (n + 2) ** 2
-    bytes_ms = 1e3 * FIELDS_MOVED["fullstep_dma"] * cells * 4 / HBM_BYTES_PER_S
-    ops_ms = 1e3 * OPS_PER_CELL["fullstep_dma"] * cells / F32_OPS_PER_S
     res = {"n": n, "steps": steps, "launches": launches.get("fullstep_dma", 0),
            "equal_to_fullstep": same,
            "ms": device_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 20),
@@ -443,8 +496,7 @@ def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
            "plain_ms": device_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 3),
            "host_ms": host_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 100),
            "plain_host_ms": host_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 5),
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           **bound_of("fullstep_dma", (n + 2) ** 2)}
     for name in ("mono", "dma"):
         step_ms = 1e3 * min(runs[name]) / steps
         dev = min(out[name])
@@ -489,14 +541,17 @@ def perturbed_state_3d(tt, n: int, steps: int):
 
 def kernel_cases_3d(K3, g, fl, blocks, dt):
     """(kernel name, kernel outputs, plain outputs, output names) for every
-    3-D kernel on each (tag, state, block origin) of ``blocks``."""
+    3-D kernel on each (tag, state, block origin, csf only) of ``blocks``;
+    on a csf-only block, the csf predict3d_rhs alone."""
     cases = []
-    for tag, (F, u, v, w, p), org in blocks:
-        for csf in (False, True):
+    for tag, (F, u, v, w, p), org, csf_only in blocks:
+        for csf in (True,) if csf_only else (False, True):
             cases.append((f"predict3d_rhs{' csf' if csf else ''}{tag}",
                           K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf, **org),
                           K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, **org),
                           ("u*", "v*", "w*", "rhs")))
+        if csf_only:
+            continue
         us, vs, ws, rhs = K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, False, **org)
         cases.append((f"correct3d{tag}", K3.correct3d(g, fl, dt, us, vs, ws, p, F, **org),
                       K3.correct3d_plain(g, fl, dt, us, vs, ws, p, F, **org), "uvw"))
@@ -516,20 +571,23 @@ def kernel_cases_3d(K3, g, fl, blocks, dt):
 def check_kernels_3d(K3, g, fl, blocks_of, dt, label):
     """Every 3-D kernel against its plain version on the blocks
     ``blocks_of(dtype)`` gives, f64 and f32; returns the worst errors by
-    kernel name."""
+    kernel name (the csf predict3d_rhs cases also as "predict3d_rhs
+    csf")."""
     results = {}
     for dtype in (torch.float64, torch.float32):
         key = "f64" if dtype == torch.float64 else "f32"
         for name_tag, got, want, outs in kernel_cases_3d(K3, g, fl, blocks_of(dtype), dt):
             torch.cuda.synchronize()
             name = name_tag.split()[0]
+            names = [name] + ["predict3d_rhs csf"] * name_tag.startswith("predict3d_rhs csf")
             for out_name, g_, w_ in zip(outs, got, want):
                 rel, diff = rel_err(g_, w_)
                 tol = TOL_F64 if key == "f64" else TOL_F32.get(out_name, TOL_F32_DEFAULT)
-                r = results.setdefault(name, {"rel_f64": 0.0, "rel_f32": 0.0, "abs_f32": 0.0})
-                r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
-                if key == "f32":
-                    r["abs_f32"] = max(r["abs_f32"], diff)
+                for n in names:
+                    r = results.setdefault(n, {"rel_f64": 0.0, "rel_f32": 0.0, "abs_f32": 0.0})
+                    r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
+                    if key == "f32":
+                        r["abs_f32"] = max(r["abs_f32"], diff)
                 print(f"kernel vs plain {key} {label} {name_tag:40s} {out_name:4s} "
                       f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
                 check(rel <= tol, f"{name_tag} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
@@ -596,11 +654,7 @@ def time_kernels_3d(K3, g, fl, dt, s, org, tag):
     for name, (kern, plain) in timed.items():
         t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 3),
                            "host_ms": host_ms(kern, 50)}
-        base = name[:-2] if name.startswith("fct3d_sweep_") else name
-        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells * 4 / HBM_BYTES_PER_S
-        ops_ms = 1e3 * OPS_PER_CELL[base] * cells / F32_OPS_PER_S
-        t["bound_ms"] = max(bytes_ms, ops_ms)
-        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        t.update(bound_of(name[:-2] if name.startswith("fct3d_sweep_") else name, cells))
         per = (f" ({N3_JACOBI} iterations in {len(jacobi_plan)} launches)"
                if name == "jacobi3d" else "")
         mode = f" {org}" if org else ""
@@ -613,6 +667,54 @@ def time_kernels_3d(K3, g, fl, dt, s, org, tag):
     times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
                             else xyz[0][k] for k in xyz[0]}
     return times
+
+
+def csf_ops_per_cell(F) -> tuple[float, float]:
+    """(operations a cell of kappa3d_kernel's function, of the csf
+    predict3d_rhs) on field F: a Youngs normal costs NORMAL_UNIFORM_OPS at a
+    cell whose 3x3x3 cube of F holds one value and NORMAL_OPS elsewhere
+    (the share counted on the cells inside F's outer ring)."""
+    n0, n1, n2 = F.shape
+    c = F[1:-1, 1:-1, 1:-1]
+    same = torch.ones_like(c, dtype=torch.bool)
+    for a in range(3):
+        for b in range(3):
+            for d in range(3):
+                same &= F[a:n0 - 2 + a, b:n1 - 2 + b, d:n2 - 2 + d] == c
+    share = same.float().mean().item()
+    normal = share * NORMAL_UNIFORM_OPS + (1 - share) * NORMAL_OPS
+    kappa = normal + KAPPA_OPS
+    return kappa, OPS_PER_CELL["predict3d_rhs"] + kappa + SIGMA_OPS
+
+
+def time_csf_3d(K3, g, fl, dt, s, org, tag):
+    """The csf predict3d_rhs call's device time per call on block ``s``
+    with origin ``org`` (its two launches) beside its plain version's and
+    its bound, and its curvature pre-pass kappa3d_kernel's own device time
+    (torch.profiler; None where it shows none) beside its bound."""
+    F, u, v, w, _ = s
+    cells = F.numel()
+    kappa_ops, csf_ops = csf_ops_per_cell(F)
+
+    def kern():
+        return K3.predict3d_rhs(g, fl, dt, u, v, w, F, True, **org)
+
+    t = {"ms": device_ms(kern, 20),
+         "plain_ms": device_ms(lambda: K3.predict3d_rhs_plain(g, fl, dt, u, v, w, F, True,
+                                                                **org), 3),
+         "host_ms": host_ms(kern, 50), **bound_of("predict3d_rhs csf", cells, csf_ops),
+         "kappa3d_kernel": {"ms": profiled_ms(kern, 20, "kappa3d_kernel"),
+                            **bound_of("kappa3d", cells, kappa_ops)}}
+    kap = t["kappa3d_kernel"]
+    mode = f" {org}" if org else ""
+    kap_us = "not measured" if kap["ms"] is None else f"{1e3 * kap['ms']:.2f} us"
+    print(f"{tag} predict3d_rhs csf {tuple(F.shape)}{mode} f32: {1e3 * t['ms']:.2f} us/call "
+          f"(2 launches) on the device ({1e3 * t['host_ms']:.2f} us per call from Python); "
+          f"plain {1e3 * t['plain_ms']:.2f} us/call; bound {1e3 * t['bound_ms']:.2f} us "
+          f"({t['bound_by']}); kappa3d_kernel alone {kap_us} (torch.profiler), bound "
+          f"{1e3 * kap['bound_ms']:.2f} us ({kap['bound_by']}; {kappa_ops:.1f} operations a "
+          f"cell on this F)")
+    return t
 
 
 def run_dist_path(tt, counters, label, dec, s0, steps, want_launches, serial_end, tag):
@@ -898,7 +1000,27 @@ def main() -> int:
           f"(bar 5e-3)")
     check(err32 <= 5e-3, f"f32 golden drift {err32:.3e} > 5e-3")
 
-    # ---- 6. timing ----
+    # ---- 6. project at the edges of its stage groups, then timing ----
+    for dtype in (torch.float64, torch.float32):
+        key = "f64" if dtype == torch.float64 else "f32"
+        F, u, v, p = (a.to(dtype).contiguous() for a in s64)
+        us, vs = K.predict_plain(cfg64, u, v, F)
+        for n_jacobi in PROJECT_N_JACOBI:
+            c = cfg64.replace(num=dataclasses.replace(cfg64.num, n_jacobi=n_jacobi))
+            got = K.project(c, F, us, vs, p, u, v)
+            want = K.project_plain(c, F, us, vs, p, u, v)
+            torch.cuda.synchronize()
+            r = results["project"]
+            for out_name, g_, w_ in zip("puv", got, want):
+                rel, diff = rel_err(g_, w_)
+                tol = TOL_F64 if key == "f64" else TOL_F32.get(out_name, TOL_F32_DEFAULT)
+                r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
+                if key == "f32":
+                    r["abs_f32"] = max(r["abs_f32"], diff)
+                print(f"kernel vs plain {key} project n_jacobi={n_jacobi:<2d} {out_name} "
+                      f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
+                check(rel <= tol, f"project n_jacobi={n_jacobi} {out_name} {key}: rel "
+                                  f"{rel:.3e} > {tol:.0e}")
     paths = {"mono": cfg_mono, "kernel": cfg,
              "plain": cfg.replace(num=tt.Numerics(backend="torch"))}
     runs = {path: [] for path in paths}
@@ -967,12 +1089,7 @@ def main() -> int:
     for name, (kern, plain, shape) in timed.items():
         t = times[name] = {"ms": device_ms(kern, 20), "plain_ms": device_ms(plain, 20),
                            "host_ms": host_ms(kern, 200), "plain_host_ms": host_ms(plain, 20)}
-        base = name.removesuffix("_x").removesuffix("_y")
-        cells_k = shape[0] * shape[1]
-        bytes_ms = 1e3 * FIELDS_MOVED[base] * cells_k * 4 / HBM_BYTES_PER_S
-        ops_ms = 1e3 * OPS_PER_CELL[base] * cells_k / F32_OPS_PER_S
-        t["bound_ms"] = max(bytes_ms, ops_ms)
-        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        t.update(bound_of(name.removesuffix("_x").removesuffix("_y"), shape[0] * shape[1]))
         print(f"{tag} {name:15s} {tuple(shape)} f32: kernel {1e3 * t['ms']:.2f} us/launch "
               f"on the device ({1e3 * t['host_ms']:.2f} us per call from Python); plain "
               f"{1e3 * t['plain_ms']:.2f} us/call on the device "
@@ -982,7 +1099,13 @@ def main() -> int:
         ("fullstep f32", *F.shape, torch.float32), ("fullstep f64", *F.shape, torch.float64),
         ("fullstep_win f32", *wb[0].shape, torch.float32),
         ("fullstep_strips f32", *strips[0].shape, torch.float32)))
-    for label, (threads, smem, per_sm, ctas, rows) in shapes2d.items():
+    project_shapes = {}
+    for label, fn in (("project f32", lib.tv_project_shape_f32),
+                      ("project f64", lib.tv_project_shape_f64)):
+        shape = (ctypes.c_int * 5)()
+        check(fn(*F.shape, shape) == 0, f"tv_project_shape {label} failed")
+        project_shapes[label] = list(shape)
+    for label, (threads, smem, per_sm, ctas, rows) in {**shapes2d, **project_shapes}.items():
         print(f"{tag} launch {label}: {threads} threads and {smem} shared bytes a CTA, "
               f"{per_sm} CTAs an SM, {ctas} CTAs of {rows} x 32 tiles")
     n_jacobi = cfg_mono.num.n_jacobi
@@ -1000,11 +1123,16 @@ def main() -> int:
     fl = tt.Fluid()
     dt3 = 4e-6
     g_chk, s3_64 = perturbed_state_3d(tt, N3_CHECK, 50)
+    s3_init64 = S3._with_bc(tt.init_state_3d(g_chk, 1, "cuda", torch.float64))
     gi0, nloc = N3_SLAB
 
     def whole_and_slab(dtype):
-        s = tt.State3D(*(a.to(dtype).contiguous() for a in s3_64))
-        return (("", s, {}), (f" slab@{gi0}", state_slab(s, gi0, nloc), {"gi_base": gi0}))
+        out = []
+        for state, tag, csf_only in ((s3_64, "", False), (s3_init64, " dam-break init", True)):
+            s = tt.State3D(*(a.to(dtype).contiguous() for a in state))
+            out += [(tag, s, {}, csf_only),
+                    (f"{tag} slab@{gi0}", state_slab(s, gi0, nloc), {"gi_base": gi0}, csf_only)]
+        return out
 
     results3 = check_kernels_3d(K3, g_chk, fl, whole_and_slab, dt3, f"{N3_CHECK}^3")
     del s3_64
@@ -1037,9 +1165,10 @@ def main() -> int:
                                       {k: n * STEPS3_MAIN for k, n in per_step.items()})
     path_launches.update(launches)
     # csf: predict3d_rhs launches the curvature pre-pass and the predictor
-    run_path_3d(tt, counters, "3-D csf path (cuda, csf=True)", g3, s3, STEPS3_CSF,
-                {k: n * STEPS3_CSF * (2 if k == "predict3d_rhs" else 1)
-                 for k, n in per_step.items()}, csf=True)
+    csf_launches, _ = run_path_3d(tt, counters, "3-D csf path (cuda, csf=True)", g3, s3,
+                                  STEPS3_CSF,
+                                  {k: n * STEPS3_CSF * (2 if k == "predict3d_rhs" else 1)
+                                   for k, n in per_step.items()}, csf=True)
     g3h = tt.Grid3D(N3_HYBRID, N3_HYBRID, N3_HYBRID)
     check(S3._resolve_auto_3d(g3h) == "mg", "3-D auto did not pick mg")
     run_path_3d(tt, counters, "3-D hybrid path (cuda, auto -> mg)", g3h, tt.init_state_3d(g3h),
@@ -1048,34 +1177,39 @@ def main() -> int:
                 pressure_solver="auto", sor_tol_rel=1e-2)
 
     # ---- 10. 3-D timing ----
-    def run3(backend, steps):
+    def run3(backend, steps, csf=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tt.simulate_3d(g3, s3, steps, backend=backend)
+        tt.simulate_3d(g3, s3, steps, backend=backend, csf=csf)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     run3("cuda", STEPS3_MAIN)  # warm-up
     runs3 = [run3("cuda", STEPS3_MAIN) for _ in range(3)]
+    run3("cuda", STEPS3_CSF, True)
+    runs3_csf = [run3("cuda", STEPS3_CSF, True) for _ in range(3)]
     run3("torch", 3)
     plain3 = [run3("torch", STEPS3_PLAIN) for _ in range(2)]
     s3dev = S3._with_bc(s3)
-    for backend, runs, steps in (("cuda", runs3, STEPS3_MAIN), ("torch", plain3, STEPS3_PLAIN)):
+    for label, runs, steps, csf in (("cuda", runs3, STEPS3_MAIN, False),
+                                    ("cuda csf", runs3_csf, STEPS3_CSF, True),
+                                    ("torch", plain3, STEPS3_PLAIN, False)):
         best = min(runs)
         step_ms = 1e3 * best / steps
-        lean = S3._step_3d_cuda_lean if backend == "cuda" else S3._step_3d_torch
+        lean = S3._step_3d_torch if label == "torch" else S3._step_3d_cuda_lean
 
-        def triple(lean=lean):
+        def triple(lean=lean, csf=csf):
             for ph in (1, 2, 0):
-                lean(g3, fl, dt3, 10, s3dev, ph, "jacobi", 1.7, 1e-3, 200, False, 0.0)
+                lean(g3, fl, dt3, 10, s3dev, ph, "jacobi", 1.7, 1e-3, 200, csf, 0.0)
 
-        dev_ms = device_ms(triple, 1 if backend == "torch" else 5) / 3
-        print(f"{tag} 3-D {backend} path {N3_MAIN}^3 x{steps} f32: best {best:.4f} s of "
+        dev_ms = device_ms(triple, 1 if label == "torch" else 5) / 3
+        print(f"{tag} 3-D {label} path {N3_MAIN}^3 x{steps} f32: best {best:.4f} s of "
               f"{[round(t, 4) for t in runs]}, {N3_MAIN ** 3 * steps / best:.4e} "
               f"cell-updates/s, {step_ms:.4f} ms/step; device alone {dev_ms:.4f} ms/step, "
               f"idle {100 * (1 - dev_ms / step_ms):.1f}% of the host-clock step")
 
     times.update(time_kernels_3d(K3, g3, fl, dt3, s3dev, {}, tag))
+    csf_times = time_csf_3d(K3, g3, fl, dt3, s3dev, {}, tag)
     shapes3d = sweep_shapes(lib)
     for label, (threads, smem, per_sm) in shapes3d.items():
         print(f"{tag} launch fct3d_sweep {label}: {threads} threads and {smem} shared bytes "
@@ -1089,32 +1223,38 @@ def main() -> int:
     dec_pencil = Decomp3D(g_chk, make_mesh(devices=[cuda0] * 4), dt=dt3)
     dec_slab = Decomp3D(g_chk, make_mesh(4, ("mx",), [cuda0] * 4), dt=dt3)
 
-    def engine_blocks(dec, shards, want_shape):
+    def engine_blocks(dec, shards, dam_shards, want_shape):
+        """The blocks of ``shards`` of the perturbed state (every kernel)
+        and of ``dam_shards`` of the noise-free initial state (the csf
+        predict3d_rhs alone)."""
         def blocks_of(dtype):
-            blocks = dec.widen(dec.scatter_state(tt.State3D(*(a.to(dtype) for a in s3_64))))
             out = []
-            for xy in shards:
-                k = dec.coords.index(xy)
-                org = dec.origin(k)
-                check(tuple(blocks[k].F.shape) == want_shape,
-                      f"the engine's block {tuple(blocks[k].F.shape)} != {want_shape}")
-                where = ",".join(str(org[key]) for key in ("gi_base", "gj_base") if key in org)
-                kind = "pencil" if dec.pencil else "slab"
-                out.append((f" {kind}{xy}@({where})", blocks[k], org))
+            for state, xys, tag, csf_only in ((s3_64, shards, "", False),
+                                              (s3_init64, dam_shards, " dam-break init", True)):
+                blocks = dec.widen(dec.scatter_state(tt.State3D(*(a.to(dtype) for a in state))))
+                for xy in xys:
+                    k = dec.coords.index(xy)
+                    org = dec.origin(k)
+                    check(tuple(blocks[k].F.shape) == want_shape,
+                          f"the engine's block {tuple(blocks[k].F.shape)} != {want_shape}")
+                    where = ",".join(str(org[key]) for key in ("gi_base", "gj_base")
+                                     if key in org)
+                    kind = "pencil" if dec.pencil else "slab"
+                    out.append((f"{tag} {kind}{xy}@({where})", blocks[k], org, csf_only))
             return out
         return blocks_of
 
     results_pencil = check_kernels_3d(
-        K3, g_chk, fl, engine_blocks(dec_pencil, PENCIL_SHARDS, (130, 130, 202)), dt3,
-        "pencil")
+        K3, g_chk, fl, engine_blocks(dec_pencil, PENCIL_SHARDS, DAM_PENCIL_SHARDS,
+                                     (130, 130, 202)), dt3, "pencil")
     # the slab instantiation on the (4,) engine's edge shards: the same
     # kernels as phase 7's slab case, with an x wall mid-block
     for name, r in check_kernels_3d(
-            K3, g_chk, fl, engine_blocks(dec_slab, SLAB_SHARDS, (80, 202, 202)), dt3,
-            "slab engine").items():
+            K3, g_chk, fl, engine_blocks(dec_slab, SLAB_SHARDS, SLAB_SHARDS[:1],
+                                         (80, 202, 202)), dt3, "slab engine").items():
         for key, val in r.items():
             results3[name][key] = max(results3[name][key], val)
-    del s3_64, dec_pencil, dec_slab
+    del s3_64, s3_init64, dec_pencil, dec_slab
 
     # ---- 12. the 32^3 golden through Decomp3D, f64 ----
     for shape in N3_GOLDEN_MESHES:
@@ -1147,6 +1287,8 @@ def main() -> int:
                                     s3_serial, tag)
     pencil_path = dist[N3_DIST_MESHES[0]]
     pencil_times = time_kernels_3d(K3, g3, fl, dt3, pencil_path["block"],
+                                   pencil_path["origin"], tag)
+    pencil_csf_times = time_csf_3d(K3, g3, fl, dt3, pencil_path["block"],
                                    pencil_path["origin"], tag)
     results.update(results3)
 
@@ -1205,6 +1347,17 @@ def main() -> int:
                 "launches": pencil_path["launches"][k["name"]], "max_abs_err": r["abs_f32"],
                 "max_rel_err_f32": r["rel_f32"], "max_rel_err_f64": r["rel_f64"],
                 **pencil_times[k["name"]]}}
+    # the csf route's predict3d_rhs (phases 9, 10, 11, 13): the call's two
+    # launches and its curvature pre-pass alone, serial and on the pencil block
+    predict3d = next(k for k in kernels if k["name"] == "predict3d_rhs")
+    r = results["predict3d_rhs csf"]
+    rp = results_pencil["predict3d_rhs csf"]
+    predict3d["variants"]["csf"] = {
+        "launches": csf_launches["predict3d_rhs"], "max_abs_err": r["abs_f32"],
+        "max_rel_err_f32": r["rel_f32"], "max_rel_err_f64": r["rel_f64"], **csf_times,
+        "pencil": {"block": list(pencil_path["block"].F.shape), "max_abs_err": rp["abs_f32"],
+                   "max_rel_err_f32": rp["rel_f32"], "max_rel_err_f64": rp["rel_f64"],
+                   **pencil_csf_times}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,18 +12,21 @@ on the plain path (which both trees share, so both legs' kernels see the
 same inputs) and perturbed from a seed, each leg:
 
 - times on the device alone (CUDA events around the replay of a CUDA graph
-  of the calls, best of 5), in f32: ``fullstep`` at 514^2, 1026^2 and
-  2050^2; ``fullstep_win`` on the tiled engine's 174 x 558 block;
-  ``fullstep_strips`` at 562^2 (the strips engine's padded layout);
-  ``fullstep_dma`` and the phase kernels at 514^2; and ``fullstep`` at
-  n_jacobi 1, 2, 10 and 20 at 514^2 and 2050^2, whose slope is the cost of
-  one Jacobi stage;
+  of the calls, best of 5), in f32: ``fullstep`` and ``project`` at 514^2,
+  1026^2 and 2050^2; ``fullstep_win`` on the tiled engine's 174 x 558
+  block; ``fullstep_strips`` at 562^2 (the strips engine's padded layout);
+  ``fullstep_dma`` and the other phase kernels at 514^2; and ``fullstep``
+  at n_jacobi 1, 2, 10 and 20 at 514^2 and 2050^2, whose slope is the cost
+  of one Jacobi stage; the 512^2 step of the ``'cuda'`` and ``'cuda_mono'``
+  routes on the device alone (a step pair), and their host-clock ms/step
+  (``simulate``, 1000 steps from the initial state, best of 3);
 - the first A and B legs also hash every output (SHA-256 of its bytes) of
   ``fullstep`` at the three sizes, of ``fullstep_win`` (the whole block and
   the region its engine keeps, the block minus STEP_HALO) and of
   ``fullstep_strips`` (NaN in the margins; the whole block and the grid
   inside its margin), at both parities and n_jacobi 1, 2 and 10, f32 and
-  f64, and of the phase kernels at 514^2 (which share ``step_cell.cuh``);
+  f64, of the phase kernels at 514^2 (which share ``step_cell.cuh``), and
+  of ``project`` at the three sizes, n_jacobi 1 to 11, f32 and f64;
   each leg also checks ``fullstep_dma`` == ``fullstep`` bit for bit. The
   script compares A's hashes with B's and exits 1 unless every kept output
   is equal (a redesign that changes only where values are computed keeps
@@ -33,10 +36,13 @@ same inputs) and perturbed from a seed, each leg:
   and the SASS count per kernel function (``torch_ab3d.sass_counts``), and
   the whole-step kernel's launch shape (threads and shared bytes a CTA,
   CTAs an SM, CTAs launched): read from ``tv_fullstep_shape_*`` where the
-  tree exports it, else computed from the registers;
+  tree exports it, else computed from the registers; ``project``'s from
+  ``tv_project_shape_*`` where the tree exports it;
 - with ``--stamps``, every leg builds a copy of the tree's ``fullstep.cu``
-  (in a temporary directory, never in the tree) whose barriers are
-  stamped with ``clock64()``: block 0's clock at the kernel's start, after
+  (in a temporary directory, never in the tree; the tree's
+  ``stage_groups.cuh``, where it has one, inlined in its place) whose
+  barriers are stamped with ``clock64()``: block 0's clock at the kernel's
+  start, after
   each grid-wide and each CTA barrier, and at its end. It prints, at 514^2
   and 2050^2 and on the tiled engine's block, f32, n_jacobi 10, block 0's
   time between stamps scaled to the stamped kernel's device time, summed
@@ -57,6 +63,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch_ab3d as ab3
@@ -65,11 +72,13 @@ SIZES = (512, 1024, 2048)
 SLOPE_SIZES = (512, 2048)
 SLOPE_N_JACOBI = (1, 2, 10, 20)
 N_JACOBI = (1, 2, 10)
+PROJECT_N_JACOBI = tuple(range(1, 12))  # every split of the stage groups up to three
 TILE_ROWS = 128  # the tiled engine's tile (solver.TILE_ROWS): blocks of 128 + 2W + 2 rows
 DEVELOP_STEPS = 20
 SEED = 0
 SOURCES_2D = ("fullstep.cu", "fullstep_dma.cu", "predict.cu", "project.cu", "fct_sweep.cu")
 STAMP_SIZES = (512, 2048)
+ROUTE_STEPS = 1000  # the 512^2 routes' host-clock run, as chip_smoke.py's
 
 # Stamps of the barriers, inserted into a copy of fullstep.cu: block 0's
 # thread (0, 0) reads clock64() at the kernel's start, after every
@@ -107,11 +116,16 @@ extern "C" int tv_stamps_read(long long* rel, int* kind, int* n) {
 """
 
 
-def stamped_source(text: str) -> str:
-    """fullstep.cu with its barriers stamped: ``grid.sync()`` becomes
+def stamped_source(text: str, csrc: Path) -> str:
+    """fullstep.cu with its barriers stamped: the tree's stage_groups.cuh
+    (where it includes one) inlined, then ``grid.sync()`` becomes
     TV_SYNC(grid) and ``__syncthreads()`` TV_BAR everywhere in the file,
     and fullstep_kernel's body starts and ends with a stamp (the kernel
     body has no early return: every thread reaches every barrier)."""
+    groups = '#include "stage_groups.cuh"'
+    if groups in text:
+        header = (csrc / "stage_groups.cuh").read_text().replace("#pragma once", "")
+        text = text.replace(groups, '#include "step_cell.cuh"\n' + header, 1)
     m = re.search(r"fullstep_kernel\([^)]*\)\s*\{", text)
     if not m:
         raise RuntimeError("no fullstep_kernel definition in fullstep.cu")
@@ -133,7 +147,7 @@ def stamped_source(text: str) -> str:
 def build_stamped(build, csrc: Path, tmp: Path) -> ctypes.CDLL:
     nvcc = build._nvcc()
     src = tmp / "fullstep_stamped.cu"
-    src.write_text(stamped_source((csrc / "fullstep.cu").read_text()))
+    src.write_text(stamped_source((csrc / "fullstep.cu").read_text(), csrc))
     so = tmp / "libstamped.so"
     cmd = [nvcc, *build._FLAGS, "-I", str(csrc), "-shared", "-o", str(so), str(src)]
     out = subprocess.run(cmd, capture_output=True, text=True)
@@ -295,6 +309,12 @@ def hash_outputs(torch, tt, K, states) -> dict:
                 for name, outs in phase.items():
                     for i, t in enumerate(outs):
                         out[f"{name} {n + 2}^2 {dt} out{i} [kept]"] = digest(t)
+            F, u, v, p = st
+            us, vs = K.predict_plain(base, u, v, F)
+            for nj in PROJECT_N_JACOBI:
+                outs = K.project(with_jacobi(tt, base, nj), F, us, vs, p, u, v)
+                for name, t in zip("puv", outs):
+                    out[f"project {n + 2}^2 {dt} n_jacobi={nj} {name} [kept]"] = digest(t)
             torch.cuda.synchronize()
     out["fullstep_dma == fullstep bit for bit [in-leg]"] = str(dma_same)
     return out
@@ -304,7 +324,10 @@ def kernel_shape(lib, sass: dict) -> dict:
     """{dtype: [threads a CTA, shared bytes a CTA, CTAs an SM, CTAs launched
     at 514^2]} of fullstep_kernel: the tree's own report where it exports
     tv_fullstep_shape_*, else 256 threads, no shared memory, and the CTAs
-    an SM computed from the registers (the grid is then CTAs an SM x 132)."""
+    an SM computed from the registers (the grid is then CTAs an SM x 132);
+    and, where the tree exports tv_project_shape_*, {"project dtype n^2":
+    [threads, shared bytes, CTAs an SM, CTAs launched, tile rows]} at each
+    size."""
     out = {}
     for suffix, t in (("_f32", "f"), ("_f64", "d")):
         if hasattr(lib, "tv_fullstep_shape" + suffix):
@@ -318,6 +341,14 @@ def kernel_shape(lib, sass: dict) -> dict:
             regs = [v["regs"] for k, v in sass.items() if k == f"fullstep_kernel<{t}>"]
             ctas = ab3.occupancy(regs[0], 256, 0)[0] if regs else None
             out[suffix[1:]] = [256, 0, ctas, ctas and ctas * 132]
+        if hasattr(lib, "tv_project_shape" + suffix):
+            fn = getattr(lib, "tv_project_shape" + suffix)
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for n in SIZES:
+                shape = (ctypes.c_int * 5)()
+                if fn(n + 2, n + 2, shape) != 0:
+                    raise RuntimeError("tv_project_shape failed")
+                out[f"project {suffix[1:]} {n + 2}^2"] = list(shape)
     return out
 
 
@@ -343,6 +374,10 @@ def leg(tree: str, sass: bool, dump: bool, stamp: bool) -> dict:
         cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
         st = [a.float().contiguous() for a in states[n]]
         timed[f"fullstep {n + 2}^2"] = lambda cfg=cfg, st=st: K.fullstep(cfg, *st, False)
+        F, u, v, p = st
+        us, vs = K.predict_plain(cfg, u, v, F)
+        timed[f"project {n + 2}^2"] = (lambda cfg=cfg, F=F, us=us, vs=vs, p=p, u=u, v=v:
+                                       K.project(cfg, F, us, vs, p, u, v))
         if n in SLOPE_SIZES:
             for nj in SLOPE_N_JACOBI:
                 c = with_jacobi(tt, cfg, nj)
@@ -357,12 +392,27 @@ def leg(tree: str, sass: bool, dump: bool, stamp: bool) -> dict:
                 lambda cfg=cfg, b=padded: K.fullstep_strips(cfg, *b, False))
             timed[f"fullstep_dma {n + 2}^2"] = lambda cfg=cfg, st=st: K.fullstep_dma(
                 cfg, *st, False)
-            F, u, v, p = st
-            us, vs = K.predict_plain(cfg, u, v, F)
-            timed[f"predict {n + 2}^2"] = lambda cfg=cfg: K.predict(cfg, u, v, F)
-            timed[f"project {n + 2}^2"] = lambda cfg=cfg: K.project(cfg, F, us, vs, p, u, v)
-            timed[f"fct_sweep x {n + 2}^2"] = lambda cfg=cfg: K.fct_sweep(cfg, F, u, 0)
+            timed[f"predict {n + 2}^2"] = lambda cfg=cfg, u=u, v=v, F=F: K.predict(cfg, u, v, F)
+            timed[f"fct_sweep x {n + 2}^2"] = lambda cfg=cfg, F=F, u=u: K.fct_sweep(cfg, F, u, 0)
     res["us"] = {name: 1e3 * ab3.device_ms(torch, fn, 20) for name, fn in timed.items()}
+    n = SIZES[0]
+    s32 = tt.State(*(a.float().contiguous() for a in states[n]))
+    for backend in ("cuda", "cuda_mono"):
+        cfg = tt.dam_break_2d(n, num=tt.Numerics(backend=backend))
+        s0 = tt.init_state(cfg)
+
+        def route(cfg=cfg, s0=s0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.simulate(cfg, s0, ROUTE_STEPS)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        res["us"][f"'{backend}' step {n}^2"] = 1e3 * ab3.device_ms(
+            torch, lambda cfg=cfg: tt.step_pair(cfg, s32, lean=True), 10) / 2
+        route()
+        res["us"][f"'{backend}' route {n}^2, host clock a step"] = (
+            1e6 * min(route() for _ in range(3)) / ROUTE_STEPS)
     for n in SLOPE_SIZES:
         t = [res["us"][f"fullstep {n + 2}^2 n_jacobi={nj}"] for nj in SLOPE_N_JACOBI]
         # least-squares slope of µs against n_jacobi
@@ -437,7 +487,9 @@ def main() -> int:
     n_kept = sum(k.endswith("[kept]") for k in ha)
     print(f"bitwise A vs B: {n_kept} outputs (fullstep {SIZES} + 2, fullstep_win, "
           f"fullstep_strips; n_jacobi {N_JACOBI}, both parities, f32 and f64; the phase "
-          "kernels at 514^2): " + ("all equal" if not bad else f"{len(bad)} differ"))
+          f"kernels at 514^2; project at {SIZES} + 2, n_jacobi {PROJECT_N_JACOBI[0]}-"
+          f"{PROJECT_N_JACOBI[-1]}, f32 and f64): "
+          + ("all equal" if not bad else f"{len(bad)} differ"))
     print("fullstep_dma == fullstep bit for bit in every leg: "
           f"{ha['fullstep_dma == fullstep bit for bit [in-leg]']} / "
           f"{hb['fullstep_dma == fullstep bit for bit [in-leg]']}")
@@ -465,8 +517,8 @@ def main() -> int:
         for fn in sorted(set(legs[0]["sass"]) | set(legs[1]["sass"])):
             print(f"  {fn:34s} {row(legs[0]['sass'].get(fn))} | "
                   f"{row(legs[1]['sass'].get(fn))}")
-        print("fullstep_kernel launch: threads/CTA, shared bytes/CTA, CTAs/SM, CTAs at "
-              f"514^2 (A | B): {legs[0]['shape']} | {legs[1]['shape']}")
+        print("launch shapes, fullstep_kernel at 514^2 and project at each size: threads/CTA, "
+              f"shared bytes/CTA, CTAs/SM, CTAs (A | B): {legs[0]['shape']} | {legs[1]['shape']}")
     if args.stamps:
         for r in legs:
             for label, st in r["stamps"].items():

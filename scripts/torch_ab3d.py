@@ -16,9 +16,12 @@ kernels see the same inputs), each leg:
   (``predict3d_rhs``, ``jacobi3d`` for 10 iterations, ``correct3d``, the
   three sweeps, and the z sweep with ``mirror_out``), ``predict3d_rhs``,
   ``jacobi3d`` and the three sweeps on the 2x2 pencil engine's block of
-  shard (1, 1), the serial step (a step triple), ``predict3d_rhs`` with
-  csf (and its curvature pre-pass ``kappa3d_kernel`` alone, from
-  torch.profiler's device activity where it shows one), and, in
+  shard (1, 1), the serial step (a step triple, without and with csf), the
+  csf route's host-clock ms/step (``simulate_3d(csf=True)``, 100 steps from
+  the initial state, best of 3), ``predict3d_rhs`` with
+  csf, serial and on the pencil block (and its curvature pre-pass
+  ``kappa3d_kernel`` alone, from torch.profiler's device activity where it
+  shows one), and, in
   a tree whose plan has a depth (``JACOBI_LEVELS``), ``jacobi3d`` at every
   depth up to it;
 - the first A and B legs also write every output of ``predict3d_rhs``
@@ -26,7 +29,9 @@ kernels see the same inputs), each leg:
   ``fct3d_sweep`` (x, y and z, with and without ``mirror_out``, at a
   step of 4e-4 on velocities perturbed by 0.5 from a seed, so that the
   limiter fires), f32 and f64, on the whole grid, an i-slab (gi_base 40)
-  and the pencil block; the
+  and the pencil block, and of ``predict3d_rhs`` with csf on the same
+  blocks of the dam break's noise-free initial state (F exactly 0 or 1:
+  degenerate normals and zero differences almost everywhere); the
   script compares A's and B's with ``torch.equal`` and exits 1 unless all
   are equal (a redesign that changes only where values are computed keeps
   them bit for bit);
@@ -50,6 +55,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 N = 200
@@ -61,6 +67,7 @@ N_ITERS = (1, 2, 3, 10)
 SOURCES = ("predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
 DT_SWEEP = 4e-4  # the sweeps' dump: Courant numbers up to ~0.3, the limiter fires
 VEL_NOISE = 0.5
+CSF_STEPS = 100  # the csf route's host-clock run, as chip_smoke.py's
 
 
 def device_ms(torch, fn, n: int) -> float:
@@ -243,13 +250,14 @@ def blocks_of(tt, g, s, dtype):
             (f"pencil{PENCIL_SHARD}", pencil, dec.origin(k)))
 
 
-def dump_outputs(torch, tt, K3, g, fl, dt, s, where: Path) -> list[str]:
+def dump_outputs(torch, tt, K3, g, fl, dt, s, s_init, where: Path) -> list[str]:
     """Write every compared output of predict3d_rhs (csf off and on),
     jacobi3d (N_ITERS, from the plain version's rhs, so that both trees'
     Jacobi inputs are the same) and fct3d_sweep (each axis, with and
     without mirror_out, at DT_SWEEP on velocities with seeded noise), f32
-    and f64, on each block kind, one file each under ``where``; returns
-    their names in order."""
+    and f64, on each block kind, and of predict3d_rhs with csf on each
+    block kind of the initial state ``s_init``, one file each under
+    ``where``; returns their names in order."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -282,6 +290,11 @@ def dump_outputs(torch, tt, K3, g, fl, dt, s, where: Path) -> list[str]:
                     put(f"{key} fct3d_sweep axis={'xyz'[axis]} mirror_out={mirror}",
                         K3.fct3d_sweep(g, DT_SWEEP, Fs, vel, axis, mirror, **org))
             torch.cuda.synchronize()
+        for tag, (F, u, v, w, _), org in blocks_of(tt, g, s_init, dtype):
+            outs = K3.predict3d_rhs(g, fl, dt, u, v, w, F, True, **org)
+            for out_name, t in zip(("u*", "v*", "w*", "rhs"), outs):
+                put(f"{tag} {str(dtype)[6:]} initial state predict3d_rhs csf=True {out_name}", t)
+            torch.cuda.synchronize()
     return names
 
 
@@ -305,10 +318,11 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
     dt = 4e-6
     # developed on the plain path, which both trees share, so that both
     # legs' kernels see the same inputs
+    s_init = S3._with_bc(tt.init_state_3d(g))
     s = S3._with_bc(tt.simulate_3d(g, tt.init_state_3d(g), DEVELOP_STEPS, backend="torch"))
     res = {"tree": tree}
     if dump:
-        res["outputs"] = dump_outputs(torch, tt, K3, g, fl, dt, s, Path(dump))
+        res["outputs"] = dump_outputs(torch, tt, K3, g, fl, dt, s, s_init, Path(dump))
     F, u, v, w, p = s
     us, vs, ws, rhs = K3.predict3d_rhs(g, fl, dt, u, v, w, F)
     timed = {
@@ -328,18 +342,32 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
         timed[f"pencil fct3d_sweep {'xyz'[axis]}"] = (
             lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, Fp, vel, axis, **org))
 
-    def triple():
+    def triple(csf=False):
         for ph in (1, 2, 0):
-            S3._step_3d_cuda_lean(g, fl, dt, 10, s, ph, "jacobi", 1.7, 1e-3, 200, False, 0.0)
+            S3._step_3d_cuda_lean(g, fl, dt, 10, s, ph, "jacobi", 1.7, 1e-3, 200, csf, 0.0)
+
+    def csf_route():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.simulate_3d(g, s_init, CSF_STEPS, csf=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
     res["us"] = {name: 1e3 * device_ms(torch, fn, 20) for name, fn in timed.items()}
     res["us"]["step"] = 1e3 * device_ms(torch, triple, 5) / 3
+    res["us"]["step csf"] = 1e3 * device_ms(torch, lambda: triple(True), 5) / 3
+    csf_route()
+    res["us"]["csf route, host clock a step"] = 1e6 * min(csf_route() for _ in range(3)) / CSF_STEPS
     res["us"]["predict3d_rhs csf"] = 1e3 * device_ms(
         torch, lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, True), 20)
-    kappa = profiled_us(torch, lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, True), 20,
-                        "kappa3d_kernel")
-    if kappa is not None:
-        res["us"]["kappa3d_kernel (profiler)"] = kappa
+    res["us"]["pencil predict3d_rhs csf"] = 1e3 * device_ms(
+        torch, lambda: K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, True, **org), 20)
+    for label, call in (
+            ("", lambda: K3.predict3d_rhs(g, fl, dt, u, v, w, F, True)),
+            ("pencil ", lambda: K3.predict3d_rhs(g, fl, dt, up, vp, wp, Fp, True, **org))):
+        kappa = profiled_us(torch, call, 20, "kappa3d_kernel")
+        if kappa is not None:
+            res["us"][f"{label}kappa3d_kernel (profiler)"] = kappa
     if hasattr(K3, "JACOBI_LEVELS"):  # the Jacobi at each depth a launch
         chosen = K3.JACOBI_LEVELS
         for depth in range(1, chosen + 1):
@@ -413,8 +441,8 @@ def main() -> int:
     dumps.cleanup()
     n_out = len(legs[0]["outputs"])
     print(f"bitwise A vs B: {n_out} tensors (inputs, predict3d_rhs csf off and on, jacobi3d "
-          f"n_iter {N_ITERS}, fct3d_sweep x/y/z with and without mirror_out; f32 and f64; "
-          "grid, slab, pencil block): "
+          f"n_iter {N_ITERS}, fct3d_sweep x/y/z with and without mirror_out; predict3d_rhs "
+          "csf on the initial state; f32 and f64; grid, slab, pencil block): "
           + ("all torch.equal" if not bad else f"{len(bad)} differ"))
     for line in bad:
         print(f"  DIFFERS {line}")

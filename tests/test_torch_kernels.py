@@ -8,6 +8,8 @@ count no launch. The ``cuda``-marked test holds the CUDA kernels against
 the plain versions on a card; it needs no jax, so on a machine without
 jax it runs with ``pytest tests/test_torch_kernels.py --noconftest -m cuda``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -69,6 +71,31 @@ def test_project_plain_matches_pallas_project(ref):
     np.testing.assert_array_equal(got[0].numpy()[[0, -1], :], p[[0, -1], :])
     np.testing.assert_array_equal(got[1].numpy()[1, :], u[1, :])
     np.testing.assert_array_equal(got[2].numpy()[:, 1], v[:, 1])
+
+
+@pytest.fixture(scope="module")
+def ref_star(ref):
+    """tpuvof's u*, v* of the ref state (pallas_predict, interpret mode)."""
+    cfg, _, pk, (F, u, v, _) = ref
+    return tuple(np.asarray(a) for a in pk.pallas_predict(cfg, u, v, F, interpret=True))
+
+
+@pytest.mark.parametrize("n_jacobi", [1, 2, 3, 4, 5, 8, 11])
+def test_project_plain_matches_pallas_project_at_each_group_split(ref, ref_star, n_jacobi):
+    """project_plain against tpuvof's kernel at the sweep counts on either
+    side of the CUDA kernel's stage-group split (at most 4 sweeps a group:
+    1-4 in one group, 5 and 8 in two, 11 in three)."""
+    from tpuvof_torch.convert import config_from_tpuvof
+
+    cfg, _, pk, (F, u, v, p) = ref
+    cfg = cfg.replace(num=dataclasses.replace(cfg.num, n_jacobi=n_jacobi))
+    us, vs = ref_star
+    want = pk.project_pressure_and_correct(cfg, F, us, vs, p, u, v, interpret=True)
+    got = K.project_plain(config_from_tpuvof(cfg), *map(_t, (F, us, vs, p, u, v)))
+    for name, g_, w_ in zip("puv", got, want):
+        assert _rel(g_, w_) <= TOL, name
+    np.testing.assert_array_equal(got[0].numpy()[[0, -1], :], p[[0, -1], :])
+    assert _rel(got[0][1:-1, 1:-1], p[1:-1, 1:-1]) > 1e-6  # the sweeps moved p
 
 
 @pytest.mark.parametrize("axis", [0, 1])
@@ -138,3 +165,38 @@ def test_kernels_match_plain_on_card():
         K.fct_sweep(cfg, F.T, u, 0)  # not contiguous
     with pytest.raises(ValueError):
         K.predict(cfg, u[:-1], v, F)  # wrong shape
+
+
+@pytest.mark.cuda
+def test_project_matches_plain_on_card_at_each_group_split():
+    """The one-launch project kernel against its plain version on the card
+    at n_jacobi 0 to 12 (every split of its stage groups: one group up to
+    4, then the first, middle and last groups), f64 (1e-12) and f32 (p
+    1e-4, u and v 1e-5), at 64^2 (one tile row per CTA) and 257^2 (a ragged
+    last tile); p keeps the entry ghost ring bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpuvof_torch.ops import apply_bc
+
+    for n in (64, 257):
+        plain = tt.dam_break_2d(n)
+        s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), 30)
+        rng = np.random.default_rng(n)
+        F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape), device="cuda")
+                      for a in s)
+        u, v, F, p = apply_bc(u, v, F, p)
+        base = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda"))
+        for dtype, tols in ((torch.float64, (1e-12,) * 3), (torch.float32, (1e-4, 1e-5, 1e-5))):
+            Fd, ud, vd, pd = (a.to(dtype).contiguous() for a in (F, u, v, p))
+            us, vs = K.predict_plain(base, ud, vd, Fd)
+            for n_jacobi in range(13):
+                cfg = base.replace(num=dataclasses.replace(base.num, n_jacobi=n_jacobi))
+                K.reset_launch_counts()
+                got = K.project(cfg, Fd, us, vs, pd, ud, vd)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES["project"] == 1
+                want = K.project_plain(cfg, Fd, us, vs, pd, ud, vd)
+                for name, g_, w_, tol in zip("puv", got, want, tols):
+                    assert _rel(g_.cpu(), w_.cpu()) <= tol, (n, dtype, n_jacobi, name)
+                assert torch.equal(got[0][[0, -1]], pd[[0, -1]])
+                assert torch.equal(got[0][:, [0, -1]], pd[:, [0, -1]])

@@ -195,6 +195,72 @@ def test_islab_plain_matches_pallas():
     assert _rel(got[4:], cut(want)) <= TOL
 
 
+def _dam_break_state(n):
+    """F, u, v, w, p as numpy f64: tpuvof's n^3 dam break at its start
+    (init_state_3d, ic=1), BCs applied. F is exactly 0 or 1 in every cell,
+    so most Youngs normals are degenerate (|m| < 1e-10) and most of their
+    differences are exact zeros."""
+    import jax.numpy as jnp
+
+    import tpuvof as tv
+    from tpuvof.ops import apply_bc_3d
+
+    s = tv.init_state_3d(tv.Grid3D(n, n, n), 1)
+    fields = (jnp.asarray(a, jnp.float64) for a in (s.u, s.v, s.w, s.F, s.p))
+    u, v, w, F, p = apply_bc_3d(*fields)
+    return tuple(np.asarray(a) for a in (F, u, v, w, p))
+
+
+@pytest.mark.parametrize("block", ["grid", "pencil"])
+def test_csf_predict3d_plain_matches_pallas_on_dam_break(block):
+    """The csf predictor's plain version against tpuvof's Pallas kernel on
+    the noise-free 16^3 dam break: on the whole grid, and on the pencil
+    block of shard (0, 1) of a 2 x 2 mesh (W = Wy = 6, rows 2..21: the
+    water's top face and the high y wall mid-block, the low x wall too),
+    compared beyond 4 cells of each block edge, where tpuvof rolls."""
+    import jax.numpy as jnp
+
+    from tpuvof.config import Fluid
+    from tpuvof.grid import Grid3D
+    from tpuvof.pallas_kernels import step3d as ps
+    from tpuvof.parallel.dist3d import _pad_planes
+    from tpuvof.solver3d import _pad_jk
+    from tpuvof_torch.convert import grid3d_from_tpuvof
+
+    n, nl, w_ = 16, 8, 6
+    g, fl = Grid3D(n, n, n), Fluid()
+    F, u, v, w, _ = _dam_break_state(n)
+    assert set(np.unique(F)) == {0.0, 1.0}
+    if block == "grid":
+        kw, org = {}, {}
+        p1, p2 = _pad_jk(g)
+        cut = (slice(None), slice(0, n + 2), slice(0, n + 2))
+        mid = (slice(None),) * 3
+    else:
+        nye = nl + 2 * w_
+        org = dict(gi_base=-w_, njl=nye, gj_base=nl - w_)
+        kw = dict(nloc=nl + 2 * w_, **org)
+        F, u, v, w = (np.pad(a, ((w_, w_), (w_, w_), (0, 0)))[:nl + 2 * w_ + 2, nl:nl + nye + 2]
+                      for a in (F, u, v, w))
+        p1, p2 = _pad_planes(nye, n)
+        cut = (slice(4, -4), slice(4, nye + 2 - 4), slice(0, n + 2))
+        mid = (slice(4, -4), slice(4, -4))
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(a), ((0, 0), (0, p1), (0, p2)))
+
+    want = ps.pallas_predict3d_rhs(g, fl, DT, pad(u), pad(v), pad(w), pad(F), csf=True,
+                                   interpret=True, **kw)
+    got = K3.predict3d_rhs_plain(grid3d_from_tpuvof(g), tt.Fluid(), DT,
+                                 *map(_t, (u, v, w, F)), csf=True, **org)
+    for name, g_, w_ref in zip(("u*", "v*", "w*", "rhs"), got, want):
+        assert _rel(g_[mid], np.asarray(w_ref)[cut]) <= TOL, name
+    # the sigma terms moved u* and v* somewhere (kappa is not zero)
+    plain = K3.predict3d_rhs_plain(grid3d_from_tpuvof(g), tt.Fluid(), DT,
+                                   *map(_t, (u, v, w, F)), csf=False, **org)
+    assert not torch.equal(got[0], plain[0]) and not torch.equal(got[1], plain[1])
+
+
 def test_wrappers_route_cpu_tensors_to_plain_and_count_nothing():
     g = tt.Grid3D(8, 8, 8)
     fl = tt.Fluid()
@@ -391,3 +457,43 @@ def _check_sweeps_on_card(g, F, vels, tol, tag, **org):
             got = K3.fct3d_sweep(g, DT_SWEEP, F, vel, axis, mirror, **org)
             want = K3.fct3d_sweep_plain(g, DT_SWEEP, F, vel, axis, mirror, **org)
             assert _rel(got.cpu(), want.cpu()) <= tol, (*tag, axis, mirror)
+
+
+@pytest.mark.cuda
+def test_csf_predict3d_matches_plain_on_card_on_dam_break():
+    """The csf predict3d_rhs (the curvature pre-pass, then the predictor)
+    against its plain version on the noise-free 40^3 dam break, f64
+    (1e-12) and f32 (1e-5): on the whole grid, an i-slab with the low x
+    wall mid-block, and the 2 x 2 pencil engine's blocks of shards (0, 0)
+    and (0, 1) (a low and a high y wall mid-block, the water's faces in
+    both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpuvof_torch.ops import apply_bc_3d
+    from tpuvof_torch.parallel import Decomp3D, make_mesh
+
+    n = 40
+    g, fl = tt.Grid3D(n, n, n), tt.Fluid()
+    s = tt.init_state_3d(g, 1, "cuda", torch.float64)
+    u, v, w, F, p = apply_bc_3d(s.u, s.v, s.w, s.F, s.p)
+    assert set(torch.unique(F).tolist()) == {0.0, 1.0}
+    state = tt.State3D(F=F, u=u, v=v, w=w, p=p)
+    dec = Decomp3D(g, make_mesh(devices=[F.device] * 4))
+    pencils = dec.widen(dec.scatter_state(state))
+    big = [torch.nn.functional.pad(a, (0, 0, 0, 0, 4, 0)) for a in (F, u, v, w)]
+    blocks = [("grid", (F, u, v, w), {}),
+              ("slab low x wall", [a[:20].contiguous() for a in big], {"gi_base": -4})]
+    for xy in ((0, 0), (0, 1)):
+        k = dec.coords.index(xy)
+        b = pencils[k]
+        blocks.append((f"pencil {xy}", (b.F, b.u, b.v, b.w), dec.origin(k)))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for tag, fields, org in blocks:
+            Fd, ud, vd, wd = (a.to(dtype).contiguous() for a in fields)
+            K3.reset_launch_counts()
+            got = K3.predict3d_rhs(g, fl, DT, ud, vd, wd, Fd, True, **org)
+            torch.cuda.synchronize()
+            assert K3.LAUNCHES["predict3d_rhs"] == 2
+            want = K3.predict3d_rhs_plain(g, fl, DT, ud, vd, wd, Fd, True, **org)
+            for name, g_, w_ in zip(("u*", "v*", "w*", "rhs"), got, want):
+                assert _rel(g_.cpu(), w_.cpu()) <= tol, (tag, dtype, name)

@@ -96,14 +96,8 @@ inline dim3 grid3d(const Vol& g) {
 // that takes the fewest steps in all when the card runs ``resident`` CTAs
 // an SM in waves (waves x steps a CTA). One chunk per tile leaves SMs idle
 // on a block of few tiles; many short chunks pay the halo steps again.
-// The SM count is read once a device.
 inline int plane_chunk(int n0, int tiles, int resident, int halo) {
-  static std::atomic<int> cache[kMaxDevices];
-  const int sms = per_device(cache, [](int dev) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  });
+  const int sms = sm_count();
   const long long slots =
       static_cast<long long>(sms > 0 ? sms : 1) * (resident > 0 ? resident : 1);
   int best_lc = n0;

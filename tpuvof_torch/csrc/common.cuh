@@ -40,6 +40,16 @@ int per_device(std::atomic<int> (&cache)[kMaxDevices], const Ask& ask) {
   return n;
 }
 
+// The current device's SM count, asked once a device.
+inline int sm_count() {
+  static std::atomic<int> cache[kMaxDevices];
+  return per_device(cache, [](int dev) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  });
+}
+
 // Covers an (n0, n1) field with block2d() blocks.
 inline dim3 grid2d(int n0, int n1) {
   return dim3((n1 + kBlockX - 1) / kBlockX, (n0 + kBlockY - 1) / kBlockY);

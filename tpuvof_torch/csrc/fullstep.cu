@@ -31,7 +31,9 @@
 // turn, loads the tile and a rim that covers the group's reach into shared
 // memory (every load of a thread issued before its first store), runs the
 // group's stages there with a __syncthreads() between two, each pass over
-// the cells of a compile-time region, and writes the tile's outputs:
+// the cells of a compile-time region, and writes the tile's outputs (the
+// tiles, staging, Jacobi groups and launch plan live in stage_groups.cuh,
+// shared with project.cu):
 //   predict: the Youngs normals once a cell (rim 3 of F), kappa, u*/v* on
 //            the tile and one row/column beyond, rhs; writes u*, v*, rhs;
 //   jacobi:  d <= kJacobiLevels Jacobi sweeps on overlapped tiles (rim d,
@@ -46,7 +48,7 @@
 // corrected velocities and both sweeps' F never leave shared memory. A
 // CTA's group is a chain of dependent passes, so the tile is small: 16
 // rows when all of a block's 16-row tiles fit on the card at once, else 24
-// (plan_launch). Every stage runs step_cell.cuh's ``*_of`` function on a
+// (tv::plan_rows). Every stage runs step_cell.cuh's ``*_of`` function on a
 // Tile accessor, so each value is the same IEEE operations on the same
 // inputs as before; a value at a position outside the block is 0, as ld()
 // reads it from a block-sized field.
@@ -57,38 +59,30 @@
 // overwritten by the BCs).
 #include <cooperative_groups.h>
 
-#include "step_cell.cuh"
+#include "stage_groups.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTX = 32;  // threads along j (the contiguous axis)
-constexpr int kTY = 8;   // along i
-constexpr int kThreads = kTX * kTY;
-constexpr int kTW = 32;            // a tile's output cells along j (16 or 24 along i)
-constexpr int kJacobiLevels = 4;   // the most Jacobi sweeps a stage group
-
-// The Jacobi sweeps of each stage group: ceil(n_jacobi / kJacobiLevels)
-// groups of near-equal depth, the deeper ones first (10 -> 4, 3, 3;
-// exported as tv_fullstep_levels).
-__host__ __device__ __forceinline__ int jacobi_groups(int n_jacobi) {
-  return (n_jacobi + kJacobiLevels - 1) / kJacobiLevels;
-}
-
-__host__ __device__ __forceinline__ int jacobi_depth(int n_jacobi, int group) {
-  const int n = jacobi_groups(n_jacobi);
-  return n_jacobi / n + (group < n_jacobi % n ? 1 : 0);
-}
+using tv::Box;
+using tv::for_cells;
+using tv::kJacobiLevels;
+using tv::kThreads;
+using tv::kTW;
+using tv::kTX;
+using tv::kTY;
+using tv::stage;
+using tv::Tile;
 
 // Shared values of T a CTA needs for tiles of TH rows: the largest stage
 // group's boxes. predict: F (rim 3), u and v, kappa, the normals (u*/v*
-// reuse their space); jacobi: two levels and rhs (rim kJacobiLevels);
+// reuse their space); jacobi: tv::jacobi_tile's at the greatest depth;
 // finish: F and p (rim 5), u*, v*, u, v (rim 4), at odd pitches.
 constexpr int smem_values(int th) {
   const int predict = (th + 6) * (kTW + 6) + 2 * (th + 3) * (kTW + 3) + (th + 2) * (kTW + 2) +
                       2 * (th + 4) * (kTW + 4);
-  const int jacobi = 3 * (th + 2 * kJacobiLevels) * (kTW + 2 * kJacobiLevels);
+  const int jacobi = tv::jacobi_tile_values(th, kJacobiLevels);
   const int finish = 2 * (th + 10) * (kTW + 11) + 4 * (th + 8) * (kTW + 9);
   const int m = predict > jacobi ? predict : jacobi;
   return m > finish ? m : finish;
@@ -105,71 +99,6 @@ struct StepArgs {
   tv::SweepParams<T> sx, sy;
   int n_jacobi, even_step;
 };
-
-// A box of a field in shared memory: block cell (i, j) at
-// s[(i - i0) * w + (j - j0)].
-template <typename T>
-struct Box {
-  T* s;
-  int i0, j0, w;
-  __device__ __forceinline__ T& operator()(int i, int j) const {
-    return s[(i - i0) * w + (j - j0)];
-  }
-  __device__ __forceinline__ T* end(int h) const { return s + h * w; }
-};
-
-// A box read at offsets from one cell (step_cell.cuh's accessor form).
-template <typename T>
-struct Tile {
-  const T* s;
-  int w;
-  __device__ __forceinline__ Tile(const Box<T>& box, int i, int j) : s(&box(i, j)), w(box.w) {}
-  __device__ __forceinline__ T operator()(int di, int dj) const { return s[di * w + dj]; }
-};
-
-// Every block cell (i, j) of the H x W region at (i0, j0): the CTA's
-// threads take consecutive cells of the flattened region, so that every
-// lane has a cell while cells remain; H and W are compile-time, so the
-// split of the index is a multiply and the loop is unrolled.
-template <int H, int W, class Body>
-__device__ __forceinline__ void for_cells(int i0, int j0, const Body& body) {
-  constexpr int N = H * W;
-  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
-#pragma unroll
-  for (int k = 0; k < (N + kThreads - 1) / kThreads; ++k) {
-    const int idx = tid + k * kThreads;
-    if (N % kThreads == 0 || idx < N) body(i0 + idx / W, j0 + idx % W);
-  }
-}
-
-// Loads the H x W cells at each box's origin of its block field into the
-// box through ld(), each thread issuing all its loads of all NF fields
-// before its first store, so that their latencies overlap.
-template <int H, int W, int NF, typename T>
-__device__ __forceinline__ void stage(const tv::Block& b, const Box<T> (&box)[NF],
-                                      const T* const (&src)[NF]) {
-  constexpr int N = H * W, K = (N + kThreads - 1) / kThreads;
-  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
-  T r[NF][K];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int idx = tid + k * kThreads;
-      r[f][k] = N % kThreads == 0 || idx < N
-                    ? tv::ld(src[f], b, box[f].i0 + idx / W, box[f].j0 + idx % W)
-                    : T(0);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int idx = tid + k * kThreads;
-      if (N % kThreads == 0 || idx < N) box[f].s[idx / W * box[f].w + idx % W] = r[f][k];
-    }
-  }
-}
 
 // predict: u*, v* and rhs of the tile at (ti, tj).
 template <int TH, typename T>
@@ -227,55 +156,6 @@ __device__ __forceinline__ void predict_tile(const StepArgs<T>& a, T* sm, int ti
     }
   });
   __syncthreads();  // the next tile reuses the boxes
-}
-
-// Sweeps M..D of a jacobi group, from cur into nxt: sweep M is exact on
-// the box less M rings.
-template <int TH, int D, int M, typename T>
-__device__ __forceinline__ void jacobi_sweeps(const StepArgs<T>& a, const Box<T>& cur,
-                                              const Box<T>& nxt, const Box<T>& rhs, int ti,
-                                              int tj) {
-  if constexpr (M <= D) {
-    const tv::Block& b = a.b;
-    for_cells<TH + 2 * (D - M), kTW + 2 * (D - M)>(ti - D + M, tj - D + M, [&](int i, int j) {
-      const bool upd = b.interior(i, j) && i >= 1 && i < b.E0 - 1 && j >= 1 && j < b.E1 - 1;
-      nxt(i, j) = upd ? tv::jacobi_of(Tile<T>(cur, i, j), rhs(i, j), b, i, j, a.jq) : cur(i, j);
-    });
-    __syncthreads();
-    jacobi_sweeps<TH, D, M + 1>(a, nxt, cur, rhs, ti, tj);
-  }
-}
-
-// jacobi: D sweeps of the tile at (ti, tj), from src into dst.
-template <int TH, int D, typename T>
-__device__ __forceinline__ void jacobi_tile(const StepArgs<T>& a, T* sm, int ti, int tj,
-                                            const T* src, T* dst) {
-  const tv::Block& b = a.b;
-  constexpr int H = TH + 2 * D, W = kTW + 2 * D;
-  const Box<T> p0{sm, ti - D, tj - D, W};
-  const Box<T> p1{p0.end(H), ti - D, tj - D, W};
-  const Box<T> rhs{p1.end(H), ti - D, tj - D, W};
-  stage<H, W, 2, T>(b, {p0, rhs}, {src, a.rhs});  // rhs is 0 off the global interior
-  __syncthreads();
-  jacobi_sweeps<TH, D, 1>(a, p0, p1, rhs, ti, tj);
-  const Box<T>& out = D % 2 ? p1 : p0;
-  for_cells<TH, kTW>(ti, tj, [&](int i, int j) {
-    if (b.inside(i, j)) dst[i * b.E1 + j] = out(i, j);
-  });
-  __syncthreads();
-}
-
-// jacobi_tile at a depth d <= D known at run time.
-template <int TH, int D, typename T>
-__device__ __forceinline__ void jacobi_depth_tile(int d, const StepArgs<T>& a, T* sm, int ti,
-                                                  int tj, const T* src, T* dst) {
-  if constexpr (D > 1) {
-    if (d < D) {
-      jacobi_depth_tile<TH, D - 1>(d, a, sm, ti, tj, src, dst);
-      return;
-    }
-  }
-  jacobi_tile<TH, D>(a, sm, ti, tj, src, dst);
 }
 
 // One FCT sweep along AXIS (then the clamp, with CLAMP) of the cells of
@@ -409,9 +289,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
   grid.sync();
   const T* p = a.p;
   T* dst = a.pa;
-  for (int g = 0, n = jacobi_groups(a.n_jacobi); g < n; ++g) {
-    const int d = jacobi_depth(a.n_jacobi, g);
-    TV_TILES jacobi_depth_tile<TH, kJacobiLevels>(d, a, sm, ti, tj, p, dst);
+  for (int g = 0, n = tv::jacobi_groups(a.n_jacobi); g < n; ++g) {
+    const int d = tv::jacobi_depth(a.n_jacobi, g);
+    TV_TILES tv::jacobi_depth_tile<TH, kJacobiLevels>(d, a.b, a.jq, sm, ti, tj, p, a.rhs, dst);
     grid.sync();
     p = dst;
     dst = dst == a.pa ? a.pb : a.pa;
@@ -428,54 +308,15 @@ struct Step {
   static constexpr int smem = smem_values(TH) * static_cast<int>(sizeof(T));
   static int per_sm() {
     static std::atomic<int> cache[tv::kMaxDevices];
-    return tv::per_device(cache, [](int dev) {
-      int coop, ctas = 0;
-      cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-      if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(fullstep_kernel<T, TH>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fullstep_kernel<T, TH>,
-                                                          kThreads, smem);
-      if (e == cudaSuccess && ctas < 1) e = cudaErrorLaunchOutOfResources;
-      return e == cudaSuccess ? ctas : -static_cast<int>(e);
-    });
-  }
-  static long long tiles(int E0, int E1) {
-    return static_cast<long long>((E0 + TH - 1) / TH) * ((E1 + kTW - 1) / kTW);
+    return tv::coop_per_sm(cache, fullstep_kernel<T, TH>, smem);
   }
 };
 
-int sm_count() {
-  static std::atomic<int> cache[tv::kMaxDevices];
-  return tv::per_device(cache, [](int dev) {
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  });
-}
-
-// The launch on an (E0, E1) block: the tile height and the CTAs, one a
-// tile up to what the card holds resident (a grid-wide barrier needs all
-// of them resident). A CTA's stage groups are chains of dependent passes,
-// shorter on a smaller tile: 16 rows when the block's 16-row tiles all fit
-// on the card at once (a small block, spread over more SMs), else 24, whose
-// sweep lines (26 cells across a tile) fit one warp and which beat 32 rows
-// at 562^2 to 2050^2 (PERF.md). Negative CTAs: a CUDA error.
+// The launch on an (E0, E1) block: the tile height and the CTAs
+// (tv::plan_rows). Negative CTAs: a CUDA error.
 template <typename T>
 void plan_launch(int E0, int E1, int& th, int& ctas) {
-  const int n16 = Step<T, 16>::per_sm(), n24 = Step<T, 24>::per_sm();
-  if (n16 < 0 || n24 < 0) {
-    th = 24;
-    ctas = n16 < 0 ? n16 : n24;
-    return;
-  }
-  const long long tiles16 = Step<T, 16>::tiles(E0, E1), tiles24 = Step<T, 24>::tiles(E0, E1);
-  const long long resident16 = static_cast<long long>(n16) * sm_count();
-  const long long resident24 = static_cast<long long>(n24) * sm_count();
-  th = tiles16 <= resident16 ? 16 : 24;
-  ctas = static_cast<int>(th == 16 ? tiles16 : (tiles24 < resident24 ? tiles24 : resident24));
+  tv::plan_rows(E0, E1, Step<T, 16>::per_sm(), Step<T, 24>::per_sm(), th, ctas);
 }
 
 template <typename T>
@@ -584,7 +425,7 @@ extern "C" int tv_fullstep_shape_f64(int E0, int E1, int* out) {
 // The Jacobi sweeps of each stage group for n_jacobi: writes at most cap
 // depths to out and returns the number of groups.
 extern "C" int tv_fullstep_levels(int n_jacobi, int* out, int cap) {
-  const int n = n_jacobi > 0 ? jacobi_groups(n_jacobi) : 0;
-  for (int g = 0; g < n && g < cap; ++g) out[g] = jacobi_depth(n_jacobi, g);
+  const int n = n_jacobi > 0 ? tv::jacobi_groups(n_jacobi) : 0;
+  for (int g = 0; g < n && g < cap; ++g) out[g] = tv::jacobi_depth(n_jacobi, g);
   return n;
 }

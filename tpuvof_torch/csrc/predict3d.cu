@@ -54,6 +54,23 @@
 // the JAX package folds them; the library is built with --fmad=false.
 // Only where the operands come from changed, so the outputs are those of
 // the one-thread-per-cell form bit for bit.
+//
+// The csf pre-pass, kappa3d_kernel, computes kappa = -div(n) from the
+// Youngs normals n (the csf branch of _predict_block). Its bound is F read
+// and kappa written once, 19.68 us at 200^3 f32. The first form ran one
+// thread a cell that evaluated the normals of its six neighbours, each from
+// a 3 x 3 x 3 cube of F read through ld3: 162 loads and ~180 divisions a
+// cell, most with a zero numerator (F is uniform away from the interface),
+// which leaves the division's fast path; ~3450 us at 200^3 f32 on an H100
+// 80GB HBM3 at 700 W. This form gives a CTA a 14 x 30 (j, k) tile that
+// marches along l with one barrier a plane, computes each normal once on
+// the tile and a one-cell rim (~1.22 a cell, 16 x 32: two full passes of
+// the CTA) from F staged in shared memory, answers a uniform 3 x 3 x 3
+// cube (all liquid or all gas) with the signed zeros the arithmetic would
+// give, and divides through tv::quot (the same signed zero), so kappa is
+// the first form's bit for bit. A plane's cost then depends on the data,
+// so the planes go in short chunks, several waves of CTAs (Kappa::chunk).
+// Measured on the same card at 200^3 f32: ~150 us (scripts/torch_ab3d.py).
 #include "cell3d.cuh"
 
 namespace {
@@ -115,21 +132,33 @@ struct FixedVel {
   }
 };
 
-// The Youngs normal of a cell of the global interior (young_msum_3d and
-// normalize_normals_3d, in their accumulation order); 0 elsewhere.
+// The Youngs normal from the 3 x 3 x 3 cube f of F around a cell of the
+// global interior (young_msum_3d and normalize_normals_3d, in their
+// accumulation order): the mean of the 8 corner gradients, normalised
+// unless every component is below 1e-10. Divisions go through tv::quot.
 template <typename T>
-__device__ __forceinline__ void normal_at(const T* __restrict__ F, const tv::Vol& g,
-                                          int l, int j, int k, const P3Params<T>& q,
-                                          T m[3]) {
-  m[0] = m[1] = m[2] = T(0);
-  if (!g.inside(l, j, k) || !g.interior(l, j, k)) return;
-  T f[3][3][3];
+__device__ __forceinline__ void youngs_normal(const T (&f)[3][3][3], const P3Params<T>& q,
+                                              T m[3]) {
+  // A cube of one finite value (most of a VOF field: all liquid or all
+  // gas): every difference below is +0, so every corner gradient is
+  // tv::quot's zero case -0 * sign(4 h), their sum and mean that signed
+  // zero, and the normal is degenerate; the same values without the
+  // arithmetic. (A divisor 4 h that is 0 or NaN takes the full path.)
+  const T v = f[1][1][1];
+  bool uniform = v - v == T(0);
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) f[a][b][c] = tv::ld3(F, g, l + a - 1, j + b - 1, k + c - 1);
+      for (int c = 0; c < 3; ++c) uniform = uniform && f[a][b][c] == v;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) uniform = uniform && q.four_h[a] == q.four_h[a] && q.four_h[a] != T(0);
+  if (uniform) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) m[a] = -T(0) * copysign(T(1), q.four_h[a]);
+    return;
+  }
   T ms[3];
 #pragma unroll
   for (int axis = 0; axis < 3; ++axis) {
@@ -159,42 +188,179 @@ __device__ __forceinline__ void normal_at(const T* __restrict__ F, const tv::Vol
           cacc = (ia == 0 && ib == 0) ? d : cacc + d;
         }
       }
-      const T gax = -cacc / q.four_h[axis];
+      const T gax = tv::quot(-cacc, q.four_h[axis]);
       acc = corner == 0 ? gax : acc + gax;
     }
-    ms[axis] = acc / T(8);
+    ms[axis] = tv::quot(acc, T(8));
   }
   const bool degenerate = fabs(ms[0]) < T(1e-10) && fabs(ms[1]) < T(1e-10) &&
                           fabs(ms[2]) < T(1e-10);
   const T mag_sq = ms[0] * ms[0] + ms[1] * ms[1] + ms[2] * ms[2];
   const T safe_mag = sqrt(degenerate ? T(1) : mag_sq);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) m[a] = degenerate ? ms[a] : ms[a] / safe_mag;
+  for (int a = 0; a < 3; ++a) m[a] = degenerate ? ms[a] : tv::quot(ms[a], safe_mag);
 }
 
-// kappa = -div(normal) on the global interior, 0 elsewhere.
-template <typename T, bool PENCIL>
-__global__ void kappa3d_kernel(const T* __restrict__ F, T* __restrict__ kappa,
-                               const tv::Vol block, const P3Params<T> q) {
-  const tv::Vol g = tv::rows<PENCIL>(block);
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int l = blockIdx.z;
-  if (j >= g.n1 || k >= g.n2) return;
-  T kap = T(0);
-  if (g.interior(l, j, k)) {
-    T e[3], w[3], n[3], s[3], f[3], b[3];
-    normal_at(F, g, l + 1, j, k, q, e);
-    normal_at(F, g, l - 1, j, k, q, w);
-    normal_at(F, g, l, j + 1, k, q, n);
-    normal_at(F, g, l, j - 1, k, q, s);
-    normal_at(F, g, l, j, k + 1, q, f);
-    normal_at(F, g, l, j, k - 1, q, b);
-    kap = -((e[0] - w[0]) / q.two_h[0] + (n[1] - s[1]) / q.two_h[1] +
-            (f[2] - b[2]) / q.two_h[2]);
-  }
-  kappa[g.at(l, j, k)] = kap;
+// kappa3d_kernel's tile: kKapK columns (k) by kKapJ rows (j), marching
+// along l. The normals of a plane are computed on the tile and a one-cell
+// rim (rows j0-1 .. j0+kKapJ, columns k0-1 .. k0+kKapK: 16 x 32, two full
+// passes of the CTA's 256 threads, a warp a rim row), from F staged on a
+// two-cell rim (rows j0-2 .. j0+kKapJ+1, columns k0-2 .. k0+kKapK+1).
+constexpr int kKapK = 30, kKapJ = 14;
+constexpr int kKapThreads = 256;
+constexpr int kNormK = kKapK + 2, kNormPlane = (kKapJ + 2) * kNormK;
+constexpr int kFK = kKapK + 4, kFPlane = (kKapJ + 4) * kFK;
+constexpr int kFStaged = (kFPlane + kKapThreads - 1) / kKapThreads;
+constexpr int kNormPasses = kNormPlane / kKapThreads;
+constexpr int kKapCells = kKapK * kKapJ;
+constexpr int kKapPasses = (kKapCells + kKapThreads - 1) / kKapThreads;
+constexpr int kKapWaves = 8, kKapMinPlanes = 4;  // the chunking of Kappa::chunk
+static_assert(kNormPlane % kKapThreads == 0, "the normals' passes keep every thread busy");
+
+// Bytes of dynamic shared memory: F's ring of 4 planes, then the normals'
+// ring of 4 planes of (mx, my, mz).
+template <typename T>
+constexpr size_t kappa_smem_bytes() {
+  return sizeof(T) * (4 * kFPlane + 4 * 3 * kNormPlane);
 }
+
+// kappa = -div(normal) on the global interior, 0 elsewhere, of a (j, k)
+// tile over planes [l0, l0 + lc). F's planes and each plane's normals (mx,
+// my, mz) go into rings of 4 (plane l at slot l & 3). Step p stages F's
+// plane p+1 (its reads issued a step ahead), then, after the step's one
+// barrier, computes the normals of plane p once a cell and kappa at p-2
+// from the normals of planes p-3, p-2 and p-1, all written before the
+// barrier. A slot is rewritten two steps after its last read, so one
+// barrier a step separates every write from the reads it must follow.
+// Each value is the first form's arithmetic in its order on the same F, as
+// ld3 reads it (0 off the array).
+// At least 4 CTAs an SM in f32 (2 in f64): the normals' full path is a
+// chain of branches that needs resident warps more than registers.
+template <typename T, bool PENCIL>
+__global__ void __launch_bounds__(kKapThreads, sizeof(T) == 4 ? 4 : 2)
+    kappa3d_kernel(const T* __restrict__ F, T* __restrict__ kappa, const tv::Vol block,
+                   const P3Params<T> q, const int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T(*fs)[kFPlane] = reinterpret_cast<T(*)[kFPlane]>(smem);
+  T(*ns)[3][kNormPlane] = reinterpret_cast<T(*)[3][kNormPlane]>(fs + 4);
+  const tv::Vol g = tv::rows<PENCIL>(block);
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kKapK, j0 = blockIdx.y * kKapJ;
+  const int l0 = blockIdx.z * lc;
+  const int l1 = min(l0 + lc, g.n0);
+
+  T next[kFStaged];
+  auto load = [&](int l) {
+#pragma unroll
+    for (int i = 0; i < kFStaged; ++i) {
+      const int idx = tid + i * kKapThreads;
+      if (idx < kFPlane) next[i] = tv::ld3(F, g, l, j0 - 2 + idx / kFK, k0 - 2 + idx % kFK);
+    }
+  };
+  auto store = [&](int l) {
+#pragma unroll
+    for (int i = 0; i < kFStaged; ++i) {
+      const int idx = tid + i * kKapThreads;
+      if (idx < kFPlane) fs[l & 3][idx] = next[i];
+    }
+  };
+  // the normals of plane l on the tile and its rim, 0 off the array and
+  // the global interior
+  auto normals = [&](int l) {
+#pragma unroll
+    for (int i = 0; i < kNormPasses; ++i) {
+      const int idx = tid + i * kKapThreads;
+      const int rj = idx / kNormK, rk = idx % kNormK;  // from (j0 - 1, k0 - 1)
+      const int j = j0 - 1 + rj, k = k0 - 1 + rk;
+      T m[3] = {T(0), T(0), T(0)};
+      if (g.inside(l, j, k) && g.interior(l, j, k)) {
+        T f[3][3][3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) f[a][b][c] = fs[(l + a - 1) & 3][(rj + b) * kFK + rk + c];
+        youngs_normal(f, q, m);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ns[l & 3][c][idx] = m[c];
+    }
+  };
+  // kappa at plane l of the tile from the normals of l-1, l and l+1
+  auto curvature = [&](int l) {
+    const T(&e)[3][kNormPlane] = ns[(l + 1) & 3];
+    const T(&w)[3][kNormPlane] = ns[(l - 1) & 3];
+    const T(&m)[3][kNormPlane] = ns[l & 3];
+#pragma unroll
+    for (int i = 0; i < kKapPasses; ++i) {
+      const int idx = tid + i * kKapThreads;
+      if (idx >= kKapCells) break;
+      const int j = j0 + idx / kKapK, k = k0 + idx % kKapK;
+      if (!g.inside(l, j, k)) continue;
+      const int cell = (idx / kKapK + 1) * kNormK + idx % kKapK + 1;  // in a normals plane
+      T kap = T(0);
+      if (g.interior(l, j, k)) {
+        kap = -(tv::quot(e[0][cell] - w[0][cell], q.two_h[0]) +
+                tv::quot(m[1][cell + kNormK] - m[1][cell - kNormK], q.two_h[1]) +
+                tv::quot(m[2][cell + 1] - m[2][cell - 1], q.two_h[2]));
+      }
+      kappa[g.at(l, j, k)] = kap;
+    }
+  };
+
+  for (int l = l0 - 2; l < l0; ++l) {
+    load(l);
+    store(l);
+  }
+  load(l0);
+  for (int p = l0 - 1; p <= l1 + 1; ++p) {
+    store(p + 1);  // the slot of p-3, last read by the normals of p-2
+    load(p + 2);
+    __syncthreads();
+    if (p <= l1) normals(p);  // the slot of p-4, last read by kappa at p-3
+    if (p >= l0 + 2) curvature(p - 2);
+  }
+}
+
+// The pre-pass of one (type, mode): its shared memory granted and the
+// CTAs it keeps resident on an SM (asked once a device), and its launch
+// over chunks of planes.
+template <typename T, bool PENCIL>
+struct Kappa {
+  static constexpr size_t smem = kappa_smem_bytes<T>();
+  static int resident() {
+    static std::atomic<int> cache[tv::kMaxDevices];
+    return tv::per_device(cache, [](int) {
+      cudaFuncSetAttribute(kappa3d_kernel<T, PENCIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+      int n = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kappa3d_kernel<T, PENCIL>, kKapThreads,
+                                                    smem);
+      return n;
+    });
+  }
+  // A plane's cost depends on the data (a uniform cube is cheap; the
+  // interface and a liquid whose F carries rounding noise are not), so the
+  // planes are cut into short chunks, about kKapWaves waves of CTAs that
+  // the card balances as they finish, of at least kKapMinPlanes planes (a
+  // chunk also computes the normals of one plane beyond each end).
+  static int chunk(int n0, int tiles) {
+    const long long slots = static_cast<long long>(tv::sm_count()) * resident();
+    long long chunks = (kKapWaves * slots + tiles - 1) / tiles;
+    chunks = chunks < 1 ? 1 : (chunks > n0 ? n0 : chunks);
+    const int lc = static_cast<int>((n0 + chunks - 1) / chunks);
+    return lc > kKapMinPlanes ? lc : (kKapMinPlanes < n0 ? kKapMinPlanes : n0);
+  }
+  static cudaError_t launch(const T* F, T* kappa, tv::Vol g, const P3Params<T>& q,
+                            cudaStream_t stream) {
+    const int tiles_k = (g.n2 + kKapK - 1) / kKapK, tiles_j = (g.n1 + kKapJ - 1) / kKapJ;
+    const int lc = chunk(g.n0, tiles_k * tiles_j);
+    const dim3 grid(tiles_k, tiles_j, (g.n0 + lc - 1) / lc);
+    kappa3d_kernel<T, PENCIL><<<grid, kKapThreads, smem, stream>>>(F, kappa, g, q, lc);
+    return cudaGetLastError();
+  }
+};
 
 // The tile of one CTA: kTK columns (k, one per lane) by kTJ rows (j, one
 // per warp). Its staged region has a one-cell halo below and two above on
@@ -490,8 +656,7 @@ int launch_rows(const T* u, const T* v, const T* w, const T* F, T* kappa, T* us,
                 T* ws, T* rhs, tv::Vol g, const P3Params<T>& q, cudaStream_t stream) {
   if (!kappa) return Predict<T, PENCIL, false>::launch(u, v, w, F, kappa, us, vs, ws, rhs, g, q,
                                                        stream);
-  kappa3d_kernel<T, PENCIL><<<tv::grid3d(g), tv::block3d(), 0, stream>>>(F, kappa, g, q);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = Kappa<T, PENCIL>::launch(F, kappa, g, q, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return Predict<T, PENCIL, true>::launch(u, v, w, F, kappa, us, vs, ws, rhs, g, q, stream);
 }

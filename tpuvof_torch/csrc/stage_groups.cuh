@@ -1,0 +1,213 @@
+// Shared-memory stage groups of the 2-D cooperative kernels (fullstep.cu,
+// project.cu).
+//
+// Both kernels are one cooperative launch whose grid is what the card holds
+// resident at once (a grid-wide barrier needs every CTA resident), running
+// a chain of stage groups with one grid.sync() between two. In a group a
+// CTA of kTX x kTY threads takes tiles of TH rows x kTW columns in turn
+// (TH 16 or 24, plan_rows), stages the tile and a rim that covers the
+// group's reach into shared memory (stage: every load of a thread issued
+// before its first store), runs the group's passes there with a
+// __syncthreads() between two, each pass over the cells of a compile-time
+// region (for_cells), and writes the tile's outputs.
+//
+// The Jacobi sweeps run in groups of at most kJacobiLevels on overlapped
+// tiles: a group of depth d stages p and rhs on the tile + d, and sweep m
+// is exact on the tile + d - m (one less valid ring a sweep), so the tile
+// is exact after d sweeps and one grid barrier separates two groups
+// (jacobi_depth: 10 -> 4, 3, 3; fullstep.cu exports the split as
+// tv_fullstep_levels). Every update is step_cell.cuh's jacobi_of on a Tile
+// accessor, the same IEEE operations on the same inputs as a sweep over
+// global memory. Jacobi runs out of place, ping-ponging two boxes; it
+// updates the cells of the global interior that are not on the block's
+// edge, so every other p keeps its staged entry value.
+#pragma once
+
+#include "step_cell.cuh"
+
+namespace tv {
+
+constexpr int kTX = 32;  // threads along j (the contiguous axis)
+constexpr int kTY = 8;   // along i
+constexpr int kThreads = kTX * kTY;
+constexpr int kTW = 32;            // a tile's output cells along j (16 or 24 along i)
+constexpr int kJacobiLevels = 4;   // the most Jacobi sweeps a stage group
+
+// The Jacobi sweeps of each stage group: ceil(n_jacobi / kJacobiLevels)
+// groups of near-equal depth, the deeper ones first (10 -> 4, 3, 3).
+__host__ __device__ __forceinline__ int jacobi_groups(int n_jacobi) {
+  return (n_jacobi + kJacobiLevels - 1) / kJacobiLevels;
+}
+
+__host__ __device__ __forceinline__ int jacobi_depth(int n_jacobi, int group) {
+  const int n = jacobi_groups(n_jacobi);
+  return n_jacobi / n + (group < n_jacobi % n ? 1 : 0);
+}
+
+// A box of a field in shared memory: block cell (i, j) at
+// s[(i - i0) * w + (j - j0)].
+template <typename T>
+struct Box {
+  T* s;
+  int i0, j0, w;
+  __device__ __forceinline__ T& operator()(int i, int j) const {
+    return s[(i - i0) * w + (j - j0)];
+  }
+  __device__ __forceinline__ T* end(int h) const { return s + h * w; }
+};
+
+// A box read at offsets from one cell (step_cell.cuh's accessor form).
+template <typename T>
+struct Tile {
+  const T* s;
+  int w;
+  __device__ __forceinline__ Tile(const Box<T>& box, int i, int j) : s(&box(i, j)), w(box.w) {}
+  __device__ __forceinline__ T operator()(int di, int dj) const { return s[di * w + dj]; }
+};
+
+// Every block cell (i, j) of the H x W region at (i0, j0): the CTA's
+// threads take consecutive cells of the flattened region, so that every
+// lane has a cell while cells remain; H and W are compile-time, so the
+// split of the index is a multiply and the loop is unrolled.
+template <int H, int W, class Body>
+__device__ __forceinline__ void for_cells(int i0, int j0, const Body& body) {
+  constexpr int N = H * W;
+  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < (N + kThreads - 1) / kThreads; ++k) {
+    const int idx = tid + k * kThreads;
+    if (N % kThreads == 0 || idx < N) body(i0 + idx / W, j0 + idx % W);
+  }
+}
+
+// Loads the H x W cells at each box's origin of its block field into the
+// box through ld(), each thread issuing all its loads of all NF fields
+// before its first store, so that their latencies overlap.
+template <int H, int W, int NF, typename T>
+__device__ __forceinline__ void stage(const Block& b, const Box<T> (&box)[NF],
+                                      const T* const (&src)[NF]) {
+  constexpr int N = H * W, K = (N + kThreads - 1) / kThreads;
+  const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
+  T r[NF][K];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int idx = tid + k * kThreads;
+      r[f][k] = N % kThreads == 0 || idx < N
+                    ? ld(src[f], b, box[f].i0 + idx / W, box[f].j0 + idx % W)
+                    : T(0);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int idx = tid + k * kThreads;
+      if (N % kThreads == 0 || idx < N) box[f].s[idx / W * box[f].w + idx % W] = r[f][k];
+    }
+  }
+}
+
+// Sweeps M..D of a Jacobi group whose exact region at the end is the
+// TH x TW region at (ti, tj), from cur into nxt: sweep M is exact on that
+// region + D - M.
+template <int TH, int TW, int D, int M, typename T>
+__device__ __forceinline__ void jacobi_sweeps(const Block& b, const ProjectParams<T>& q,
+                                              const Box<T>& cur, const Box<T>& nxt,
+                                              const Box<T>& rhs, int ti, int tj) {
+  if constexpr (M <= D) {
+    for_cells<TH + 2 * (D - M), TW + 2 * (D - M)>(ti - D + M, tj - D + M, [&](int i, int j) {
+      const bool upd = b.interior(i, j) && i >= 1 && i < b.E0 - 1 && j >= 1 && j < b.E1 - 1;
+      nxt(i, j) = upd ? jacobi_of(Tile<T>(cur, i, j), rhs(i, j), b, i, j, q) : cur(i, j);
+    });
+    __syncthreads();
+    jacobi_sweeps<TH, TW, D, M + 1>(b, q, nxt, cur, rhs, ti, tj);
+  }
+}
+
+// Shared values of T of jacobi_tile's boxes at depth D: two levels and rhs.
+constexpr int jacobi_tile_values(int th, int d) {
+  return 3 * (th + 2 * d) * (kTW + 2 * d);
+}
+
+// D sweeps of the tile at (ti, tj), from src into dst, with rhs a block
+// field (0 off the global interior).
+template <int TH, int D, typename T>
+__device__ __forceinline__ void jacobi_tile(const Block& b, const ProjectParams<T>& q, T* sm,
+                                            int ti, int tj, const T* src, const T* rhs_f,
+                                            T* dst) {
+  constexpr int H = TH + 2 * D, W = kTW + 2 * D;
+  const Box<T> p0{sm, ti - D, tj - D, W};
+  const Box<T> p1{p0.end(H), ti - D, tj - D, W};
+  const Box<T> rhs{p1.end(H), ti - D, tj - D, W};
+  stage<H, W, 2, T>(b, {p0, rhs}, {src, rhs_f});
+  __syncthreads();
+  jacobi_sweeps<TH, kTW, D, 1>(b, q, p0, p1, rhs, ti, tj);
+  const Box<T>& out = D % 2 ? p1 : p0;
+  for_cells<TH, kTW>(ti, tj, [&](int i, int j) {
+    if (b.inside(i, j)) dst[i * b.E1 + j] = out(i, j);
+  });
+  __syncthreads();
+}
+
+// jacobi_tile at a depth 1 <= d <= D known at run time.
+template <int TH, int D, typename T>
+__device__ __forceinline__ void jacobi_depth_tile(int d, const Block& b,
+                                                  const ProjectParams<T>& q, T* sm, int ti,
+                                                  int tj, const T* src, const T* rhs_f, T* dst) {
+  if constexpr (D > 1) {
+    if (d < D) {
+      jacobi_depth_tile<TH, D - 1>(d, b, q, sm, ti, tj, src, rhs_f, dst);
+      return;
+    }
+  }
+  jacobi_tile<TH, D>(b, q, sm, ti, tj, src, rhs_f, dst);
+}
+
+// The tiles of TH rows x kTW columns that cover an (E0, E1) block.
+inline long long tiles_of(int th, int E0, int E1) {
+  return static_cast<long long>((E0 + th - 1) / th) * ((E1 + kTW - 1) / kTW);
+}
+
+// The CTAs of kThreads an SM holds of the cooperative kernel ``kernel``
+// with ``smem`` dynamic shared bytes (granted here), asked once a device
+// and kept in ``cache``; a negative CUDA error where the device cannot run
+// it cooperatively.
+template <class Kernel>
+int coop_per_sm(std::atomic<int> (&cache)[kMaxDevices], Kernel kernel, int smem) {
+  return per_device(cache, [&](int dev) {
+    int coop, ctas = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, smem);
+    if (e == cudaSuccess && ctas < 1) e = cudaErrorLaunchOutOfResources;
+    return e == cudaSuccess ? ctas : -static_cast<int>(e);
+  });
+}
+
+// The launch on an (E0, E1) block of a kernel built for 16- and 24-row
+// tiles, of which an SM holds n16 and n24 CTAs: the tile height and the
+// CTAs, one a tile up to what the card holds resident. A CTA's stage
+// groups are chains of dependent passes, shorter on a smaller tile: 16
+// rows when the block's 16-row tiles all fit on the card at once (a small
+// block, spread over more SMs), else 24, whose fullstep sweep lines (26
+// cells across a tile) fit one warp and which beat 32 rows at 562^2 to
+// 2050^2 (PERF.md). Negative CTAs: a CUDA error.
+inline void plan_rows(int E0, int E1, int n16, int n24, int& th, int& ctas) {
+  if (n16 < 0 || n24 < 0) {
+    th = 24;
+    ctas = n16 < 0 ? n16 : n24;
+    return;
+  }
+  const long long tiles16 = tiles_of(16, E0, E1), tiles24 = tiles_of(24, E0, E1);
+  const long long resident16 = static_cast<long long>(n16) * sm_count();
+  const long long resident24 = static_cast<long long>(n24) * sm_count();
+  th = tiles16 <= resident16 ? 16 : 24;
+  ctas = static_cast<int>(th == 16 ? tiles16 : (tiles24 < resident24 ? tiles24 : resident24));
+}
+
+}  // namespace tv

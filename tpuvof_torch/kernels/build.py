@@ -51,6 +51,7 @@ _SIGNATURES = {
     "tv_jacobi3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fct3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fullstep_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_project_shape": [_I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -27,7 +27,9 @@ junk by contract, and callers keep the centre.
 that runs the step in stage groups separated by grid-wide barriers: the
 predictor and rhs, the Jacobi sweeps in groups of at most four (the
 library reports its split, ``tv_fullstep_levels``), and the correction,
-both sweeps, the clamp and the BCs.
+both sweeps, the clamp and the BCs. ``project`` runs the same Jacobi
+groups in one launch, the rhs in the first and the correction in the
+last.
 
 ``fullstep_dma`` computes ``fullstep``'s step bit for bit and moves the
 state by bulk asynchronous copies. As in tpuvof, no solver route calls
@@ -302,7 +304,7 @@ def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
     lib, fn, stream = _checked("project", g.shape, F, u_star, v_star, p, u, v)
     p_out = torch.empty_like(p)
     p_tmp = torch.empty_like(p)
-    rhs = torch.empty((g.nx, g.ny), dtype=p.dtype, device=p.device)
+    rhs = torch.empty_like(p)
     u_out = torch.empty_like(u)
     v_out = torch.empty_like(v)
     status = fn(F.data_ptr(), u_star.data_ptr(), v_star.data_ptr(), p.data_ptr(),
