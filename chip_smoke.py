@@ -17,7 +17,9 @@ Phases, each fatal on failure:
      perturbed, developed 512^2 dam-break state, in f64 and f32: the phase
      kernels; fullstep and fullstep_dma (both parities), fullstep_win (an
      interior and a corner tile), fullstep_strips (NaN in the margins),
-     predict_win and fct_sweep_win (x and y). Then the whole-step engines
+     predict_win and fct_sweep_win (x and y) on an interior and an edge
+     tile of the hybrid tiled engine and on a 29 x 45 block at the high
+     corner; every sweep under FCT_FORWARD, FCT_DIFF and FCT_SCHEME_TEST. Then the whole-step engines
      against each other in f64: mono == tiled == strips; and fullstep_dma ==
      fullstep bit for bit, f64 and f32, both parities, at 512^2 and 63^2
      (E0*E1 odd), and in f64 at 2048^2, where each CTA owns more entry
@@ -42,7 +44,9 @@ Phases, each fatal on failure:
      graph), and each kernel's time per launch beside its plain version's
      and its bound; the whole-step kernel's launch shape on each of its
      blocks (threads and shared bytes a CTA, CTAs an SM, CTAs launched),
-     project's at 514^2, and the Jacobi groups at the main path's n_jacobi.
+     project's at 514^2, predict's and each sweep axis's at 514^2 and on
+     the hybrid's 136^2 block, and the Jacobi groups at the main path's
+     n_jacobi.
   7. 3-D kernel vs plain: the four 3-D kernels against their plain versions
      on a perturbed, developed dam-break state at the main path's 200^3,
      f64 and f32:
@@ -129,6 +133,8 @@ N_PAST_PIN = 2048
 DMA_SIZES = ((N_MAIN, STEPS_MAIN), (1024, 100), (2048, 100))
 STEPS_HYBRID = 100
 TILE = 128  # the tiled engines' tile in phases 3 and 5
+RAGGED = (29, 45)  # phase 3: a phase block whose sides are a multiple of no tile
+FCT_VARIANTS = ("FCT_FORWARD", "FCT_DIFF", "FCT_SCHEME_TEST")  # phase 3's sweeps
 SEED = 0
 # |kernel - plain| / max|plain| bars. f64: both sides do the same IEEE
 # operations in the same order (the kernels are built with --fmad=false),
@@ -235,13 +241,14 @@ def pad(a, w, value=0.0):
 
 
 def window(K, cfg, s, W, r0, c0, extent):
-    """Blocks of ``extent`` at (r0, c0) of the W-zero-padded fields, and
-    their global origin."""
-    return [pad(a, W)[r0:r0 + extent, c0:c0 + extent].contiguous() for a in s], \
+    """Blocks of ``extent`` (an int: square; or (rows, columns)) at (r0, c0)
+    of the W-zero-padded fields, and their global origin."""
+    e0, e1 = (extent, extent) if isinstance(extent, int) else extent
+    return [pad(a, W)[r0:r0 + e0, c0:c0 + e1].contiguous() for a in s], \
         (r0 - W, c0 - W)
 
 
-def kernel_cases(K, cfg, s):
+def kernel_cases(tt, K, cfg, s):
     """(kernel name, outputs of the kernel, outputs of its plain version,
     output names, the region compared) for every kernel on state ``s``."""
     F, u, v, p = s
@@ -251,11 +258,15 @@ def kernel_cases(K, cfg, s):
         ("predict", K.predict(cfg, u, v, F), (us, vs), ("u*", "v*"), None),
         ("project", K.project(cfg, F, us, vs, p, u, v),
          K.project_plain(cfg, F, us, vs, p, u, v), ("p", "u", "v"), None),
-        ("fct_sweep", (K.fct_sweep(cfg, F, u, 0),),
-         (K.fct_sweep_plain(cfg, F, u, 0),), ("F(x)",), None),
-        ("fct_sweep", (K.fct_sweep(cfg, F, v, 1),),
-         (K.fct_sweep_plain(cfg, F, v, 1),), ("F(y)",), None),
     ]
+    # the sweeps under each FCT variant (the step runs FCT_FORWARD)
+    variants = [(name, cfg.replace(num=dataclasses.replace(cfg.num, fct=getattr(tt, name))))
+                for name in FCT_VARIANTS]
+    for name, c in variants:
+        for axis, vel in ((0, u), (1, v)):
+            cases.append(("fct_sweep", (K.fct_sweep(c, F, vel, axis),),
+                          (K.fct_sweep_plain(c, F, vel, axis),), (f"F({'xy'[axis]}) {name}",),
+                          None))
     for even in (False, True):
         cases.append(("fullstep", K.fullstep(cfg, F, u, v, p, even),
                       K.fullstep_plain(cfg, F, u, v, p, even), "Fuvp", None))
@@ -274,14 +285,20 @@ def kernel_cases(K, cfg, s):
                   K.fullstep_strips_plain(cfg, *nan_padded, False), "Fuvp", grid))
     W = K.PHASE_HALO
     centre = (slice(W, -W), slice(W, -W))
-    for r0, c0 in ((n // 2, n // 4), (n - TILE, 0)):
-        (ub, vb, Fb), (oi, oj) = window(K, cfg, (u, v, F), W, r0, c0, TILE + 2 * W + 2)
+    L = n + 2 + 2 * W  # the padded grid
+    e0, e1 = RAGGED
+    # an interior and an edge tile of the hybrid tiled engine, and a ragged
+    # block at the high corner (its origin past both walls)
+    for (r0, c0), extent in (((n // 2, n // 4), TILE + 2 * W + 2),
+                             ((n - TILE, 0), TILE + 2 * W + 2), ((L - e0, L - e1), RAGGED)):
+        (ub, vb, Fb), (oi, oj) = window(K, cfg, (u, v, F), W, r0, c0, extent)
         cases.append(("predict_win", K.predict_win(cfg, ub, vb, Fb, oi, oj),
                       K.predict_win_plain(cfg, ub, vb, Fb, oi, oj), ("u*", "v*"), centre))
-        for axis, vel in ((0, ub), (1, vb)):
-            cases.append(("fct_sweep_win", (K.fct_sweep_win(cfg, Fb, vel, axis, oi, oj),),
-                          (K.fct_sweep_win_plain(cfg, Fb, vel, axis, oi, oj),),
-                          ("F(x)",) if axis == 0 else ("F(y)",), centre))
+        for name, c in variants:
+            for axis, vel in ((0, ub), (1, vb)):
+                cases.append(("fct_sweep_win", (K.fct_sweep_win(c, Fb, vel, axis, oi, oj),),
+                              (K.fct_sweep_win_plain(c, Fb, vel, axis, oi, oj),),
+                              (f"F({'xy'[axis]}) {name}",), centre))
     return cases
 
 
@@ -809,6 +826,24 @@ def fullstep_shapes(lib, blocks) -> dict:
     return out
 
 
+def phase_shapes(lib, blocks) -> dict:
+    """{"kernel dtype (E0, E1)": [threads a CTA, shared bytes a CTA, CTAs an
+    SM, CTAs launched, tile rows, tile columns]} of predict and of each
+    sweep axis on each (name suffix, E0, E1) of ``blocks``, f32 and f64."""
+    out = {}
+    for suffix, e0, e1 in blocks:
+        for dt in ("f32", "f64"):
+            shape = (ctypes.c_int * 6)()
+            check(getattr(lib, f"tv_predict_shape_{dt}")(e0, e1, shape) == 0,
+                  "tv_predict_shape failed")
+            out[f"predict{suffix} {dt} ({e0}, {e1})"] = list(shape)
+            for axis in (0, 1):
+                check(getattr(lib, f"tv_fct_sweep_shape_{dt}")(e0, e1, axis, shape) == 0,
+                      "tv_fct_sweep_shape failed")
+                out[f"fct_sweep{suffix} {'xy'[axis]} {dt} ({e0}, {e1})"] = list(shape)
+    return out
+
+
 def sweep_shapes(lib) -> dict:
     """{axis dtype mode: [threads a CTA, shared bytes a CTA, CTAs an SM]}
     of the three sweeps' kernels."""
@@ -871,7 +906,7 @@ def main() -> int:
     results = {}
     for dtype in (torch.float64, torch.float32):
         s = tt.State(*(a.to(dtype).contiguous() for a in s64))
-        for name, got, want, outs, region in kernel_cases(K, cfg64, s):
+        for name, got, want, outs, region in kernel_cases(tt, K, cfg64, s):
             torch.cuda.synchronize()
             for out_name, g_, w_ in zip(outs, got, want):
                 if region is not None:
@@ -887,7 +922,7 @@ def main() -> int:
                 r[f"rel_{key}"] = max(r[f"rel_{key}"], rel)
                 if key == "f32":
                     r["abs_f32"] = max(r["abs_f32"], diff)
-                print(f"kernel vs plain {key} {name:13s} {out_name:5s} "
+                print(f"kernel vs plain {key} {name:13s} {out_name:20s} "
                       f"rel {rel:.3e} (bar {tol:.0e}) abs {diff:.3e}")
                 check(rel <= tol, f"{name} {out_name} {key}: rel {rel:.3e} > {tol:.0e}")
     cfg_mono64 = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda_mono"))
@@ -1108,6 +1143,11 @@ def main() -> int:
     for label, (threads, smem, per_sm, ctas, rows) in {**shapes2d, **project_shapes}.items():
         print(f"{tag} launch {label}: {threads} threads and {smem} shared bytes a CTA, "
               f"{per_sm} CTAs an SM, {ctas} CTAs of {rows} x 32 tiles")
+    # the phase kernels on the phase route's grid and the hybrid's blocks
+    shapes_phase = phase_shapes(lib, (("", *F.shape), ("_win", *Fb.shape)))
+    for label, (threads, smem, per_sm, ctas, rows, cols) in shapes_phase.items():
+        print(f"{tag} launch {label}: {threads} threads and {smem} shared bytes a CTA, "
+              f"{per_sm} CTAs an SM, {ctas} CTAs of {rows} x {cols} tiles")
     n_jacobi = cfg_mono.num.n_jacobi
     print(f"fullstep at the main path's n_jacobi {n_jacobi}: Jacobi groups "
           f"{fullstep_levels(lib, n_jacobi)}")
@@ -1333,6 +1373,10 @@ def main() -> int:
                             for name in ("fullstep_win", "fullstep_strips")}
     # threads, shared bytes, CTAs an SM, CTAs, tile rows
     fullstep["launch_shape"] = shapes2d
+    for k in kernels:
+        if k["name"] in ("predict", "fct_sweep", "predict_win", "fct_sweep_win"):
+            k["launch_shape"] = {label: sh for label, sh in shapes_phase.items()
+                                 if label.split()[0] == k["name"]}
     next(k for k in kernels if k["name"] == "fct3d_sweep")["launch_shape"] = shapes3d
     # fullstep_dma at every size of phase 14; its bulk-copy instructions
     fullstep_dma = next(k for k in kernels if k["name"] == "fullstep_dma")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the 2-D whole-step kernel of two tpuvof_torch trees on one CUDA card.
+"""A/B of the 2-D kernels of two tpuvof_torch trees on one CUDA card.
 
-    python3 scripts/torch_ab2d.py TREE_A TREE_B [--sass] [--stamps] [--out FILE]
+    python3 scripts/torch_ab2d.py TREE_A TREE_B [--sass] [--stamps] [--variants]
+                                  [--out FILE]
 
 Each tree is a directory holding a ``tpuvof_torch`` package (for example
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -15,38 +16,49 @@ same inputs) and perturbed from a seed, each leg:
   of the calls, best of 5), in f32: ``fullstep`` and ``project`` at 514^2,
   1026^2 and 2050^2; ``fullstep_win`` on the tiled engine's 174 x 558
   block; ``fullstep_strips`` at 562^2 (the strips engine's padded layout);
-  ``fullstep_dma`` and the other phase kernels at 514^2; and ``fullstep``
-  at n_jacobi 1, 2, 10 and 20 at 514^2 and 2050^2, whose slope is the cost
-  of one Jacobi stage; the 512^2 step of the ``'cuda'`` and ``'cuda_mono'``
-  routes on the device alone (a step pair), and their host-clock ms/step
-  (``simulate``, 1000 steps from the initial state, best of 3);
+  ``fullstep_dma`` at 514^2; ``fullstep`` at n_jacobi 1, 2, 10 and 20 at
+  514^2 and 2050^2, whose slope is the cost of one Jacobi stage;
+  ``predict`` and ``fct_sweep`` x and y at 514^2, 1026^2, 2050^2 and 65^2;
+  ``predict_win`` and ``fct_sweep_win`` x and y on the 136^2 block of the
+  hybrid tiled engine's interior tile and on a 29 x 45 block; the 512^2
+  step of the ``'cuda'`` and ``'cuda_mono'`` routes on the device alone (a
+  step pair), and their host-clock ms/step (``simulate``, 1000 steps from
+  the initial state, best of 3);
 - the first A and B legs also hash every output (SHA-256 of its bytes) of
   ``fullstep`` at the three sizes, of ``fullstep_win`` (the whole block and
   the region its engine keeps, the block minus STEP_HALO) and of
   ``fullstep_strips`` (NaN in the margins; the whole block and the grid
   inside its margin), at both parities and n_jacobi 1, 2 and 10, f32 and
-  f64, of the phase kernels at 514^2 (which share ``step_cell.cuh``), and
-  of ``project`` at the three sizes, n_jacobi 1 to 11, f32 and f64;
-  each leg also checks ``fullstep_dma`` == ``fullstep`` bit for bit. The
-  script compares A's hashes with B's and exits 1 unless every kept output
-  is equal (a redesign that changes only where values are computed keeps
-  them bit for bit); it reports whether the junk margins changed;
+  f64; of ``predict`` and ``fct_sweep`` x/y at the three sizes and 65^2, of
+  ``predict_win`` and ``fct_sweep_win`` x/y on a 136^2 and a 29 x 45 block
+  at each corner of the 514^2 grid (origins past both walls; the block
+  minus PHASE_HALO, and the whole block), the sweeps under FCT_FORWARD,
+  FCT_DIFF and FCT_SCHEME_TEST, f32 and f64; and of ``project`` at the
+  three sizes, n_jacobi 1 to 11, f32 and f64; each leg also checks
+  ``fullstep_dma`` == ``fullstep`` bit for bit. The script compares A's
+  hashes with B's and exits 1 unless every kept output is equal (a
+  redesign that changes only where values are computed keeps them bit for
+  bit); it reports whether the junk margins changed;
 - with ``--sass``, the first A and B legs compile the tree's 2-D sources to
   cubins with its nvcc flags and report ptxas's registers, stack and spills
   and the SASS count per kernel function (``torch_ab3d.sass_counts``), and
-  the whole-step kernel's launch shape (threads and shared bytes a CTA,
-  CTAs an SM, CTAs launched): read from ``tv_fullstep_shape_*`` where the
-  tree exports it, else computed from the registers; ``project``'s from
-  ``tv_project_shape_*`` where the tree exports it;
+  the launch shapes (threads and shared bytes a CTA, CTAs an SM, CTAs
+  launched, tile rows): the whole-step kernel's from ``tv_fullstep_shape_*``
+  where the tree exports it, else computed from the registers; those of
+  ``project``, ``predict`` and each sweep axis where the tree exports
+  ``tv_project_shape_*``, ``tv_predict_shape_*``, ``tv_fct_sweep_shape_*``;
+- with ``--variants``, every leg of a tree whose ``predict`` takes a tile
+  height also times it at 8 and 24 rows on the phase kernels' grids and
+  blocks;
 - with ``--stamps``, every leg builds a copy of the tree's ``fullstep.cu``
   (in a temporary directory, never in the tree; the tree's
-  ``stage_groups.cuh``, where it has one, inlined in its place) whose
-  barriers are stamped with ``clock64()``: block 0's clock at the kernel's
-  start, after
-  each grid-wide and each CTA barrier, and at its end. It prints, at 514^2
-  and 2050^2 and on the tiled engine's block, f32, n_jacobi 10, block 0's
-  time between stamps scaled to the stamped kernel's device time, summed
-  a stage (up to a grid barrier) with its CTA barriers' parts beside it.
+  ``phase_tiles.cuh`` and ``stage_groups.cuh``, where it has them, inlined
+  in their place) whose barriers are stamped with ``clock64()``: block 0's
+  clock at the kernel's start, after each grid-wide and each CTA barrier,
+  and at its end. It prints, at 514^2 and 2050^2 and on the tiled engine's
+  block, f32, n_jacobi 10, block 0's time between stamps scaled to the
+  stamped kernel's device time, summed a stage (up to a grid barrier) with
+  its CTA barriers' parts beside it.
 
 It prints one line per leg, the comparison, a table of the four legs, and
 the card's name and power limit; ``--out`` also writes the legs as JSON.
@@ -77,6 +89,11 @@ TILE_ROWS = 128  # the tiled engine's tile (solver.TILE_ROWS): blocks of 128 + 2
 DEVELOP_STEPS = 20
 SEED = 0
 SOURCES_2D = ("fullstep.cu", "fullstep_dma.cu", "predict.cu", "project.cu", "fct_sweep.cu")
+N_ODD = 63  # the phase kernels' odd grid (65^2 arrays), as chip_smoke.py's
+FCT_VARIANTS = ("FCT_FORWARD", "FCT_DIFF", "FCT_SCHEME_TEST")
+WIN = 136  # the hybrid tiled engine's phase block: a 128^2 tile + 2 * PHASE_HALO + 2
+RAGGED = (29, 45)  # a phase block whose sides are a multiple of no tile
+TILE_ROWS_TRIED = (8, 24)  # predict's tile heights, timed with --variants
 STAMP_SIZES = (512, 2048)
 ROUTE_STEPS = 1000  # the 512^2 routes' host-clock run, as chip_smoke.py's
 
@@ -117,15 +134,16 @@ extern "C" int tv_stamps_read(long long* rel, int* kind, int* n) {
 
 
 def stamped_source(text: str, csrc: Path) -> str:
-    """fullstep.cu with its barriers stamped: the tree's stage_groups.cuh
-    (where it includes one) inlined, then ``grid.sync()`` becomes
+    """fullstep.cu with its barriers stamped: the tree's phase_tiles.cuh
+    and stage_groups.cuh (where it includes them) inlined, then ``grid.sync()`` becomes
     TV_SYNC(grid) and ``__syncthreads()`` TV_BAR everywhere in the file,
     and fullstep_kernel's body starts and ends with a stamp (the kernel
     body has no early return: every thread reaches every barrier)."""
-    groups = '#include "stage_groups.cuh"'
-    if groups in text:
-        header = (csrc / "stage_groups.cuh").read_text().replace("#pragma once", "")
-        text = text.replace(groups, '#include "step_cell.cuh"\n' + header, 1)
+    for name in ("phase_tiles.cuh", "stage_groups.cuh"):  # outermost first
+        inc = f'#include "{name}"'
+        if inc in text:
+            header = (csrc / name).read_text().replace("#pragma once", "")
+            text = text.replace(inc, '#include "step_cell.cuh"\n' + header, 1)
     m = re.search(r"fullstep_kernel\([^)]*\)\s*\{", text)
     if not m:
         raise RuntimeError("no fullstep_kernel definition in fullstep.cu")
@@ -226,7 +244,7 @@ def states_of(torch, tt):
     from tpuvof_torch.ops import apply_bc
 
     out = {}
-    for n in SIZES:
+    for n in SIZES + (N_ODD,):
         cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="torch"))
         s = tt.simulate(cfg, tt.init_state(cfg, 1, "cuda", torch.float32), DEVELOP_STEPS)
         rng = np.random.default_rng(SEED + n)
@@ -255,6 +273,60 @@ def win_block(torch, K, cfg, st):
 def strips_block(torch, K, cfg, st):
     w2 = K.strips_halo(cfg)
     return [torch.nn.functional.pad(a, (w2,) * 4, value=float("nan")) for a in st], w2
+
+
+def with_fct(tt, cfg, name):
+    return cfg.replace(num=dataclasses.replace(cfg.num, fct=getattr(tt, name)))
+
+
+def phase_blocks(torch, K, st):
+    """[(label, blocks, (oi, oj))] of the windowed phase kernels on state
+    ``st``: a WIN^2 window and a RAGGED block at each corner of the grid
+    padded by PHASE_HALO (origins past both walls, as the hybrid tiled
+    engine cuts its edge tiles)."""
+    W = K.PHASE_HALO
+    padded = [torch.nn.functional.pad(a, (W,) * 4) for a in st]
+    L = padded[0].shape[0]
+    out = []
+    for e0, e1 in ((WIN, WIN), RAGGED):
+        for r0 in (0, L - e0):
+            for c0 in (0, L - e1):
+                blocks = [a[r0:r0 + e0, c0:c0 + e1].contiguous() for a in padded]
+                out.append((f"{e0}x{e1}@({r0 - W},{c0 - W})", blocks, (r0 - W, c0 - W)))
+    return out
+
+
+def hash_phase(torch, tt, K, states, dtype, out):
+    """Adds the SHA-256 of every output of the phase kernels to ``out``:
+    predict and fct_sweep x/y on the whole grid at SIZES and N_ODD,
+    predict_win and fct_sweep_win on phase_blocks of the SIZES[0] state
+    (the block minus PHASE_HALO [kept], the whole block [whole]); the
+    sweeps under every FCT variant."""
+    dt = str(dtype)[6:]
+    W = K.PHASE_HALO
+    for n in SIZES + (N_ODD,):
+        F, u, v, p = (a.to(dtype).contiguous() for a in states[n])
+        base = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda"))
+        for name, t in zip(("u*", "v*"), K.predict(base, u, v, F)):
+            out[f"predict {n + 2}^2 {dt} {name} [kept]"] = digest(t)
+        for var in FCT_VARIANTS:
+            cfg = with_fct(tt, base, var)
+            for axis, vel in ((0, u), (1, v)):
+                out[f"fct_sweep {'xy'[axis]} {n + 2}^2 {dt} {var} [kept]"] = digest(
+                    K.fct_sweep(cfg, F, vel, axis))
+        if n != SIZES[0]:
+            continue
+        for label, (Fb, ub, vb, _), (oi, oj) in phase_blocks(torch, K, (F, u, v, p)):
+            for name, t in zip(("u*", "v*"), K.predict_win(base, ub, vb, Fb, oi, oj)):
+                out[f"predict_win {label} {dt} {name} [kept]"] = digest(t[W:-W, W:-W])
+                out[f"predict_win {label} {dt} {name} [whole]"] = digest(t)
+            for var in FCT_VARIANTS:
+                cfg = with_fct(tt, base, var)
+                for axis, vel in ((0, ub), (1, vb)):
+                    t = K.fct_sweep_win(cfg, Fb, vel, axis, oi, oj)
+                    key = f"fct_sweep_win {'xy'[axis]} {label} {dt} {var}"
+                    out[f"{key} [kept]"] = digest(t[W:-W, W:-W])
+                    out[f"{key} [whole]"] = digest(t)
 
 
 def digest(t) -> str:
@@ -292,23 +364,6 @@ def hash_outputs(torch, tt, K, states) -> dict:
                             out[f"fullstep_strips {skey} {name} [kept]"] = digest(
                                 t[w2:-w2, w2:-w2])
                             out[f"fullstep_strips {skey} {name} [whole]"] = digest(t)
-            if n == SIZES[0]:
-                F, u, v, p = st
-                us, vs = K.predict(base, u, v, F)
-                phase = {"predict": (us, vs), "project": K.project(base, F, us, vs, p, u, v),
-                         "fct_sweep x": (K.fct_sweep(base, F, u, 0),),
-                         "fct_sweep y": (K.fct_sweep(base, F, v, 1),)}
-                Wp = K.PHASE_HALO
-                blocks = [torch.nn.functional.pad(a, (Wp,) * 4)[100:236, 200:336].contiguous()
-                          for a in st]
-                oi, oj = 100 - Wp, 200 - Wp
-                phase["predict_win"] = K.predict_win(base, blocks[1], blocks[2], blocks[0], oi, oj)
-                for axis in (0, 1):
-                    phase[f"fct_sweep_win {'xy'[axis]}"] = (K.fct_sweep_win(
-                        base, blocks[0], blocks[1 + axis], axis, oi, oj),)
-                for name, outs in phase.items():
-                    for i, t in enumerate(outs):
-                        out[f"{name} {n + 2}^2 {dt} out{i} [kept]"] = digest(t)
             F, u, v, p = st
             us, vs = K.predict_plain(base, u, v, F)
             for nj in PROJECT_N_JACOBI:
@@ -316,7 +371,104 @@ def hash_outputs(torch, tt, K, states) -> dict:
                 for name, t in zip("puv", outs):
                     out[f"project {n + 2}^2 {dt} n_jacobi={nj} {name} [kept]"] = digest(t)
             torch.cuda.synchronize()
+        hash_phase(torch, tt, K, states, dtype, out)
+        torch.cuda.synchronize()
     out["fullstep_dma == fullstep bit for bit [in-leg]"] = str(dma_same)
+    return out
+
+
+def phase_timed(torch, tt, K, states) -> dict:
+    """{name: call} of the phase kernels in f32 under FCT_FORWARD: predict
+    and fct_sweep x/y on the whole grid at SIZES and N_ODD; predict_win and
+    fct_sweep_win x/y on the WIN^2 block at rows n/2, columns n/4 of the
+    SIZES[0] grid (the hybrid tiled engine's interior tile) and on the
+    RAGGED block at the grid's low corner."""
+    timed = {}
+    for n in SIZES + (N_ODD,):
+        cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda"))
+        F, u, v, _ = (a.float().contiguous() for a in states[n])
+        timed[f"predict {n + 2}^2"] = lambda cfg=cfg, u=u, v=v, F=F: K.predict(cfg, u, v, F)
+        for axis, vel in ((0, u), (1, v)):
+            timed[f"fct_sweep {'xy'[axis]} {n + 2}^2"] = (
+                lambda cfg=cfg, F=F, vel=vel, axis=axis: K.fct_sweep(cfg, F, vel, axis))
+    for label, (Fb, ub, vb), (oi, oj) in win_blocks(torch, K, states):
+        cfg = tt.dam_break_2d(SIZES[0], num=tt.Numerics(backend="cuda"))
+        timed[f"predict_win {label}"] = (lambda cfg=cfg, ub=ub, vb=vb, Fb=Fb, oi=oi, oj=oj:
+                                         K.predict_win(cfg, ub, vb, Fb, oi, oj))
+        for axis, vel in ((0, ub), (1, vb)):
+            timed[f"fct_sweep_win {'xy'[axis]} {label}"] = (
+                lambda cfg=cfg, Fb=Fb, vel=vel, axis=axis, oi=oi, oj=oj:
+                K.fct_sweep_win(cfg, Fb, vel, axis, oi, oj))
+    return timed
+
+
+def win_blocks(torch, K, states):
+    """[(label, (F, u, v) blocks in f32, origin)]: phase_timed's two blocks."""
+    W = K.PHASE_HALO
+    n = SIZES[0]
+    padded = [torch.nn.functional.pad(a.float(), (W,) * 4) for a in states[n][:3]]
+    out = []
+    for (e0, e1), (r0, c0) in (((WIN, WIN), (n // 2, n // 4)), (RAGGED, (0, 0))):
+        out.append((f"{e0}x{e1}", [a[r0:r0 + e0, c0:c0 + e1].contiguous() for a in padded],
+                    (r0 - W, c0 - W)))
+    return out
+
+
+def variant_timed(torch, tt, K, lib, states) -> dict:
+    """{name: call} of ``predict`` at each of TILE_ROWS_TRIED where the
+    tree's library takes a tile height (``tv_predict_*``'s rows argument,
+    present where the tree exports ``tv_predict_shape_*``), on
+    phase_timed's grids and blocks."""
+    timed = {}
+    if not hasattr(lib, "tv_predict_shape_f32"):
+        return timed
+
+    def rows(cfg, u, v, F, oi, oj, r):
+        us, vs = torch.empty_like(F), torch.empty_like(F)
+        g = cfg.grid
+        if lib.tv_predict_f32(u.data_ptr(), v.data_ptr(), F.data_ptr(), us.data_ptr(),
+                              vs.data_ptr(), *F.shape, oi, oj, g.nx, g.ny,
+                              K._predict_constants(cfg), r,
+                              torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError(f"predict at {r} rows failed")
+
+    cases = []
+    for n in SIZES:
+        F, u, v, _ = (a.float().contiguous() for a in states[n])
+        cases.append((f"{n + 2}^2", tt.dam_break_2d(n, num=tt.Numerics(backend="cuda")),
+                      (F, u, v), (0, 0)))
+    cfg = tt.dam_break_2d(SIZES[0], num=tt.Numerics(backend="cuda"))
+    cases += [(label, cfg, tuple(b), org) for label, b, org in win_blocks(torch, K, states)]
+    for label, c, (F, u, v), (oi, oj) in cases:
+        for r in TILE_ROWS_TRIED:
+            timed[f"predict rows={r} {label}"] = (
+                lambda c=c, u=u, v=v, F=F, oi=oi, oj=oj, r=r: rows(c, u, v, F, oi, oj, r))
+    return timed
+
+
+def phase_shapes(lib) -> dict:
+    """{"kernel dtype block": [threads a CTA, shared bytes a CTA, CTAs an SM,
+    CTAs launched, tile rows, tile columns]} of predict and of each sweep
+    axis at SIZES, N_ODD and the two win_blocks, where the tree exports
+    ``tv_predict_shape_*`` and ``tv_fct_sweep_shape_*``."""
+    out = {}
+    blocks = [(n + 2, n + 2) for n in SIZES + (N_ODD,)] + [(WIN, WIN), RAGGED]
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"tv_predict_shape_{dt}", None)
+        sw = getattr(lib, f"tv_fct_sweep_shape_{dt}", None)
+        for e0, e1 in blocks:
+            shape = (ctypes.c_int * 6)()
+            if fn is not None:
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                if fn(e0, e1, shape) != 0:
+                    raise RuntimeError("tv_predict_shape failed")
+                out[f"predict {dt} {e0}x{e1}"] = list(shape)
+            if sw is not None:
+                sw.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                for axis in (0, 1):
+                    if sw(e0, e1, axis, shape) != 0:
+                        raise RuntimeError("tv_fct_sweep_shape failed")
+                    out[f"fct_sweep {'xy'[axis]} {dt} {e0}x{e1}"] = list(shape)
     return out
 
 
@@ -352,7 +504,7 @@ def kernel_shape(lib, sass: dict) -> dict:
     return out
 
 
-def leg(tree: str, sass: bool, dump: bool, stamp: bool) -> dict:
+def leg(tree: str, sass: bool, dump: bool, stamp: bool, variants: bool) -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -392,8 +544,9 @@ def leg(tree: str, sass: bool, dump: bool, stamp: bool) -> dict:
                 lambda cfg=cfg, b=padded: K.fullstep_strips(cfg, *b, False))
             timed[f"fullstep_dma {n + 2}^2"] = lambda cfg=cfg, st=st: K.fullstep_dma(
                 cfg, *st, False)
-            timed[f"predict {n + 2}^2"] = lambda cfg=cfg, u=u, v=v, F=F: K.predict(cfg, u, v, F)
-            timed[f"fct_sweep x {n + 2}^2"] = lambda cfg=cfg, F=F, u=u: K.fct_sweep(cfg, F, u, 0)
+    timed.update(phase_timed(torch, tt, K, states))
+    if variants:
+        timed.update(variant_timed(torch, tt, K, build.load_library(), states))
     res["us"] = {name: 1e3 * ab3.device_ms(torch, fn, 20) for name, fn in timed.items()}
     n = SIZES[0]
     s32 = tt.State(*(a.float().contiguous() for a in states[n]))
@@ -423,6 +576,7 @@ def leg(tree: str, sass: bool, dump: bool, stamp: bool) -> dict:
     if sass:
         res["sass"] = ab3.sass_counts(build, pkg / "csrc", SOURCES_2D)
         res["shape"] = kernel_shape(build.load_library(), res["sass"])
+        res["shape"].update(phase_shapes(build.load_library()))
     if stamp:
         res["stamps"] = stamps(torch, tt, K, build, pkg / "csrc", states)
     return res
@@ -448,12 +602,15 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", help="TREE_A TREE_B")
     ap.add_argument("--sass", action="store_true", help="count registers and SASS")
     ap.add_argument("--stamps", action="store_true", help="time the barriers with clock64()")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time each tree's kernels at other launch choices")
     ap.add_argument("--out", help="write the legs as JSON here")
     ap.add_argument("--leg", help=argparse.SUPPRESS)
     ap.add_argument("--dump", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.leg:
-        print("LEG " + json.dumps(leg(args.leg, args.sass, args.dump, args.stamps)))
+        print("LEG " + json.dumps(leg(args.leg, args.sass, args.dump, args.stamps,
+                                      args.variants)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees")
@@ -469,6 +626,8 @@ def main() -> int:
             cmd += ["--dump"] + (["--sass"] if args.sass else [])
         if args.stamps:
             cmd.append("--stamps")
+        if args.variants:
+            cmd.append("--variants")
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout + out.stderr)
@@ -486,22 +645,27 @@ def main() -> int:
     margins = [k for k in ha if k.endswith("[whole]") and ha[k] != hb.get(k)]
     n_kept = sum(k.endswith("[kept]") for k in ha)
     print(f"bitwise A vs B: {n_kept} outputs (fullstep {SIZES} + 2, fullstep_win, "
-          f"fullstep_strips; n_jacobi {N_JACOBI}, both parities, f32 and f64; the phase "
-          f"kernels at 514^2; project at {SIZES} + 2, n_jacobi {PROJECT_N_JACOBI[0]}-"
-          f"{PROJECT_N_JACOBI[-1]}, f32 and f64): "
+          f"fullstep_strips; n_jacobi {N_JACOBI}, both parities, f32 and f64; predict and "
+          f"fct_sweep at {SIZES + (N_ODD,)} + 2, predict_win and fct_sweep_win on {WIN}^2 "
+          f"and {RAGGED[0]}x{RAGGED[1]} blocks at the four corners, the sweeps under "
+          f"{', '.join(FCT_VARIANTS)}, f32 and f64; project at {SIZES} + 2, n_jacobi "
+          f"{PROJECT_N_JACOBI[0]}-{PROJECT_N_JACOBI[-1]}, f32 and f64): "
           + ("all equal" if not bad else f"{len(bad)} differ"))
     print("fullstep_dma == fullstep bit for bit in every leg: "
           f"{ha['fullstep_dma == fullstep bit for bit [in-leg]']} / "
           f"{hb['fullstep_dma == fullstep bit for bit [in-leg]']}")
-    print(f"junk margins (whole blocks of fullstep_win / fullstep_strips): "
+    print(f"junk margins (whole blocks of fullstep_win, fullstep_strips, predict_win, "
+          f"fct_sweep_win): "
           + ("unchanged" if not margins else f"{len(margins)} of "
              f"{sum(k.endswith('[whole]') for k in ha)} changed"))
     for line in bad:
         print(f"  DIFFERS {line}")
-    names = [k for k in legs[0]["us"] if all(k in r["us"] for r in legs)]
-    print(f"[{card}] device us per call, f32, order A B B A (A = {a}, B = {b}):")
+    names = list(legs[0]["us"]) + [k for k in legs[1]["us"] if k not in legs[0]["us"]]
+    print(f"[{card}] device us per call, f32, order A B B A (A = {a}, B = {b}; - where a "
+          "tree has no such call):")
     for name in names:
-        print(f"  {name:30s} " + " / ".join(f"{r['us'][name]:.2f}" for r in legs))
+        print(f"  {name:34s} " + " / ".join(f"{r['us'][name]:.2f}" if name in r["us"] else "-"
+                                             for r in legs))
     for n in SLOPE_SIZES:
         key = f"slope {n + 2}^2"
         print(f"  Jacobi stage (slope of fullstep over n_jacobi {SLOPE_N_JACOBI}) at "
@@ -517,8 +681,9 @@ def main() -> int:
         for fn in sorted(set(legs[0]["sass"]) | set(legs[1]["sass"])):
             print(f"  {fn:34s} {row(legs[0]['sass'].get(fn))} | "
                   f"{row(legs[1]['sass'].get(fn))}")
-        print("launch shapes, fullstep_kernel at 514^2 and project at each size: threads/CTA, "
-              f"shared bytes/CTA, CTAs/SM, CTAs (A | B): {legs[0]['shape']} | {legs[1]['shape']}")
+        print("launch shapes, fullstep_kernel at 514^2, project, predict and fct_sweep at each "
+              "size: threads/CTA, shared bytes/CTA, CTAs/SM, CTAs, tile rows (A | B): "
+              f"{legs[0]['shape']} | {legs[1]['shape']}")
     if args.stamps:
         for r in legs:
             for label, st in r["stamps"].items():

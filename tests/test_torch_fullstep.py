@@ -11,7 +11,9 @@ wrap and the port's shifts read zeros), so windows are compared there.
 The port's engines are held against each other at tpuvof's own bar
 between its engines (atol 1e-13, tests/test_pallas.py), and the public
 routes against tpuvof's eager simulate. Sizes: 32^2 grids; the windows run
-n_jacobi = 4, so a whole-step window is 8 + 2*16 + 2 = 42 cells wide.
+n_jacobi = 4, so a whole-step window is 8 + 2*16 + 2 = 42 cells wide. The
+windowed phase kernels are also held on a 29 x 37 block, a multiple of no
+tile of their kernels, and the windowed sweep under every FCT variant.
 The fullstep wrapper is also held to pallas_fullstep at every n_jacobi
 from 0 to 20, which the kernel splits into different groups of Jacobi
 sweeps. The ``cuda``-marked tests hold the CUDA kernels against the plain
@@ -101,6 +103,49 @@ def test_phase_win_plain_matches_pallas(ref, where):
     W = K.PHASE_HALO
     r0, c0 = (0, 0) if where == "corner" else (8, 16)
     ub, vb, Fb = _window((u, v, F), W, r0, c0, 8 + 2 * W + 2)
+    oi, oj = r0 - W, c0 - W
+    want = pk.pallas_predict_win(cfg, ub, vb, Fb, oi, oj, interpret=True)
+    got = K.predict_win_plain(pc, _t(ub), _t(vb), _t(Fb), oi, oj)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_.numpy()[W:-W, W:-W], np.asarray(w_)[W:-W, W:-W]) <= TOL
+    for axis, vel in ((0, ub), (1, vb)):
+        want = pk.pallas_fct_sweep_win(cfg, Fb, vel, axis, oi, oj, interpret=True)
+        got = K.fct_sweep_win_plain(pc, _t(Fb), _t(vel), axis, oi, oj)
+        assert _rel(got.numpy()[W:-W, W:-W], np.asarray(want)[W:-W, W:-W]) <= TOL, axis
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("variant", ["FCT_DIFF", "FCT_SCHEME_TEST"])
+def test_sweep_win_plain_matches_pallas_variants(ref, variant, axis):
+    """fct_sweep_win_plain against pallas_fct_sweep_win under the FCT
+    variants that the forward step does not run, on a corner window whose
+    origin lies past both walls."""
+    import tpuvof.config as tc
+
+    tv, pk, cfg, (F, u, v, p) = ref
+    cfg = cfg.replace(num=dataclasses.replace(cfg.num, fct=getattr(tc, variant)))
+    pc = config_from_tpuvof(cfg)
+    W = K.PHASE_HALO
+    Fb, vel = _window((F, u if axis == 0 else v), W, 0, 0, 8 + 2 * W + 2)
+    want = pk.pallas_fct_sweep_win(cfg, Fb, vel, axis, -W, -W, interpret=True)
+    got = K.fct_sweep_win_plain(pc, _t(Fb), _t(vel), axis, -W, -W)
+    assert _rel(got.numpy()[W:-W, W:-W], np.asarray(want)[W:-W, W:-W]) <= TOL
+
+
+@pytest.mark.parametrize("corner", ["low", "high"])
+def test_phase_win_plain_matches_pallas_on_a_ragged_block(ref, corner):
+    """predict_win and fct_sweep_win (x and y) against Pallas on a 29 x 37
+    block, a multiple of no tile height (8, 16, 24 rows; 26 rows of the x
+    sweep) and of no tile width (32 columns; 26 of the y sweep), at the
+    low or the high corner of the padded grid (its origin past both
+    walls)."""
+    tv, pk, cfg, (F, u, v, p) = ref
+    pc = config_from_tpuvof(cfg)
+    W = K.PHASE_HALO
+    e0, e1 = 29, 37
+    n = F.shape[0] + 2 * W
+    r0, c0 = (0, 0) if corner == "low" else (n - e0, n - e1)
+    ub, vb, Fb = (np.pad(a, W)[r0:r0 + e0, c0:c0 + e1] for a in (u, v, F))
     oi, oj = r0 - W, c0 - W
     want = pk.pallas_predict_win(cfg, ub, vb, Fb, oi, oj, interpret=True)
     got = K.predict_win_plain(pc, _t(ub), _t(vb), _t(Fb), oi, oj)

@@ -3,10 +3,12 @@
 On the CPU the plain versions are held against tpuvof's Pallas kernels,
 run in interpret mode as tests/test_pallas.py runs them, at 32^2 in f64,
 within 1e-12 of the field's scale: both sides do the same operations per
-element. The wrappers must route CPU tensors to the plain versions and
-count no launch. The ``cuda``-marked test holds the CUDA kernels against
-the plain versions on a card; it needs no jax, so on a machine without
-jax it runs with ``pytest tests/test_torch_kernels.py --noconftest -m cuda``.
+element; the sweeps also under the two FCT variants the forward step does
+not run. The wrappers must route CPU tensors to the plain versions and
+count no launch. The ``cuda``-marked tests hold the CUDA kernels against
+the plain versions on a card, the phase kernels also on grids and blocks
+that no tile divides; they need no jax, so on a machine without jax they
+run with ``pytest tests/test_torch_kernels.py --noconftest -m cuda``.
 """
 import dataclasses
 
@@ -110,6 +112,31 @@ def test_fct_sweep_plain_matches_pallas_sweep(ref, axis):
     np.testing.assert_array_equal(got.numpy()[0], F[0])  # ghosts kept
 
 
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("variant", ["FCT_DIFF", "FCT_SCHEME_TEST"])
+def test_fct_sweep_plain_matches_pallas_sweep_variants(ref, variant, axis):
+    """fct_sweep_plain against tpuvof's sweep kernels under the two FCT
+    variants that the forward step does not run: no clamps, dV/dv on the
+    flux only, and a limiter guard (FCT_DIFF) or denominator epsilon
+    (FCT_SCHEME_TEST)."""
+    import tpuvof.config as tc
+    from tpuvof_torch.convert import config_from_tpuvof
+
+    cfg, _, pk, (F, u, v, p) = ref
+    cfg = cfg.replace(num=dataclasses.replace(cfg.num, fct=getattr(tc, variant)))
+    pc = config_from_tpuvof(cfg)
+    assert pc.num.fct == getattr(tt, variant)
+    if axis == 0:
+        want = pk.pallas_fct_sweep_x(cfg, F, u, interpret=True)
+    else:
+        want = pk.pallas_fct_sweep_y(cfg, F, v, interpret=True)
+    got = K.fct_sweep_plain(pc, _t(F), _t(u if axis == 0 else v), axis)
+    assert _rel(got, want) <= TOL
+    forward = K.fct_sweep_plain(config_from_tpuvof(ref[0]), _t(F), _t(u if axis == 0 else v),
+                                axis)
+    assert _rel(got, forward) > 1e-9  # the variant changes the sweep
+
+
 def test_wrappers_route_cpu_tensors_to_plain_and_count_nothing(ref):
     _, pc, _, arrays = ref
     F, u, v, p = map(_t, arrays)
@@ -200,3 +227,61 @@ def test_project_matches_plain_on_card_at_each_group_split():
                     assert _rel(g_.cpu(), w_.cpu()) <= tol, (n, dtype, n_jacobi, name)
                 assert torch.equal(got[0][[0, -1]], pd[[0, -1]])
                 assert torch.equal(got[0][:, [0, -1]], pd[:, [0, -1]])
+
+
+@pytest.mark.cuda
+def test_phase_kernels_match_plain_on_card_at_edge_shapes():
+    """predict, fct_sweep, predict_win and fct_sweep_win against their plain
+    versions on the card at the shapes where their tiles are ragged: the
+    whole 63^2 and 200^2 grids (65^2 arrays: no tile height or width
+    divides them), and, on the 200^2 state padded by PHASE_HALO, a 136^2
+    window and a 29 x 45 block at each corner (origins past both walls);
+    f64 within 1e-12 and f32 within 1e-4 of the field's scale, windows on
+    the block minus PHASE_HALO; the sweeps under FCT_FORWARD, FCT_DIFF and
+    FCT_SCHEME_TEST. Each call is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpuvof_torch.ops import apply_bc
+
+    W = K.PHASE_HALO
+    for n in (63, 200):
+        plain = tt.dam_break_2d(n)
+        s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), 20)
+        rng = np.random.default_rng(n + 1)
+        F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape), device="cuda")
+                      for a in s)
+        u, v, F, p = apply_bc(u, v, F, p)
+        base = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda"))
+        blocks = [((F, u, v), (0, 0), (slice(None), slice(None)))]
+        if n == 200:
+            padded = [torch.nn.functional.pad(a, (W,) * 4) for a in (F, u, v)]
+            L = n + 2 + 2 * W
+            for e0, e1 in ((136, 136), (29, 45)):
+                for r0 in (0, L - e0):
+                    for c0 in (0, L - e1):
+                        blocks.append(([a[r0:r0 + e0, c0:c0 + e1].contiguous() for a in padded],
+                                       (r0 - W, c0 - W), (slice(W, -W), slice(W, -W))))
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+            for (Fb, ub, vb), (oi, oj), keep in blocks:
+                Fb, ub, vb = (a.to(dtype).contiguous() for a in (Fb, ub, vb))
+                whole = (oi, oj) == (0, 0)
+                K.reset_launch_counts()
+                got = (K.predict(base, ub, vb, Fb) if whole
+                       else K.predict_win(base, ub, vb, Fb, oi, oj))
+                want = K.predict_win_plain(base, ub, vb, Fb, oi, oj)
+                pairs = list(zip(got, want))
+                for name in ("FCT_FORWARD", "FCT_DIFF", "FCT_SCHEME_TEST"):
+                    cfg = base.replace(num=dataclasses.replace(base.num,
+                                                               fct=getattr(tt, name)))
+                    for axis, vel in ((0, ub), (1, vb)):
+                        g_ = (K.fct_sweep(cfg, Fb, vel, axis) if whole
+                              else K.fct_sweep_win(cfg, Fb, vel, axis, oi, oj))
+                        pairs.append((g_, K.fct_sweep_win_plain(cfg, Fb, vel, axis, oi, oj)))
+                torch.cuda.synchronize()
+                want_counts = ({"predict": 1, "fct_sweep": 6} if whole
+                               else {"predict_win": 1, "fct_sweep_win": 6})
+                assert {k: c for k, c in K.LAUNCHES.items() if c} == want_counts
+                for k, (g_, w_) in enumerate(pairs):
+                    assert g_.is_cuda and g_.dtype == dtype
+                    assert _rel(g_[keep].cpu(), w_[keep].cpu()) <= tol, (
+                        n, tuple(Fb.shape), (oi, oj), dtype, k)

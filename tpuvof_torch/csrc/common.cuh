@@ -1,9 +1,8 @@
-// Shared device helpers of the 2-D phase kernels.
+// Shared device helpers of the 2-D kernels.
 //
 // Layout: a field is a row-major (nx+2, ny+2) array, axis 0 = i (x), axis 1 =
-// j (y), j contiguous. Every kernel runs one thread per cell of the padded
-// field with threadIdx.x along j, so the loads of a warp are one coalesced
-// row segment, and masks its own ragged edge.
+// j (y), j contiguous. The kernels put threadIdx.x along j, so the loads of
+// a warp are coalesced row segments, and mask their own ragged edges.
 //
 // Each kernel takes its physical and grid constants as arguments of type T.
 // The host computes them in double, in the same expressions the JAX package
@@ -15,11 +14,6 @@
 #include <atomic>
 
 namespace tv {
-
-constexpr int kBlockX = 32;  // along j, the contiguous axis
-constexpr int kBlockY = 8;   // along i
-
-inline dim3 block2d() { return dim3(kBlockX, kBlockY); }
 
 constexpr int kMaxDevices = 64;
 
@@ -48,11 +42,6 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     return sms;
   });
-}
-
-// Covers an (n0, n1) field with block2d() blocks.
-inline dim3 grid2d(int n0, int n1) {
-  return dim3((n1 + kBlockX - 1) / kBlockX, (n0 + kBlockY - 1) / kBlockY);
 }
 
 // Strict-select clip to [0, 1], as tpuvof/ops/common.py:clamp01.

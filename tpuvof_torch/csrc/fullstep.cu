@@ -33,7 +33,8 @@
 // group's stages there with a __syncthreads() between two, each pass over
 // the cells of a compile-time region, and writes the tile's outputs (the
 // tiles, staging, Jacobi groups and launch plan live in stage_groups.cuh,
-// shared with project.cu):
+// shared with project.cu; the predictor's passes and the sweeps' lines in
+// phase_tiles.cuh, shared with predict.cu and fct_sweep.cu):
 //   predict: the Youngs normals once a cell (rim 3 of F), kappa, u*/v* on
 //            the tile and one row/column beyond, rhs; writes u*, v*, rhs;
 //   jacobi:  d <= kJacobiLevels Jacobi sweeps on overlapped tiles (rim d,
@@ -59,7 +60,7 @@
 // overwritten by the BCs).
 #include <cooperative_groups.h>
 
-#include "stage_groups.cuh"
+#include "phase_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -80,8 +81,7 @@ using tv::Tile;
 // reuse their space); jacobi: tv::jacobi_tile's at the greatest depth;
 // finish: F and p (rim 5), u*, v*, u, v (rim 4), at odd pitches.
 constexpr int smem_values(int th) {
-  const int predict = (th + 6) * (kTW + 6) + 2 * (th + 3) * (kTW + 3) + (th + 2) * (kTW + 2) +
-                      2 * (th + 4) * (kTW + 4);
+  const int predict = tv::predict_tile_values(th, 1);
   const int jacobi = tv::jacobi_tile_values(th, kJacobiLevels);
   const int finish = 2 * (th + 10) * (kTW + 11) + 4 * (th + 8) * (kTW + 9);
   const int m = predict > jacobi ? predict : jacobi;
@@ -100,44 +100,18 @@ struct StepArgs {
   int n_jacobi, even_step;
 };
 
-// predict: u*, v* and rhs of the tile at (ti, tj).
+// predict: u*, v* and rhs of the tile at (ti, tj): phase_tiles.cuh's
+// predictor on the tile +1 (rhs reads u*, v* at +1), u* and v* kept in
+// boxes over the normals, which are dead by then.
 template <int TH, typename T>
 __device__ __forceinline__ void predict_tile(const StepArgs<T>& a, T* sm, int ti, int tj) {
   const tv::Block& b = a.b;
   constexpr int H = TH, W = kTW;
-  const Box<T> F{sm, ti - 3, tj - 3, W + 6};
-  const Box<T> u{F.end(H + 6), ti - 1, tj - 1, W + 3};
-  const Box<T> v{u.end(H + 3), ti - 1, tj - 1, W + 3};
-  const Box<T> K{v.end(H + 3), ti - 1, tj - 1, W + 2};
-  const Box<T> mx{K.end(H + 2), ti - 2, tj - 2, W + 4};
-  const Box<T> my{mx.end(H + 4), ti - 2, tj - 2, W + 4};
-  const Box<T> us{mx.s, ti, tj, W + 1};  // over the normals, dead by then
+  const tv::PredictBoxes<TH, 1, T> s(sm, ti, tj);
+  const Box<T> us{s.mx.s, ti, tj, W + 1};
   const Box<T> vs{us.end(H + 1), ti, tj, W + 1};
   static_assert(2 * (H + 1) * (W + 1) <= 2 * (H + 4) * (W + 4), "u*/v* fit over the normals");
-  stage<H + 6, W + 6, 1, T>(b, {F}, {a.F});
-  stage<H + 3, W + 3, 2, T>(b, {u, v}, {a.u, a.v});
-  __syncthreads();
-  // the normals, once a cell (zero off the global interior)
-  for_cells<H + 4, W + 4>(ti - 2, tj - 2, [&](int i, int j) {
-    T x = T(0), y = T(0);
-    if (b.interior(i, j)) tv::normal_of(Tile<T>(F, i, j), a.pq, x, y);
-    mx(i, j) = x;
-    my(i, j) = y;
-  });
-  __syncthreads();
-  // kappa, 0 off the global interior and outside the block
-  for_cells<H + 2, W + 2>(ti - 1, tj - 1, [&](int i, int j) {
-    K(i, j) = b.inside(i, j) && b.interior(i, j)
-                  ? tv::curvature_of(mx(i + 1, j), mx(i - 1, j), my(i, j + 1), my(i, j - 1),
-                                     a.pq)
-                  : T(0);
-  });
-  __syncthreads();
-  // u*, v* on the tile and one row / column beyond it (rhs reads +1)
-  for_cells<H + 1, W + 1>(ti, tj, [&](int i, int j) {
-    T x, y;
-    tv::momentum_of(Tile<T>(u, i, j), Tile<T>(v, i, j), Tile<T>(F, i, j), Tile<T>(K, i, j), b,
-                    i, j, a.pq, x, y);
+  tv::predict_values(b, a.pq, s, a.F, a.u, a.v, ti, tj, [&](int i, int j, T x, T y) {
     const bool in = b.inside(i, j);
     us(i, j) = in ? x : T(0);
     vs(i, j) = in ? y : T(0);
@@ -150,65 +124,12 @@ __device__ __forceinline__ void predict_tile(const StepArgs<T>& a, T* sm, int ti
   for_cells<H, W>(ti, tj, [&](int i, int j) {
     if (b.inside(i, j)) {
       a.rhs[i * b.E1 + j] = b.interior(i, j)
-                                ? tv::rhs_of(Tile<T>(F, i, j), Tile<T>(us, i, j),
+                                ? tv::rhs_of(Tile<T>(s.F, i, j), Tile<T>(us, i, j),
                                              Tile<T>(vs, i, j), a.jq)
                                 : T(0);
     }
   });
   __syncthreads();  // the next tile reuses the boxes
-}
-
-// One FCT sweep along AXIS (then the clamp, with CLAMP) of the cells of
-// rows [r0, r1) x columns [c0, c1), from F and the velocity vel into out,
-// every quantity once a position (step_cell.cuh's sweep_* functions): a
-// warp takes 32 consecutive positions of one line, k0 - 3 .. k0 + 28,
-// passes neighbours' values by shuffles, and its lanes 3..28 hold the
-// complete windows of cells k0 .. k0 + 25. The boxes hold the lines 3
-// positions past the region at both ends. A result outside the block is
-// 0, as ld() would read it.
-template <typename T, int AXIS, bool CLAMP>
-__device__ __forceinline__ void sweep_lines(const Box<T>& F, const Box<T>& vel,
-                                            const Box<T>& out, int r0, int r1, int c0, int c1,
-                                            const tv::Block& b, const tv::SweepParams<T>& q) {
-  constexpr unsigned kAll = 0xffffffffu;
-  constexpr int kOut = kTX - 6;
-  const int lane = static_cast<int>(threadIdx.x);
-  const int p0 = AXIS == 0 ? r0 : c0;  // the region along the line
-  const int p1 = AXIS == 0 ? r1 : c1;
-  const int l0 = AXIS == 0 ? c0 : r0;  // and its lines
-  const int segs = (p1 - p0 + kOut - 1) / kOut;
-  const int tasks = segs * (AXIS == 0 ? c1 - c0 : r1 - r0);
-  for (int task = static_cast<int>(threadIdx.y); task < tasks; task += kTY) {
-    const int line = l0 + task / segs;
-    const int k0 = p0 + task % segs * kOut;
-    const int pos = k0 - 3 + lane;
-    const int i = AXIS == 0 ? pos : line;
-    const int j = AXIS == 0 ? line : pos;
-    const bool held = pos < p1 + 3;  // the boxes end 3 past the region
-    const T Fz = held ? F(i, j) : T(0);
-    const T uz = held ? vel(i, j) : T(0);
-    const int k = AXIS == 0 ? i + b.oi : j + b.oj;  // global index along
-    const int m = AXIS == 0 ? j + b.oj : i + b.oi;  // and across the sweep
-    T fL, fH;
-    tv::sweep_fluxes(uz, __shfl_up_sync(kAll, Fz, 1), Fz, q, fL, fH);
-    const T av = tv::sweep_anti(k, fL, fH);
-    const T dv = tv::sweep_dv(uz, __shfl_down_sync(kAll, uz, 1), q);
-    const T Ftd = tv::sweep_ftd(k, Fz, fL, __shfl_down_sync(kAll, fL, 1), dv, q);
-    const T a_hi = __shfl_down_sync(kAll, av, 1);
-    T rp, rm;
-    tv::sweep_ratios(k, __shfl_up_sync(kAll, Ftd, 1), Ftd, __shfl_down_sync(kAll, Ftd, 1), av,
-                     a_hi, q, rp, rm);
-    const T c = tv::sweep_factor(av, __shfl_up_sync(kAll, rp, 1), __shfl_up_sync(kAll, rm, 1),
-                                 rp, rm);
-    const T c_hi = __shfl_down_sync(kAll, c, 1);
-    if (lane >= 3 && lane < 3 + kOut && pos < p1) {
-      T s = k < 1 || k > q.n_ax || m < 1 || m > q.n_ot
-                ? Fz
-                : tv::sweep_result(Ftd, av, c, a_hi, c_hi, dv, q);
-      if (CLAMP) s = tv::clamp01(s);
-      out(i, j) = b.inside(i, j) ? s : T(0);
-    }
-  }
 }
 
 // finish: the correction, both sweeps, the clamp and the BCs of the tile
@@ -241,16 +162,16 @@ __device__ __forceinline__ void finish_tile(const StepArgs<T>& a, T* sm, int ti,
   // the first sweep, where the second reads it: the tile +1 across it,
   // +4 along the second sweep's axis
   if (a.even_step) {
-    sweep_lines<T, 1, false>(F, vn, s1, ti - 4, ti + H + 4, tj - 1, tj + W + 1, b, a.sy);
+    tv::sweep_lines<T, 1, false>(F, vn, s1, ti - 4, ti + H + 4, tj - 1, tj + W + 1, b, a.sy);
   } else {
-    sweep_lines<T, 0, false>(F, un, s1, ti - 1, ti + H + 1, tj - 4, tj + W + 4, b, a.sx);
+    tv::sweep_lines<T, 0, false>(F, un, s1, ti - 1, ti + H + 1, tj - 4, tj + W + 4, b, a.sx);
   }
   __syncthreads();
   // the second sweep and the clamp on the tile +1 (the BCs read +-1)
   if (a.even_step) {
-    sweep_lines<T, 0, true>(s1, un, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sx);
+    tv::sweep_lines<T, 0, true>(s1, un, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sx);
   } else {
-    sweep_lines<T, 1, true>(s1, vn, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sy);
+    tv::sweep_lines<T, 1, true>(s1, vn, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sy);
   }
   __syncthreads();
   // wall BCs at global indices (tpuvof's _bc_values): u mirrored across

@@ -1,5 +1,6 @@
 // Shared-memory stage groups of the 2-D cooperative kernels (fullstep.cu,
-// project.cu).
+// project.cu), and the tiles, staging and launch planning that the 2-D
+// phase kernels (predict.cu, fct_sweep.cu) use too.
 //
 // Both kernels are one cooperative launch whose grid is what the card holds
 // resident at once (a grid-wide barrier needs every CTA resident), running
@@ -170,16 +171,18 @@ inline long long tiles_of(int th, int E0, int E1) {
   return static_cast<long long>((E0 + th - 1) / th) * ((E1 + kTW - 1) / kTW);
 }
 
-// The CTAs of kThreads an SM holds of the cooperative kernel ``kernel``
-// with ``smem`` dynamic shared bytes (granted here), asked once a device
-// and kept in ``cache``; a negative CUDA error where the device cannot run
-// it cooperatively.
+// The CTAs of kThreads an SM holds of ``kernel`` with ``smem`` dynamic
+// shared bytes (granted here, above the default 48 KB too), asked once a
+// device and kept in ``cache``; a negative CUDA error where the device
+// cannot run it (with ``coop``: cooperatively).
 template <class Kernel>
-int coop_per_sm(std::atomic<int> (&cache)[kMaxDevices], Kernel kernel, int smem) {
+int resident_per_sm(std::atomic<int> (&cache)[kMaxDevices], Kernel kernel, int smem,
+                    bool coop = false) {
   return per_device(cache, [&](int dev) {
-    int coop, ctas = 0;
-    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    int can = 1, ctas = 0;
+    cudaError_t e = coop ? cudaDeviceGetAttribute(&can, cudaDevAttrCooperativeLaunch, dev)
+                         : cudaSuccess;
+    if (e == cudaSuccess && !can) e = cudaErrorNotSupported;
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
@@ -189,25 +192,47 @@ int coop_per_sm(std::atomic<int> (&cache)[kMaxDevices], Kernel kernel, int smem)
   });
 }
 
-// The launch on an (E0, E1) block of a kernel built for 16- and 24-row
-// tiles, of which an SM holds n16 and n24 CTAs: the tile height and the
-// CTAs, one a tile up to what the card holds resident. A CTA's stage
-// groups are chains of dependent passes, shorter on a smaller tile: 16
-// rows when the block's 16-row tiles all fit on the card at once (a small
-// block, spread over more SMs), else 24, whose fullstep sweep lines (26
-// cells across a tile) fit one warp and which beat 32 rows at 562^2 to
-// 2050^2 (PERF.md). Negative CTAs: a CUDA error.
+// resident_per_sm of a cooperative kernel.
+template <class Kernel>
+int coop_per_sm(std::atomic<int> (&cache)[kMaxDevices], Kernel kernel, int smem) {
+  return resident_per_sm(cache, kernel, smem, true);
+}
+
+// The tile of a launch among n tile choices, ordered from the smallest
+// tile (the most CTAs) to the largest, of which ctas[k] cover the block
+// and an SM holds per_sm[k]: the first whose CTAs all run at once, else
+// the last. A CTA's work is a chain of dependent passes, shorter on a
+// smaller tile, so a block that fits on the card in one wave runs fastest
+// on the most, smallest tiles, and a larger one on the fewest rims. Returns
+// the choice's index, or the first negative per_sm (a CUDA error).
+inline int pick_tile(int n, const long long* ctas, const int* per_sm) {
+  for (int k = 0; k < n; ++k) {
+    if (per_sm[k] < 0) return per_sm[k];
+  }
+  for (int k = 0; k < n - 1; ++k) {
+    if (ctas[k] <= static_cast<long long>(per_sm[k]) * sm_count()) return k;
+  }
+  return n - 1;
+}
+
+// The launch on an (E0, E1) block of a cooperative kernel built for 16-
+// and 24-row tiles, of which an SM holds n16 and n24 CTAs: the tile height
+// (pick_tile: 16 rows when the block's 16-row tiles all fit on the card at
+// once, else 24, whose fullstep sweep lines, 26 cells across a tile, fit
+// one warp and which beat 32 rows at 562^2 to 2050^2, PERF.md) and the
+// CTAs, one a tile up to what the card holds resident. Negative CTAs: a
+// CUDA error.
 inline void plan_rows(int E0, int E1, int n16, int n24, int& th, int& ctas) {
-  if (n16 < 0 || n24 < 0) {
-    th = 24;
-    ctas = n16 < 0 ? n16 : n24;
+  const long long tiles[2] = {tiles_of(16, E0, E1), tiles_of(24, E0, E1)};
+  const int per_sm[2] = {n16, n24};
+  const int k = pick_tile(2, tiles, per_sm);
+  th = k == 0 ? 16 : 24;
+  if (k < 0) {
+    ctas = k;
     return;
   }
-  const long long tiles16 = tiles_of(16, E0, E1), tiles24 = tiles_of(24, E0, E1);
-  const long long resident16 = static_cast<long long>(n16) * sm_count();
-  const long long resident24 = static_cast<long long>(n24) * sm_count();
-  th = tiles16 <= resident16 ? 16 : 24;
-  ctas = static_cast<int>(th == 16 ? tiles16 : (tiles24 < resident24 ? tiles24 : resident24));
+  const long long resident = static_cast<long long>(per_sm[k]) * sm_count();
+  ctas = static_cast<int>(tiles[k] < resident ? tiles[k] : resident);
 }
 
 }  // namespace tv

@@ -1,14 +1,15 @@
-// Per-cell bodies of the 2-D step, shared by the phase kernels (predict.cu,
-// project.cu, fct_sweep.cu) and the whole-step kernel (fullstep.cu).
+// Per-cell bodies of the 2-D step, shared by every 2-D kernel (predict.cu,
+// project.cu, fct_sweep.cu, fullstep.cu, fullstep_dma.cu).
 //
 // Every function computes one cell of one stage on a Block: a row-major
 // (E0, E1) array whose (0, 0) sits at global index (oi, oj) of a grid with
 // nx x ny interior cells. Each stage's arithmetic is written once, in a
 // function ``*_of`` that reads its fields through accessors: A(di, dj) is
 // the field at (i + di, j + dj), zero outside the block and the global
-// domain. The ``*_at`` functions take global-memory fields (Near, Ld);
-// fullstep.cu calls the ``*_of`` functions on shared-memory tiles. The
-// phase kernels on the whole grid are the case oi = oj = 0,
+// domain. The ``*_at`` functions take global-memory fields (Near, Ld;
+// fullstep_dma.cu calls them); the other kernels call the ``*_of``
+// functions on shared-memory tiles (stage_groups.cuh, phase_tiles.cuh).
+// A kernel on the whole grid is the case oi = oj = 0,
 // (E0, E1) = (nx+2, ny+2). Masks are taken at global indices,
 // and ld() zeroes every value outside the global ghost-included domain
 // (tpuvof's load sanitizer, step_kernels.py:472-482, 836-851) and past the
@@ -356,9 +357,9 @@ SweepParams<T> sweep_params(int n_ax, int n_ot, const double* c, int full_dv,
 // The sweep's quantities at one position of its line, global index k
 // along the sweep (a face is the lower face of its cell, between cells
 // k - 1 and k): each is a function of its position alone. sweep_of
-// evaluates them on a 7-cell window around every cell; fullstep.cu
-// evaluates each once a position. Ftd, rp, rm and a are zero off their
-// global ranges, as in _sweep_body.
+// evaluates them on a 7-cell window around every cell; phase_tiles.cuh's
+// sweep_lines evaluates each once a position. Ftd, rp, rm and a are zero
+// off their global ranges, as in _sweep_body.
 
 // low- and high-order fluxes through face k (velocity u at k, donor cells
 // F_lo at k - 1 and F at k)

@@ -37,7 +37,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _BLOCK = [_I] * 6  # E0, E1, oi, oj, nx, ny
 _VOL = [_I] * 8  # n0, n1, gi_base, gj_base, pencil, nx, ny, nz
 _SIGNATURES = {
-    "tv_predict": [_P] * 6 + _BLOCK + [_D, _P],
+    "tv_predict": [_P] * 5 + _BLOCK + [_D, _I, _P],
     "tv_project": [_P] * 11 + [_I, _I, _I, _D, _P],
     "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "tv_fct3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fullstep_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_project_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_predict_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_fct_sweep_shape": [_I, _I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

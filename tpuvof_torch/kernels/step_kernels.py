@@ -267,13 +267,12 @@ def _raise_on_error(lib, name: str, status: int) -> None:
 
 def _launch_predict(name, cfg, u, v, F, shape, oi, oj):
     lib, fn, stream = _checked("predict", shape, u, v, F)
-    kappa = torch.empty_like(F)
     us = torch.empty_like(F)
     vs = torch.empty_like(F)
     g = cfg.grid
-    status = fn(u.data_ptr(), v.data_ptr(), F.data_ptr(), kappa.data_ptr(),
-                us.data_ptr(), vs.data_ptr(), *shape, oi, oj, g.nx, g.ny,
-                _predict_constants(cfg), stream)
+    # rows 0: the library picks the tile height from the block size
+    status = fn(u.data_ptr(), v.data_ptr(), F.data_ptr(), us.data_ptr(), vs.data_ptr(),
+                *shape, oi, oj, g.nx, g.ny, _predict_constants(cfg), 0, stream)
     _raise_on_error(lib, name, status)
     LAUNCHES[name] += 1
     return us, vs
