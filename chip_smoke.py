@@ -9,7 +9,10 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit; TF32 off.
   2. build: the kernels of tpuvof_torch/csrc, compiled from this checkout
      (one nvcc per source, in parallel); the bulk-copy instructions in the
-     fullstep_dma kernels' SASS, counted with cuobjdump.
+     fullstep_dma kernels' SASS, counted with cuobjdump, loads (global to
+     shared) and stores (shared to global) apart: every kernel has bulk
+     loads, and no bulk stores (its outputs leave by thread stores, which
+     beat bulk stores on the H100).
   3. kernel vs plain: the whole-step kernel's split of the Jacobi sweeps
      into stage groups (n_jacobi 0 to 20): the sweeps sum to n_jacobi in
      the fewest groups of at most 4, of near-equal depth, the deeper first;
@@ -21,11 +24,15 @@ Phases, each fatal on failure:
      tile of the hybrid tiled engine and on a 29 x 45 block at the high
      corner; every sweep under FCT_FORWARD, FCT_DIFF and FCT_SCHEME_TEST. Then the whole-step engines
      against each other in f64: mono == tiled == strips; and fullstep_dma ==
-     fullstep bit for bit, f64 and f32, both parities, at 512^2 and 63^2
-     (E0*E1 odd), and in f64 at 2048^2, where each CTA owns more entry
-     chunks of p than it pins in shared memory (its launch shape printed):
-     the outputs land in a private allocator pool filled with NaN by the
-     same allocations first, which is checked.
+     fullstep bit for bit, f64 and f32, both parities: at n = 29 to 32
+     (E1 = n + 2 of every residue modulo 4, so that its row copies start
+     and end at every offset from a 16-byte boundary, and the last cells
+     of a field go by thread loads where E0*E1 is not a multiple of 4) at
+     n_jacobi 1, 4, 5, 10 and 11 (one stage group, the split's edges, three
+     groups); at 512^2, 1024^2 and 2048^2 at n_jacobi 10 (a CTA walks
+     several tiles a group beyond 512^2, its boxes reused); each launch
+     shape printed. The outputs land in a private allocator pool filled
+     with NaN by the same allocations first, which is checked.
   4. golden: the 64^2 dam break in f64 through the phase kernels ('cuda')
      and through the whole-step kernel ('cuda_mono'), against
      tests/golden_dambreak_64_1000.npz at 300 and 1000 steps.
@@ -105,7 +112,9 @@ Phases, each fatal on failure:
      the same loop on fullstep. At each size: host-clock ms/step (best of 3,
      alternating with the mono loop), device-alone ms/step of both (a CUDA
      graph of a step pair), idle share, and the kernel's us per launch
-     beside its plain version's and its bound.
+     beside its plain version's and its bound, with fullstep's from the
+     same call; both launch shapes, on lines of their own; in f64 at 512^2
+     and 2048^2 the two kernels' us per launch on the device alone.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -125,12 +134,14 @@ import torch
 
 N_MAIN = 512  # the size bench.py has always timed
 STEPS_MAIN = 1000
-N_ODD = 63  # phase 3: a grid whose E0*E1 (65^2) is not a multiple of 4
-# phase 3: in f64 fullstep_dma's CTAs own more entry chunks of p than they
-# pin in shared memory, and read the rest from global memory
-N_PAST_PIN = 2048
+# phase 3: fullstep_dma == fullstep on grids whose E1 = n + 2 has every
+# residue modulo 4, at each Jacobi split, and on the DMA path's grids
+DMA_RESIDUE_SIZES = (29, 30, 31, 32)
+DMA_N_JACOBI = (1, 4, 5, 10, 11)
+DMA_BIG_SIZES = (512, 1024, 2048)
 # phase 14: (n, steps); 2048^2 f32 fields (16.8 MB each) work out of the 50 MB L2
 DMA_SIZES = ((N_MAIN, STEPS_MAIN), (1024, 100), (2048, 100))
+DMA_F64_SIZES = (N_MAIN, 2048)  # phase 14's f64 times
 STEPS_HYBRID = 100
 TILE = 128  # the tiled engines' tile in phases 3 and 5
 RAGGED = (29, 45)  # phase 3: a phase block whose sides are a multiple of no tile
@@ -409,7 +420,8 @@ def run_path(tt, K, label, cfg, s0, steps, want_launches, mass_bar=1e-3):
 
 def bulk_copy_sass(build) -> dict:
     """{kernel function: its bulk-copy SASS instructions (UBLK*, UTMA*)} of
-    the fullstep_dma kernels of the built library (cuobjdump)."""
+    the fullstep_dma kernels of the built library (cuobjdump): UBLKCP.S.G
+    copies global to shared memory, UBLKCP.G.S shared to global."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -424,16 +436,18 @@ def bulk_copy_sass(build) -> dict:
 
 
 def poisoned_outputs(call, like: torch.Tensor, label: str):
-    """The outputs of ``call()``, a whole-step kernel on fields like
-    ``like``, made in a private allocator pool that was filled with NaN
-    first by the same allocations (four fields, then the (7,) + shape
-    scratch), so a chunk the kernel never stored shows as NaN. Fails unless
-    every output lies in poisoned memory."""
+    """The outputs of ``call()``, fullstep_dma on fields like ``like``,
+    made in a private allocator pool that was filled with NaN first by the
+    same allocations (four fields, then the scratch), so a cell the kernel
+    never stored shows as NaN. Fails unless every output lies in poisoned
+    memory."""
+    from tpuvof_torch.kernels import step_kernels as K
+
     pool = torch.cuda.MemPool()
     with torch.cuda.use_mem_pool(pool):
         blocks = [torch.full_like(like, float("nan")) for _ in range(4)]
-        blocks.append(torch.full((7,) + tuple(like.shape), float("nan"), dtype=like.dtype,
-                                 device=like.device))
+        blocks.append(torch.full((K.scratch_cells("fullstep_dma", like.shape, like.dtype),),
+                                 float("nan"), dtype=like.dtype, device=like.device))
         poisoned = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in blocks]
         del blocks
         got = call()
@@ -459,8 +473,13 @@ def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
     """Phase 14 at n^2 f32: ``steps`` of fullstep_dma from init_state with
     the BCs applied, counts set to 0 before and read after; the fields
     equal bit for bit to ``want`` (default: the same loop on fullstep);
-    then host-clock and device-alone times of both loops, and the kernel
-    per launch beside its plain version and its bound."""
+    then host-clock and device-alone times of both loops, the kernel per
+    launch beside fullstep's, its plain version's and its bound, and at
+    DMA_F64_SIZES both kernels per launch in f64; both launch shapes are
+    printed, not returned."""
+    from tpuvof_torch.kernels import build
+
+    lib = build.load_library()
     cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
     s0 = tuple(S._with_bc(tt.init_state(cfg)))
     mass0 = tt.compute_metrics(cfg, tt.State(*s0)).mass.item()
@@ -514,6 +533,18 @@ def run_dma_path(tt, S, K, tag, n: int, steps: int, want=None):
            "host_ms": host_ms(lambda: K.fullstep_dma(cfg, *s_dma, False), 100),
            "plain_host_ms": host_ms(lambda: K.fullstep_dma_plain(cfg, *s_dma, False), 5),
            **bound_of("fullstep_dma", (n + 2) ** 2)}
+    for dtype in (torch.float32, torch.float64):
+        print(f"{tag} launch fullstep_dma ({n + 2}, {n + 2}) {str(dtype)[6:]}: threads, "
+              f"shared bytes, CTAs an SM, CTAs, tile rows {dma_shape(lib, n + 2, dtype)} "
+              f"(fullstep "
+              f"{fullstep_shapes(lib, (('', n + 2, n + 2, dtype),))['']})")
+    if n in DMA_F64_SIZES:
+        s64 = [a.double() for a in s_dma]
+        res["f64_ms"] = device_ms(lambda: K.fullstep_dma(cfg, *s64, False), 20)
+        res["f64_mono_ms"] = device_ms(lambda: K.fullstep(cfg, *s64, False), 20)
+        print(f"{tag} fullstep_dma ({n + 2}, {n + 2}) f64: kernel {1e3 * res['f64_ms']:.2f} "
+              f"us/launch on the device (fullstep {1e3 * res['f64_mono_ms']:.2f}; dma/mono "
+              f"{res['f64_ms'] / res['f64_mono_ms']:.4f})")
     for name in ("mono", "dma"):
         step_ms = 1e3 * min(runs[name]) / steps
         dev = min(out[name])
@@ -826,6 +857,16 @@ def fullstep_shapes(lib, blocks) -> dict:
     return out
 
 
+def dma_shape(lib, e: int, dtype) -> list:
+    """[threads a CTA, shared bytes a CTA, CTAs an SM, CTAs launched, tile
+    rows] of fullstep_dma on an e x e grid."""
+    shape = (ctypes.c_int * 5)()
+    fn = lib.tv_fullstep_dma_shape_f64 if dtype == torch.float64 else \
+        lib.tv_fullstep_dma_shape_f32
+    check(fn(e, e, shape) == 0, "tv_fullstep_dma_shape failed")
+    return list(shape)
+
+
 def phase_shapes(lib, blocks) -> dict:
     """{"kernel dtype (E0, E1)": [threads a CTA, shared bytes a CTA, CTAs an
     SM, CTAs launched, tile rows, tile columns]} of predict and of each
@@ -885,10 +926,18 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     bulk = bulk_copy_sass(build)
+    bulk_counts = {}
     for name, ins in bulk.items():
-        print(f"bulk-copy SASS in {name}: {len(ins)} ({', '.join(sorted(set(ins)))})")
-    check(len(bulk) == 2 and all(bulk.values()),
-          f"the fullstep_dma kernels hold no bulk-copy instructions: {bulk}")
+        loads = sum(i.startswith("UBLKCP.S.G") for i in ins)
+        stores = sum(i.startswith("UBLKCP.G.S") for i in ins)
+        bulk_counts[name] = {"loads": loads, "stores": stores, "all": len(ins)}
+        print(f"bulk-copy SASS in {name}: {loads} loads, {stores} stores, {len(ins)} in all "
+              f"({', '.join(sorted(set(ins)))})")
+    # every kernel moves its tiles' inputs by bulk loads and stores its
+    # outputs with the threads
+    check(bool(bulk) and all(c["loads"] > 0 and c["stores"] == 0
+                             for c in bulk_counts.values()),
+          f"a fullstep_dma kernel lacks bulk loads or has bulk stores: {bulk_counts}")
 
     # ---- 3. kernel vs plain on the card ----
     lib = build.load_library()
@@ -935,35 +984,38 @@ def main() -> int:
                   f"(bar {TOL_ENGINES:.0e})")
             check(diff <= TOL_ENGINES, f"mono vs {label}: {diff:.3e}")
     # fullstep_dma == fullstep bit for bit, its outputs on NaN-poisoned
-    # memory; N_PAST_PIN runs only f64, where the entry p is partly pinned
-    f64_only = (torch.float64,)
-    for n_b, s_b, dtypes in ((N_MAIN, s64, (torch.float64, torch.float32)),
-                             (N_ODD, perturbed_state(tt, N_ODD, 50),
-                              (torch.float64, torch.float32)),
-                             (N_PAST_PIN, perturbed_state(tt, N_PAST_PIN, 20), f64_only)):
-        cfg_b = tt.dam_break_2d(n_b, num=tt.Numerics(backend="cuda_mono"))
-        for dtype in dtypes:
+    # memory, with each launch's shape
+    dma_cases = [(n_b, DMA_N_JACOBI) for n_b in DMA_RESIDUE_SIZES]
+    dma_cases += [(n_b, (10,)) for n_b in DMA_BIG_SIZES]
+    n_same = 0
+    for n_b, n_jacobis in dma_cases:
+        s_b = s64 if n_b == N_MAIN else perturbed_state(tt, n_b, 50 if n_b < 1024 else 10)
+        base = tt.dam_break_2d(n_b, num=tt.Numerics(backend="cuda_mono"))
+        for dtype in (torch.float64, torch.float32):
             st = [a.to(dtype).contiguous() for a in s_b]
-            plan = (ctypes.c_int * 3)()
-            plan_fn = lib.tv_fullstep_dma_plan_f64 if dtype == torch.float64 else \
-                lib.tv_fullstep_dma_plan_f32
-            check(plan_fn(n_b + 2, n_b + 2, plan) == 0, "tv_fullstep_dma_plan failed")
-            blocks, rounds, pin_slots = plan
-            print(f"fullstep_dma launch at {n_b}^2 {str(dtype)[6:]}: {blocks} CTAs, "
-                  f"{rounds} rounds, {pin_slots} pinned chunks of entry p a CTA")
-            if n_b == N_PAST_PIN:
-                check(rounds > pin_slots, f"fullstep_dma {n_b}^2 {dtype}: every entry "
-                                          f"chunk of p is pinned ({rounds} rounds)")
-            for even in (False, True):
-                want = K.fullstep(cfg_b, *st, even)
-                label = f"fullstep_dma == fullstep {n_b}^2 {str(dtype)[6:]} (even={even}"
-                got = poisoned_outputs(lambda: K.fullstep_dma(cfg_b, *st, even), st[0], label)
-                diff = max((a - b).abs().max().item() for a, b in zip(got, want))
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                print(f"{label}, {(n_b + 2) ** 2} cells, outputs on NaN-poisoned memory): "
-                      f"bit for bit {same}, max|d| {diff:.3e}")
-                check(same, f"fullstep_dma vs fullstep {n_b}^2 {dtype} even={even}: "
-                            f"max|d| {diff:.3e}")
+            dt = str(dtype)[6:]
+            print(f"fullstep_dma launch at {n_b}^2 {dt}: threads, shared bytes, CTAs an SM, "
+                  f"CTAs, tile rows {dma_shape(lib, n_b + 2, dtype)} "
+                  f"(fullstep "
+                  f"{fullstep_shapes(lib, (('', n_b + 2, n_b + 2, dtype),))['']})")
+            for nj in n_jacobis:
+                cfg_b = base.replace(num=dataclasses.replace(base.num, n_jacobi=nj))
+                for even in (False, True):
+                    want = K.fullstep(cfg_b, *st, even)
+                    label = (f"fullstep_dma == fullstep {n_b}^2 {dt} n_jacobi={nj} "
+                             f"(even={even}")
+                    got = poisoned_outputs(lambda: K.fullstep_dma(cfg_b, *st, even), st[0],
+                                           label)
+                    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    n_same += same
+                    if n_b in DMA_BIG_SIZES or not same:
+                        print(f"{label}, {(n_b + 2) ** 2} cells, outputs on NaN-poisoned "
+                              f"memory): bit for bit {same}, max|d| {diff:.3e}")
+                    check(same, f"fullstep_dma vs fullstep {n_b}^2 {dtype} n_jacobi={nj} "
+                                f"even={even}: max|d| {diff:.3e}")
+    print(f"fullstep_dma == fullstep bit for bit in all {n_same} cases (n {DMA_RESIDUE_SIZES} "
+          f"at n_jacobi {DMA_N_JACOBI}, n {DMA_BIG_SIZES} at 10; f64, f32; both parities)")
 
     # ---- 4. the slice in f64 against the golden, phase and mono routes ----
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1381,7 +1433,7 @@ def main() -> int:
     # fullstep_dma at every size of phase 14; its bulk-copy instructions
     fullstep_dma = next(k for k in kernels if k["name"] == "fullstep_dma")
     fullstep_dma["sizes"] = {str(n + 2): r for n, r in dma.items()}
-    fullstep_dma["bulk_copy_sass"] = {name: len(ins) for name, ins in bulk.items()}
+    fullstep_dma["bulk_copy_sass"] = bulk_counts
     # the 3-D kernels in pencil mode, on the 2x2 engine's block (phases 11, 13)
     for k in kernels:
         if k["name"] in results_pencil:

@@ -16,7 +16,8 @@ same inputs) and perturbed from a seed, each leg:
   of the calls, best of 5), in f32: ``fullstep`` and ``project`` at 514^2,
   1026^2 and 2050^2; ``fullstep_win`` on the tiled engine's 174 x 558
   block; ``fullstep_strips`` at 562^2 (the strips engine's padded layout);
-  ``fullstep_dma`` at 514^2; ``fullstep`` at n_jacobi 1, 2, 10 and 20 at
+  ``fullstep_dma`` at the three sizes; ``fullstep`` and ``fullstep_dma``
+  in f64 at 514^2 and 2050^2; ``fullstep`` at n_jacobi 1, 2, 10 and 20 at
   514^2 and 2050^2, whose slope is the cost of one Jacobi stage;
   ``predict`` and ``fct_sweep`` x and y at 514^2, 1026^2, 2050^2 and 65^2;
   ``predict_win`` and ``fct_sweep_win`` x and y on the 136^2 block of the
@@ -34,8 +35,10 @@ same inputs) and perturbed from a seed, each leg:
   at each corner of the 514^2 grid (origins past both walls; the block
   minus PHASE_HALO, and the whole block), the sweeps under FCT_FORWARD,
   FCT_DIFF and FCT_SCHEME_TEST, f32 and f64; and of ``project`` at the
-  three sizes, n_jacobi 1 to 11, f32 and f64; each leg also checks
-  ``fullstep_dma`` == ``fullstep`` bit for bit. The script compares A's
+  three sizes, n_jacobi 1 to 11, f32 and f64; and of ``fullstep_dma`` at
+  the three sizes, n_jacobi 1, 2 and 10, both parities, f32 and f64; each
+  leg also checks ``fullstep_dma`` == ``fullstep`` bit for bit on all of
+  those. The script compares A's
   hashes with B's and exits 1 unless every kept output is equal (a
   redesign that changes only where values are computed keeps them bit for
   bit); it reports whether the junk margins changed;
@@ -45,20 +48,24 @@ same inputs) and perturbed from a seed, each leg:
   the launch shapes (threads and shared bytes a CTA, CTAs an SM, CTAs
   launched, tile rows): the whole-step kernel's from ``tv_fullstep_shape_*``
   where the tree exports it, else computed from the registers; those of
-  ``project``, ``predict`` and each sweep axis where the tree exports
-  ``tv_project_shape_*``, ``tv_predict_shape_*``, ``tv_fct_sweep_shape_*``;
+  ``project``, ``predict``, each sweep axis and ``fullstep_dma`` where the
+  tree exports ``tv_project_shape_*``,
+  ``tv_predict_shape_*``, ``tv_fct_sweep_shape_*``,
+  ``tv_fullstep_dma_shape_*``;
 - with ``--variants``, every leg of a tree whose ``predict`` takes a tile
   height also times it at 8 and 24 rows on the phase kernels' grids and
   blocks;
-- with ``--stamps``, every leg builds a copy of the tree's ``fullstep.cu``
-  (in a temporary directory, never in the tree; the tree's
-  ``phase_tiles.cuh`` and ``stage_groups.cuh``, where it has them, inlined
-  in their place) whose barriers are stamped with ``clock64()``: block 0's
-  clock at the kernel's start, after each grid-wide and each CTA barrier,
-  and at its end. It prints, at 514^2 and 2050^2 and on the tiled engine's
-  block, f32, n_jacobi 10, block 0's time between stamps scaled to the
-  stamped kernel's device time, summed a stage (up to a grid barrier) with
-  its CTA barriers' parts beside it.
+- with ``--stamps``, every leg builds a copy of the tree's ``fullstep.cu``,
+  and of its ``fullstep_dma.cu`` where that runs ``step_groups.cuh``'s
+  groups (in a temporary directory, never in the tree; the tree's
+  ``step_groups.cuh``, ``phase_tiles.cuh`` and ``stage_groups.cuh``, where
+  it has them, inlined in their place), whose barriers are stamped with
+  ``clock64()``: block 0's clock at the kernel's start, after each
+  grid-wide and each CTA barrier, and at its end. It prints, at 514^2 and
+  2050^2 (both kernels) and on the tiled engine's block (``fullstep``),
+  f32, n_jacobi 10, block 0's time between stamps scaled to the stamped
+  kernel's device time, summed a stage (up to a grid barrier) with its CTA
+  barriers' parts beside it.
 
 It prints one line per leg, the comparison, a table of the four legs, and
 the card's name and power limit; ``--out`` also writes the legs as JSON.
@@ -89,6 +96,7 @@ TILE_ROWS = 128  # the tiled engine's tile (solver.TILE_ROWS): blocks of 128 + 2
 DEVELOP_STEPS = 20
 SEED = 0
 SOURCES_2D = ("fullstep.cu", "fullstep_dma.cu", "predict.cu", "project.cu", "fct_sweep.cu")
+F64_SIZES = (512, 2048)  # fullstep and fullstep_dma timed in f64
 N_ODD = 63  # the phase kernels' odd grid (65^2 arrays), as chip_smoke.py's
 FCT_VARIANTS = ("FCT_FORWARD", "FCT_DIFF", "FCT_SCHEME_TEST")
 WIN = 136  # the hybrid tiled engine's phase block: a 128^2 tile + 2 * PHASE_HALO + 2
@@ -133,20 +141,21 @@ extern "C" int tv_stamps_read(long long* rel, int* kind, int* n) {
 """
 
 
-def stamped_source(text: str, csrc: Path) -> str:
-    """fullstep.cu with its barriers stamped: the tree's phase_tiles.cuh
-    and stage_groups.cuh (where it includes them) inlined, then ``grid.sync()`` becomes
+def stamped_source(text: str, csrc: Path, kernel: str = "fullstep_kernel") -> str:
+    """fullstep.cu with its barriers stamped: the tree's step_groups.cuh,
+    phase_tiles.cuh and stage_groups.cuh (where it includes them) inlined,
+    then ``grid.sync()`` becomes
     TV_SYNC(grid) and ``__syncthreads()`` TV_BAR everywhere in the file,
-    and fullstep_kernel's body starts and ends with a stamp (the kernel
-    body has no early return: every thread reaches every barrier)."""
-    for name in ("phase_tiles.cuh", "stage_groups.cuh"):  # outermost first
+    and ``kernel``'s body starts and ends with a stamp (the kernel body
+    has no early return: every thread reaches every barrier)."""
+    for name in ("step_groups.cuh", "phase_tiles.cuh", "stage_groups.cuh"):  # outermost first
         inc = f'#include "{name}"'
         if inc in text:
             header = (csrc / name).read_text().replace("#pragma once", "")
             text = text.replace(inc, '#include "step_cell.cuh"\n' + header, 1)
-    m = re.search(r"fullstep_kernel\([^)]*\)\s*\{", text)
+    m = re.search(kernel + r"\([^)]*\)\s*\{", text)
     if not m:
-        raise RuntimeError("no fullstep_kernel definition in fullstep.cu")
+        raise RuntimeError(f"no {kernel} definition")
     depth, pos = 1, m.end()
     while depth:
         ch = text[pos]
@@ -157,24 +166,26 @@ def stamped_source(text: str, csrc: Path) -> str:
            + "\n  tv_stamp(0);\n}" + text[pos:])
     out = out.replace("grid.sync();", "TV_SYNC(grid);").replace("__syncthreads();", "TV_BAR;")
     if "TV_SYNC" not in out:
-        raise RuntimeError("fullstep_kernel has no grid.sync()")
+        raise RuntimeError(f"{kernel} has no grid.sync()")
     out = out.replace('#include "step_cell.cuh"', '#include "step_cell.cuh"\n' + STAMP_HEAD, 1)
     return out + STAMP_TAIL
 
 
-def build_stamped(build, csrc: Path, tmp: Path) -> ctypes.CDLL:
+def build_stamped(build, csrc: Path, tmp: Path, source: str = "fullstep.cu",
+                  kernel: str = "fullstep_kernel") -> ctypes.CDLL:
     nvcc = build._nvcc()
-    src = tmp / "fullstep_stamped.cu"
-    src.write_text(stamped_source((csrc / "fullstep.cu").read_text(), csrc))
-    so = tmp / "libstamped.so"
+    src = tmp / f"{Path(source).stem}_stamped.cu"
+    src.write_text(stamped_source((csrc / source).read_text(), csrc, kernel))
+    so = tmp / f"lib{Path(source).stem}_stamped.so"
     cmd = [nvcc, *build._FLAGS, "-I", str(csrc), "-shared", "-o", str(so), str(src)]
     out = subprocess.run(cmd, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed on the stamped copy:\n{out.stderr}")
     lib = ctypes.CDLL(str(so))
+    entry = "tv_" + Path(source).stem
     for suffix in ("_f32", "_f64"):
-        fn = getattr(lib, "tv_fullstep" + suffix)
-        fn.argtypes = build._SIGNATURES["tv_fullstep"]
+        fn = getattr(lib, entry + suffix)
+        fn.argtypes = build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
     lib.tv_stamps_read.argtypes = [ctypes.c_void_p] * 3
     lib.tv_stamps_reset.argtypes = []
@@ -186,8 +197,11 @@ def call_fullstep(torch, K, fn, cfg, F, u, v, p, even, oi=0, oj=0):
     another library's entry point ``fn``."""
     g, nm = cfg.grid, cfg.num
     outs = [torch.empty_like(F) for _ in range(4)]
-    # the tree's scratch count (7 in trees that do not state it)
-    n_scratch = getattr(K, "_SCRATCH_BLOCKS", {"fullstep": 7})["fullstep"]
+    # the tree's scratch count (7 in trees that do not state it; a dict of
+    # them by entry point in trees before fullstep_dma's stage groups)
+    n_scratch = getattr(K, "_SCRATCH_BLOCKS", 7)
+    if isinstance(n_scratch, dict):
+        n_scratch = n_scratch["fullstep"]
     scratch = torch.empty((n_scratch,) + tuple(F.shape), dtype=F.dtype, device=F.device)
     ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
     out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
@@ -202,13 +216,18 @@ def call_fullstep(torch, K, fn, cfg, F, u, v, p, even, oi=0, oj=0):
 
 def stamps(torch, tt, K, build, csrc, states) -> dict:
     """{block: {kernel_us, marks}} of the stamped copy at n_jacobi 10, f32,
-    on the whole grid at STAMP_SIZES and on the tiled engine's block:
-    block 0's intervals between consecutive stamps as [kind of the stamp
-    that ends it (G grid barrier, b CTA barrier, E end), µs], scaled to
-    the stamped kernel's device time."""
+    on the whole grid at STAMP_SIZES and on the tiled engine's block, and,
+    in a tree whose fullstep_dma.cu runs step_groups.cuh's groups, of a
+    stamped copy of it at STAMP_SIZES ("dma" blocks): block 0's intervals
+    between consecutive stamps as [kind of the stamp that ends it (G grid
+    barrier, b CTA barrier, E end), µs], scaled to the stamped kernel's
+    device time."""
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_stamped(build, csrc, Path(tmp))
+        dma = "step_groups.cuh" in (csrc / "fullstep_dma.cu").read_text()
+        lib_dma = (build_stamped(build, csrc, Path(tmp), "fullstep_dma.cu",
+                                 "fullstep_dma_kernel") if dma else None)
         cases = []
         for n in STAMP_SIZES:
             cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
@@ -217,17 +236,22 @@ def stamps(torch, tt, K, build, csrc, states) -> dict:
         cfg = tt.dam_break_2d(SIZES[0], num=tt.Numerics(backend="cuda_mono"))
         blocks, origin, _ = win_block(torch, K, cfg, [a.float() for a in states[SIZES[0]]])
         cases.append((f"win {blocks[0].shape[0]}x{blocks[0].shape[1]}", cfg, blocks, origin))
-        for label, cfg, s, (oi, oj) in cases:
-            def call(cfg=cfg, s=s, oi=oi, oj=oj):
-                return call_fullstep(torch, K, lib.tv_fullstep_f32, cfg, *s, False, oi, oj)
+        if dma:
+            cases += [(f"dma {label}", cfg, s, None) for label, cfg, s, _ in cases[:-1]]
+        for label, cfg, s, origin in cases:
+            def call(cfg=cfg, s=s, origin=origin):
+                if origin is None:
+                    return call_dma(torch, K, lib_dma.tv_fullstep_dma_f32, cfg, *s, False)
+                return call_fullstep(torch, K, lib.tv_fullstep_f32, cfg, *s, False, *origin)
+            stamped = lib if origin is not None else lib_dma
             us = 1e3 * ab3.device_ms(torch, call, 20)
-            lib.tv_stamps_reset()
+            stamped.tv_stamps_reset()
             call()
             torch.cuda.synchronize()
             rel = (ctypes.c_longlong * 512)()
             kind = (ctypes.c_int * 512)()
             nst = ctypes.c_int()
-            lib.tv_stamps_read(rel, kind, ctypes.byref(nst))
+            stamped.tv_stamps_read(rel, kind, ctypes.byref(nst))
             n = min(nst.value, 512)
             total = rel[n - 1] - rel[0]
             marks = [["EGb"[kind[k]], us * (rel[k] - rel[k - 1]) / total] for k in range(1, n)]
@@ -350,9 +374,11 @@ def hash_outputs(torch, tt, K, states) -> dict:
                     outs = K.fullstep(cfg, *st, even)
                     for name, t in zip("Fuvp", outs):
                         out[f"fullstep {key} {name} [kept]"] = digest(t)
+                    dma = K.fullstep_dma(cfg, *st, even)
+                    dma_same &= all(torch.equal(a, b) for a, b in zip(dma, outs))
+                    for name, t in zip("Fuvp", dma):
+                        out[f"fullstep_dma {key} {name} [kept]"] = digest(t)
                     if n == SIZES[0]:
-                        dma = K.fullstep_dma(cfg, *st, even)
-                        dma_same &= all(torch.equal(a, b) for a, b in zip(dma, outs))
                         blocks, (oi, oj), W = win_block(torch, K, cfg, st)
                         wkey = f"{tuple(blocks[0].shape)} {dt} n_jacobi={nj} even={even}"
                         for name, t in zip("Fuvp", K.fullstep_win(cfg, *blocks, oi, oj, even)):
@@ -493,6 +519,14 @@ def kernel_shape(lib, sass: dict) -> dict:
             regs = [v["regs"] for k, v in sass.items() if k == f"fullstep_kernel<{t}>"]
             ctas = ab3.occupancy(regs[0], 256, 0)[0] if regs else None
             out[suffix[1:]] = [256, 0, ctas, ctas and ctas * 132]
+        if hasattr(lib, "tv_fullstep_dma_shape" + suffix):
+            fn = getattr(lib, "tv_fullstep_dma_shape" + suffix)
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for n in SIZES:
+                shape = (ctypes.c_int * 5)()
+                if fn(n + 2, n + 2, shape) != 0:
+                    raise RuntimeError("tv_fullstep_dma_shape failed")
+                out[f"fullstep_dma {suffix[1:]} {n + 2}^2"] = list(shape)
         if hasattr(lib, "tv_project_shape" + suffix):
             fn = getattr(lib, "tv_project_shape" + suffix)
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -502,6 +536,24 @@ def kernel_shape(lib, sass: dict) -> dict:
                     raise RuntimeError("tv_project_shape failed")
                 out[f"project {suffix[1:]} {n + 2}^2"] = list(shape)
     return out
+
+
+def call_dma(torch, K, fn, cfg, F, u, v, p, even):
+    """fullstep_dma's launch through another library's entry point ``fn``,
+    with the scratch its wrapper allocates."""
+    g, nm = cfg.grid, cfg.num
+    outs = [torch.empty_like(F) for _ in range(4)]
+    scratch = torch.empty(K.scratch_cells("fullstep_dma", F.shape, F.dtype), dtype=F.dtype,
+                          device=F.device)
+    ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
+    out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
+    status = fn(ins, out_ptrs, scratch.data_ptr(), *F.shape, 0, 0, g.nx, g.ny, nm.n_jacobi,
+                int(bool(even)), K._predict_constants(cfg), K._project_constants(cfg),
+                K._sweep_args(cfg, 0), K._sweep_args(cfg, 1), int(nm.fct.full_dv),
+                int(nm.fct.clamp), torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"stamped fullstep_dma failed: {status}")
+    return outs
 
 
 def leg(tree: str, sass: bool, dump: bool, stamp: bool, variants: bool) -> dict:
@@ -542,7 +594,13 @@ def leg(tree: str, sass: bool, dump: bool, stamp: bool, variants: bool) -> dict:
             padded, _ = strips_block(torch, K, cfg, st)
             timed[f"fullstep_strips {padded[0].shape[0]}^2"] = (
                 lambda cfg=cfg, b=padded: K.fullstep_strips(cfg, *b, False))
-            timed[f"fullstep_dma {n + 2}^2"] = lambda cfg=cfg, st=st: K.fullstep_dma(
+        timed[f"fullstep_dma {n + 2}^2"] = lambda cfg=cfg, st=st: K.fullstep_dma(
+            cfg, *st, False)
+        if n in F64_SIZES:
+            s64 = [a.double().contiguous() for a in states[n]]
+            timed[f"fullstep f64 {n + 2}^2"] = lambda cfg=cfg, st=s64: K.fullstep(
+                cfg, *st, False)
+            timed[f"fullstep_dma f64 {n + 2}^2"] = lambda cfg=cfg, st=s64: K.fullstep_dma(
                 cfg, *st, False)
     timed.update(phase_timed(torch, tt, K, states))
     if variants:
@@ -644,7 +702,8 @@ def main() -> int:
             if k.endswith("[in-leg]") and (ha[k] != "True" or hb[k] != "True")]
     margins = [k for k in ha if k.endswith("[whole]") and ha[k] != hb.get(k)]
     n_kept = sum(k.endswith("[kept]") for k in ha)
-    print(f"bitwise A vs B: {n_kept} outputs (fullstep {SIZES} + 2, fullstep_win, "
+    print(f"bitwise A vs B: {n_kept} outputs (fullstep and fullstep_dma {SIZES} + 2, "
+          f"fullstep_win, "
           f"fullstep_strips; n_jacobi {N_JACOBI}, both parities, f32 and f64; predict and "
           f"fct_sweep at {SIZES + (N_ODD,)} + 2, predict_win and fct_sweep_win on {WIN}^2 "
           f"and {RAGGED[0]}x{RAGGED[1]} blocks at the four corners, the sweeps under "

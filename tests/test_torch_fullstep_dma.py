@@ -6,11 +6,19 @@ and only moves the state otherwise (tests/test_pallas.py pins that), so
 the port's plain version is fullstep_plain's computation under its own
 name. On the CPU it is held against tpuvof's DMA kernel in interpret mode,
 in f64, within 1e-12 of the field's scale (both sides do the same
-operations per cell), for one step of either parity and for 4 chained
-steps, on the developed, perturbed 32^2 dam-break state of
-test_torch_fullstep.py. The ``cuda``-marked test holds the kernel to
-``fullstep`` bit for bit and to its plain version on a card.
+operations per cell), for one step on grids of n = 29 to 32 (E1 = n + 2 of
+every residue modulo 4, the residues the kernel's bulk copies of 16-byte
+units see in f32) at n_jacobi 1, 4, 5 and 11 (one Jacobi stage group, the
+split's edges, three groups), each grid at every n_jacobi and every
+n_jacobi on every grid at both parities (the parities alternate over the
+pairs: each interpret-mode call compiles a program of its own, ~2 s), and
+for 4 chained steps, on developed, perturbed dam-break states. The
+``cuda``-marked test holds the kernel to ``fullstep`` bit for bit on a
+card, over the whole product of grids, n_jacobi, parities and dtypes.
 """
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +27,8 @@ from tpuvof_torch.convert import config_from_tpuvof
 from tpuvof_torch.kernels import step_kernels as K
 
 N = 32
+SIZES = (29, 30, 31, 32)  # E1 = n + 2 = 31, 32, 33, 34: every residue modulo 4
+N_JACOBI = (1, 4, 5, 11)  # one stage group, the split's edges, three groups
 TOL = 1e-12
 
 
@@ -32,30 +42,45 @@ def _t(a):
     return torch.as_tensor(np.array(a, np.float64))
 
 
+@functools.lru_cache(maxsize=None)
+def _state(n):
+    """tpuvof's DMA kernel, the n^2 dam break's config, and a developed,
+    perturbed, BC-consistent state of it as numpy f64 (developed on the
+    port's plain path, which costs no compilation)."""
+    import tpuvof as tv
+    import tpuvof_torch as tt
+    from tpuvof.pallas_kernels.step_kernels import pallas_fullstep_dma
+    from tpuvof_torch.ops import apply_bc
+
+    cfg = tv.dam_break_2d(n)
+    pc = config_from_tpuvof(cfg)
+    s = tt.simulate(pc, tt.init_state(pc, 1, "cpu", torch.float64), 40)
+    rng = np.random.default_rng(20)
+    F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape)) for a in s)
+    u, v, F, p = apply_bc(u, v, F, p)
+    return cfg, pallas_fullstep_dma, tuple(a.numpy() for a in (F, u, v, p))
+
+
 @pytest.fixture(scope="module")
 def ref():
-    """tpuvof's DMA kernel, the port's config, and a developed, perturbed,
-    BC-consistent 32^2 dam-break state as numpy f64."""
-    import jax.numpy as jnp
-
-    import tpuvof as tv
-    from tpuvof.ops import apply_bc
-    from tpuvof.pallas_kernels.step_kernels import pallas_fullstep_dma
-
-    cfg = tv.dam_break_2d(N)
-    s0 = tv.State(*(jnp.asarray(a, jnp.float64) for a in tv.init_state(cfg, ic=1)))
-    s = tv.simulate(cfg, s0, 40)
-    rng = np.random.default_rng(20)
-    F, u, v, p = (np.asarray(a) + rng.uniform(-1e-3, 1e-3, a.shape) for a in s)
-    u, v, F, p = (np.asarray(a) for a in apply_bc(*map(jnp.asarray, (u, v, F, p))))
-    return cfg, pallas_fullstep_dma, config_from_tpuvof(cfg), (F, u, v, p)
+    """_state at N, and the port's config."""
+    cfg, dma, arrays = _state(N)
+    return cfg, dma, config_from_tpuvof(cfg), arrays
 
 
-@pytest.mark.parametrize("even", [False, True])
-def test_fullstep_dma_plain_matches_pallas_fullstep_dma(ref, even):
-    cfg, dma, pc, arrays = ref
+# (n, n_jacobi, even): every grid at every n_jacobi, the parity alternating
+# so that each grid and each n_jacobi sees both
+CASES = [(n, nj, (a + b) % 2 == 1) for a, n in enumerate(SIZES)
+         for b, nj in enumerate(N_JACOBI)]
+
+
+@pytest.mark.parametrize("n, n_jacobi, even", CASES,
+                         ids=[f"n{n}-nj{nj}-{'even' if e else 'odd'}" for n, nj, e in CASES])
+def test_fullstep_dma_plain_matches_pallas_fullstep_dma(n, n_jacobi, even):
+    cfg, dma, arrays = _state(n)
+    cfg = cfg.replace(num=dataclasses.replace(cfg.num, n_jacobi=n_jacobi))
     want = dma(cfg, *arrays, even, interpret=True)
-    got = K.fullstep_dma_plain(pc, *map(_t, arrays), even)
+    got = K.fullstep_dma_plain(config_from_tpuvof(cfg), *map(_t, arrays), even)
     for name, g_, w_ in zip("Fuvp", got, want):
         assert _rel(g_, w_) <= TOL, name
 
@@ -100,54 +125,79 @@ def test_fullstep_dma_on_cpu_takes_any_alignment(ref):
         assert torch.equal(g_, w_)
 
 
+def test_scratch_cells_of_fullstep_is_five_unpadded_blocks():
+    """fullstep's scratch is five blocks of E0 * E1 cells in either dtype
+    (fullstep_dma's is laid out by its library: the card test checks it)."""
+    for shape in ((31, 31), (32, 32), (33, 33), (34, 34), (7, 5)):
+        for dtype in (torch.float32, torch.float64):
+            assert K.scratch_cells("fullstep", shape, dtype) == 5 * shape[0] * shape[1]
+
+
 @pytest.mark.cuda
 def test_fullstep_dma_matches_fullstep_on_card():
     """On a card: the kernel equals fullstep bit for bit, f64 and f32,
-    both parities, at 64^2 and 63^2 (65^2 = 4225 cells, not a multiple of
-    4: the ragged tail goes by plain stores), with the outputs on memory
-    filled with NaN first so that a chunk never stored shows; f64 within
-    1e-12 of its plain version; a misaligned view raises ValueError."""
+    both parities, n_jacobi 1, 4, 5 and 11, at n = 29 to 32 (E1 of every
+    residue modulo 4: rows whose copies start and end off a 16-byte
+    boundary, and fields whose last cells go by thread loads), with the
+    outputs on memory filled with NaN first so that a cell never stored
+    shows, and the scratch the wrapper allocates as the library lays it
+    out (five blocks of at least E0 * E1 cells, each starting on a 16-byte
+    boundary); f64 within 1e-12 of its plain version; at 2050^2 in f64
+    once (many tiles a CTA, the boxes reused); a misaligned view raises
+    ValueError."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import tpuvof_torch as tt
     from tpuvof_torch.ops import apply_bc
 
-    for n in (64, 63):
+    def developed(n, steps):
         plain = tt.dam_break_2d(n, num=tt.Numerics(backend="torch"))
-        s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), 30)
+        s = tt.simulate(plain, tt.init_state(plain, 1, "cuda", torch.float64), steps)
         rng = np.random.default_rng(21)
         F, u, v, p = (a + torch.as_tensor(rng.uniform(-1e-3, 1e-3, a.shape), device="cuda")
                       for a in s)
         u, v, F, p = apply_bc(u, v, F, p)
-        cfg = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
-        for dtype in (torch.float64, torch.float32):
-            st = [a.to(dtype).contiguous() for a in (F, u, v, p)]
-            for even in (False, True):
-                want = K.fullstep(cfg, *st, even)
-                # the outputs go to a private pool that the same allocations
-                # (four fields, then the (7,) + shape scratch) filled with NaN
-                pool = torch.cuda.MemPool()
-                with torch.cuda.use_mem_pool(pool):
-                    poison = [torch.full_like(st[0], float("nan")) for _ in range(4)]
-                    poison.append(torch.full((7,) + tuple(st[0].shape), float("nan"),
-                                             dtype=dtype, device="cuda"))
-                    spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in poison]
-                    del poison
-                    K.reset_launch_counts()
-                    got = K.fullstep_dma(cfg, *st, even)
-                    torch.cuda.synchronize()
-                assert K.LAUNCHES["fullstep_dma"] == 1
-                for g_ in got:
-                    assert any(lo <= g_.data_ptr() and g_.data_ptr() + g_.nbytes <= hi
-                               for lo, hi in spans), "an output missed the poisoned blocks"
-                for name, g_, w_ in zip("Fuvp", got, want):
-                    assert torch.equal(g_, w_), (n, dtype, even, name)
-                if dtype == torch.float64:
-                    for g_, w_ in zip(got, K.fullstep_dma_plain(cfg, *st, even)):
-                        assert _rel(g_.cpu(), w_.cpu()) <= TOL
-                del got
-        shape = st[0].shape
-        buf = torch.zeros(st[0].numel() + 1, dtype=torch.float32, device="cuda")
-        misaligned = buf[1:].view(shape)
-        with pytest.raises(ValueError):
-            K.fullstep_dma(cfg, misaligned, *st[1:], True)
+        return F, u, v, p
+
+    cases = [(n, dtype, nj) for n in SIZES for dtype in (torch.float64, torch.float32)
+             for nj in N_JACOBI] + [(2048, torch.float64, 10)]
+    states = {}
+    for n, dtype, nj in cases:
+        if n not in states:
+            states[n] = developed(n, 30 if n < 100 else 5)
+        base = tt.dam_break_2d(n, num=tt.Numerics(backend="cuda_mono"))
+        cfg = base.replace(num=dataclasses.replace(base.num, n_jacobi=nj))
+        st = [a.to(dtype).contiguous() for a in states[n]]
+        cells = K.scratch_cells("fullstep_dma", st[0].shape, dtype)
+        block = cells // 5
+        assert cells == 5 * block and block >= st[0].numel()
+        assert block * st[0].element_size() % 16 == 0
+        for even in (False, True):
+            want = K.fullstep(cfg, *st, even)
+            # the outputs go to a private pool that the same allocations
+            # (four fields, then the scratch) filled with NaN
+            pool = torch.cuda.MemPool()
+            with torch.cuda.use_mem_pool(pool):
+                poison = [torch.full_like(st[0], float("nan")) for _ in range(4)]
+                poison.append(torch.full((cells,), float("nan"), dtype=dtype, device="cuda"))
+                spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in poison]
+                del poison
+                K.reset_launch_counts()
+                got = K.fullstep_dma(cfg, *st, even)
+                torch.cuda.synchronize()
+            assert K.LAUNCHES["fullstep_dma"] == 1
+            for g_ in got:
+                assert any(lo <= g_.data_ptr() and g_.data_ptr() + g_.nbytes <= hi
+                           for lo, hi in spans), "an output missed the poisoned blocks"
+            for name, g_, w_ in zip("Fuvp", got, want):
+                assert torch.equal(g_, w_), (n, dtype, nj, even, name)
+            if dtype == torch.float64 and n < 100:
+                for g_, w_ in zip(got, K.fullstep_dma_plain(cfg, *st, even)):
+                    assert _rel(g_.cpu(), w_.cpu()) <= TOL
+            del got
+    st = [a.float().contiguous() for a in states[SIZES[0]]]
+    cfg = tt.dam_break_2d(SIZES[0], num=tt.Numerics(backend="cuda_mono"))
+    buf = torch.zeros(st[0].numel() + 1, dtype=torch.float32, device="cuda")
+    misaligned = buf[1:].view(st[0].shape)
+    with pytest.raises(ValueError):
+        K.fullstep_dma(cfg, misaligned, *st[1:], True)

@@ -26,25 +26,18 @@
 // What the design does about it: one cooperative launch
 // (cudaLaunchCooperativeKernel) whose grid is what the card holds resident
 // at once, running the stages in a few stage groups with one grid-wide
-// barrier (cooperative_groups' grid.sync()) between two groups. In each
-// group a CTA of 32 x 8 threads takes tiles of TH rows x 32 columns in
-// turn, loads the tile and a rim that covers the group's reach into shared
-// memory (every load of a thread issued before its first store), runs the
-// group's stages there with a __syncthreads() between two, each pass over
-// the cells of a compile-time region, and writes the tile's outputs (the
-// tiles, staging, Jacobi groups and launch plan live in stage_groups.cuh,
-// shared with project.cu; the predictor's passes and the sweeps' lines in
-// phase_tiles.cuh, shared with predict.cu and fct_sweep.cu):
-//   predict: the Youngs normals once a cell (rim 3 of F), kappa, u*/v* on
-//            the tile and one row/column beyond, rhs; writes u*, v*, rhs;
-//   jacobi:  d <= kJacobiLevels Jacobi sweeps on overlapped tiles (rim d,
-//            one less valid ring a sweep), a group per split of n_jacobi
-//            (jacobi_depth: 10 -> 4, 3, 3); writes p;
-//   finish:  the correction on the tile +4 (rim 5 of F and p), the first
-//            sweep on the tile +1 across it and +4 along the second, the
-//            second sweep and the clamp on the tile +1, each quantity of a
-//            sweep once a position (a warp a line segment, neighbours by
-//            shuffles), the BCs; writes F, u, v, p.
+// barrier (cooperative_groups' grid.sync()) between two. In each group a
+// CTA of 32 x 8 threads takes tiles of TH rows x 32 columns in turn, loads
+// the tile and a rim that covers the group's reach into shared memory
+// (every load of a thread issued before its first store), runs the group's
+// stages there with a __syncthreads() between two, each pass over the
+// cells of a compile-time region, and writes the tile's outputs. The
+// groups (predict, the Jacobi groups, finish) and their loop live in
+// step_groups.cuh, shared with fullstep_dma.cu, which runs them with bulk
+// copies; this kernel runs them under its ThreadLoads policy (the tiles,
+// staging, Jacobi groups and launch plan live in stage_groups.cuh, shared
+// with project.cu; the predictor's passes and the sweeps' lines in
+// phase_tiles.cuh, shared with predict.cu and fct_sweep.cu).
 // Four barriers a step at n_jacobi 10, and kappa, the normals, the
 // corrected velocities and both sweeps' F never leave shared memory. A
 // CTA's group is a chain of dependent passes, so the tile is small: 16
@@ -58,27 +51,20 @@
 // cells of the global interior that are not on the block's edge, so every
 // other p keeps its sanitized entry value (the global ghost ring, then
 // overwritten by the BCs).
-#include <cooperative_groups.h>
-
-#include "phase_tiles.cuh"
-
-namespace cg = cooperative_groups;
+#include "step_groups.cuh"
 
 namespace {
 
-using tv::Box;
-using tv::for_cells;
 using tv::kJacobiLevels;
 using tv::kThreads;
 using tv::kTW;
 using tv::kTX;
 using tv::kTY;
-using tv::stage;
-using tv::Tile;
+using tv::StepArgs;
 
 // Shared values of T a CTA needs for tiles of TH rows: the largest stage
 // group's boxes. predict: F (rim 3), u and v, kappa, the normals (u*/v*
-// reuse their space); jacobi: tv::jacobi_tile's at the greatest depth;
+// reuse their space); jacobi: a Jacobi group's at the greatest depth;
 // finish: F and p (rim 5), u*, v*, u, v (rim 4), at odd pitches.
 constexpr int smem_values(int th) {
   const int predict = tv::predict_tile_values(th, 1);
@@ -88,137 +74,14 @@ constexpr int smem_values(int th) {
   return m > finish ? m : finish;
 }
 
-template <typename T>
-struct StepArgs {
-  const T *F, *u, *v, *p;  // entry block fields
-  T *F_out, *u_out, *v_out, *p_out;
-  T *us, *vs, *rhs, *pa, *pb;  // scratch, each one block
-  tv::Block b;
-  tv::PredictParams<T> pq;
-  tv::ProjectParams<T> jq;
-  tv::SweepParams<T> sx, sy;
-  int n_jacobi, even_step;
-};
-
-// predict: u*, v* and rhs of the tile at (ti, tj): phase_tiles.cuh's
-// predictor on the tile +1 (rhs reads u*, v* at +1), u* and v* kept in
-// boxes over the normals, which are dead by then.
-template <int TH, typename T>
-__device__ __forceinline__ void predict_tile(const StepArgs<T>& a, T* sm, int ti, int tj) {
-  const tv::Block& b = a.b;
-  constexpr int H = TH, W = kTW;
-  const tv::PredictBoxes<TH, 1, T> s(sm, ti, tj);
-  const Box<T> us{s.mx.s, ti, tj, W + 1};
-  const Box<T> vs{us.end(H + 1), ti, tj, W + 1};
-  static_assert(2 * (H + 1) * (W + 1) <= 2 * (H + 4) * (W + 4), "u*/v* fit over the normals");
-  tv::predict_values(b, a.pq, s, a.F, a.u, a.v, ti, tj, [&](int i, int j, T x, T y) {
-    const bool in = b.inside(i, j);
-    us(i, j) = in ? x : T(0);
-    vs(i, j) = in ? y : T(0);
-    if (in && i < ti + H && j < tj + W) {
-      a.us[i * b.E1 + j] = x;
-      a.vs[i * b.E1 + j] = y;
-    }
-  });
-  __syncthreads();
-  for_cells<H, W>(ti, tj, [&](int i, int j) {
-    if (b.inside(i, j)) {
-      a.rhs[i * b.E1 + j] = b.interior(i, j)
-                                ? tv::rhs_of(Tile<T>(s.F, i, j), Tile<T>(us, i, j),
-                                             Tile<T>(vs, i, j), a.jq)
-                                : T(0);
-    }
-  });
-  __syncthreads();  // the next tile reuses the boxes
-}
-
-// finish: the correction, both sweeps, the clamp and the BCs of the tile
-// at (ti, tj), with p the last Jacobi output.
-template <int TH, typename T>
-__device__ __forceinline__ void finish_tile(const StepArgs<T>& a, T* sm, int ti, int tj,
-                                            const T* p) {
-  const tv::Block& b = a.b;
-  constexpr int H = TH, W = kTW;
-  // odd pitches: a warp reading down a column hits 32 banks
-  const Box<T> F{sm, ti - 5, tj - 5, W + 11};
-  const Box<T> P{F.end(H + 10), ti - 5, tj - 5, W + 11};
-  const Box<T> un{P.end(H + 10), ti - 4, tj - 4, W + 9};  // u*, then the corrected u
-  const Box<T> vn{un.end(H + 8), ti - 4, tj - 4, W + 9};  // v*, then the corrected v
-  const Box<T> s1{vn.end(H + 8), ti - 4, tj - 4, W + 9};  // u, then the first sweep
-  const Box<T> s2{s1.end(H + 8), ti - 4, tj - 4, W + 9};  // v, then the second
-  stage<H + 10, W + 10, 2, T>(b, {F, P}, {a.F, p});
-  stage<H + 8, W + 8, 4, T>(b, {un, vn, s1, s2}, {a.us, a.vs, a.u, a.v});
-  __syncthreads();
-  // the correction, in place: a cell reads u*, v*, u, v only at itself
-  for_cells<H + 8, W + 8>(ti - 4, tj - 4, [&](int i, int j) {
-    T x, y;
-    tv::correct_of(Tile<T>(F, i, j), Tile<T>(un, i, j), Tile<T>(vn, i, j), Tile<T>(P, i, j),
-                   Tile<T>(s1, i, j), Tile<T>(s2, i, j), b, i, j, a.jq, x, y);
-    const bool in = b.inside(i, j);
-    un(i, j) = in ? x : T(0);
-    vn(i, j) = in ? y : T(0);
-  });
-  __syncthreads();
-  // the first sweep, where the second reads it: the tile +1 across it,
-  // +4 along the second sweep's axis
-  if (a.even_step) {
-    tv::sweep_lines<T, 1, false>(F, vn, s1, ti - 4, ti + H + 4, tj - 1, tj + W + 1, b, a.sy);
-  } else {
-    tv::sweep_lines<T, 0, false>(F, un, s1, ti - 1, ti + H + 1, tj - 4, tj + W + 4, b, a.sx);
-  }
-  __syncthreads();
-  // the second sweep and the clamp on the tile +1 (the BCs read +-1)
-  if (a.even_step) {
-    tv::sweep_lines<T, 0, true>(s1, un, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sx);
-  } else {
-    tv::sweep_lines<T, 1, true>(s1, vn, s2, ti - 1, ti + H + 1, tj - 1, tj + W + 1, b, a.sy);
-  }
-  __syncthreads();
-  // wall BCs at global indices (tpuvof's _bc_values): u mirrored across
-  // the j-walls then zero on the i-wall faces; v zero on the j-wall faces
-  // then mirrored across the i-walls; F and p mirrored j first, then i.
-  for_cells<H, W>(ti, tj, [&](int i, int j) {
-    if (b.inside(i, j)) {
-      const int gi = i + b.oi, gj = j + b.oj;
-      const int di = gi == 0 ? 1 : (gi == b.nx + 1 ? -1 : 0);
-      const int dj = gj == 0 ? 1 : (gj == b.ny + 1 ? -1 : 0);
-      const int c = i * b.E1 + j;
-      a.u_out[c] = gi == 1 || gi == b.nx + 1 ? T(0) : un(i, j + dj);
-      a.v_out[c] = gj == 1 || gj == b.ny + 1 ? T(0) : vn(i + di, j);
-      a.F_out[c] = s2(i + di, j + dj);
-      a.p_out[c] = P(i + di, j + dj);
-    }
-  });
-  __syncthreads();
-}
-
 // At least 3 CTAs an SM in f32, so that the 374 tiles of a 514^2 grid run
 // at once (the f64 boxes allow 2).
 template <typename T, int TH>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
     fullstep_kernel(const StepArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  cg::grid_group grid = cg::this_grid();
-  const int tiles_j = (a.b.E1 + kTW - 1) / kTW;
-  const int n_tiles = tiles_j * ((a.b.E0 + TH - 1) / TH);
-#define TV_TILES for (int t = blockIdx.x, ti = t / tiles_j * TH, tj = t % tiles_j * kTW; \
-                      t < n_tiles; t += gridDim.x, ti = t / tiles_j * TH,                  \
-                      tj = t % tiles_j * kTW)
-
-  TV_TILES predict_tile<TH>(a, sm, ti, tj);
-  grid.sync();
-  const T* p = a.p;
-  T* dst = a.pa;
-  for (int g = 0, n = tv::jacobi_groups(a.n_jacobi); g < n; ++g) {
-    const int d = tv::jacobi_depth(a.n_jacobi, g);
-    TV_TILES tv::jacobi_depth_tile<TH, kJacobiLevels>(d, a.b, a.jq, sm, ti, tj, p, a.rhs, dst);
-    grid.sync();
-    p = dst;
-    dst = dst == a.pa ? a.pb : a.pa;
-  }
-  TV_TILES finish_tile<TH>(a, sm, ti, tj, p);
-#undef TV_TILES
+  tv::ThreadLoads<T, TH> pol(a.b, reinterpret_cast<T*>(smem_raw));
+  tv::step_groups<TH>(a, pol);
 }
 
 // The kernel with TH-row tiles: its shared bytes (granted once a device)

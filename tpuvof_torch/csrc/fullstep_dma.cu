@@ -1,80 +1,76 @@
-// The whole lean 2-D step as one kernel launch whose state moves by bulk
+// The whole lean 2-D step as one kernel launch whose tiles move by bulk
 // asynchronous copies, for Hopper (sm_90a).
 //
 // Replaces tpuvof/pallas_kernels/step_kernels.py:pallas_fullstep_dma
-// (_fullstep_dma_kernel): fullstep.cu's step, bit for bit, with the state
-// I/O of the TPU kernel. There, four DMAs start together, p's completes
-// under the predictor, and each output is stored the moment its field and
-// its wall BC are final: p under the correction and the sweeps, u and v
-// under the sweeps, F last. Here:
-//   - at entry each CTA starts bulk copies (cp.async.bulk, the TMA unit's
-//     1-D form) of its chunks of p into shared memory, completing on an
-//     mbarrier that it waits on only in the rhs stage, where the two Jacobi
-//     buffers are seeded (fullstep.cu seeds them in its first stage);
-//   - in the correction stage each warp writes p's BC'd value into a
-//     shared staging chunk and bulk-stores it to p_out without waiting; in
-//     the first sweep stage u's and v's BC'd values (the sweeps go on
-//     reading the pre-BC un and vn); the last stage stores only F;
-//   - F, u and v are read by stencils across chunk edges, so they stay
-//     global loads, as in fullstep.cu.
-// The per-cell arithmetic is step_cell.cuh's, called in fullstep.cu's
-// order; only the staging and the copies differ.
+// (_fullstep_dma_kernel): fullstep.cu's step, bit for bit, with the TPU
+// kernel's I/O. There, each load starts as early as its data is final and
+// each output is stored by the copy engine as soon as it is. Here the
+// step is fullstep.cu's stage groups (step_groups.cuh: predict, the Jacobi
+// groups, finish), run under the Bulk policy below instead of thread loads:
+//   - a tile's input boxes are filled by cp.async.bulk (the TMA unit's 1-D
+//     form), one copy a box row, each thread of the CTA issuing at most one
+//     row of a load, completing on the boxes' mbarrier; the
+//     threads wait on it, then zero the cells outside the block (which
+//     ld() reads as 0) before the first pass;
+//   - inputs final before a grid barrier are issued before it: the entry p
+//     of the CTA's first tile of the first Jacobi group at kernel entry,
+//     the rhs of a later Jacobi group's first tile, and all but p of the
+//     first finish tile, on a second mbarrier; only the rest waits for the
+//     barrier;
+//   - the finish tile's outputs are stored by the threads, as fullstep.cu
+//     stores them. One slot of boxes: a second slot, with the copies of a
+//     CTA's next tile in flight while the current tile computes, and bulk
+//     stores of each output row's aligned middle were measured on the H100
+//     and lost in both dtypes (PERF.md): the copies are bound by the copy
+//     unit's rate of row requests, which neither raises, and the stores'
+//     requests queue on the same unit as the loads.
+// The per-cell arithmetic is step_groups.cuh's, in fullstep.cu's order on
+// the same operands; only the staging differs.
 //
-// What bounds it on the H100: what bounds fullstep.cu (n_jacobi + 7
-// dependent stages and the grid-wide barriers between them). The outputs
-// it moves off the last stage are ~3 MB at 514^2 f32, all in the 50 MB
-// L2; the staging adds shared-memory writes, async-proxy fences and warp
-// barriers to three stages. Measured on an H100 it is 0.6-3.3% slower
-// than fullstep.cu (PERF.md).
+// Row copies, not tensor maps: a tiled tensor map needs every row pitch to
+// be a multiple of 16 bytes, and the grids this kernel runs have E1 = n + 2
+// of any residue. So each box row is copied as the 16-byte-aligned span
+// that covers its cells inside the block. A box's pitch is congruent to E1
+// modulo a 16-byte unit (kU cells) and at least its width + kU - 1, and its
+// first cell sits at the unit residue of its global index: every aligned
+// global span then lands on an aligned shared address, the spans of two
+// rows never overlap, and Box keeps one uniform pitch. The pitch is a
+// compile-time constant (the kernel is instantiated for each residue of E1
+// modulo kU), so the passes' stencil offsets fold into their shared-memory
+// instructions as in fullstep.cu. The cells a span pulls in from a
+// neighbouring row land either in a row's slack or on box cells outside
+// the block, which the threads zero. No copy reads past the field's last
+// whole unit: the cells after it (the last E0 * E1 mod kU of the field, at
+// most 3 in f32 and 1 in f64) go by thread loads, and they are the only
+// cells of an input box that do. A row outside the block is not copied:
+// its cells are zeroed.
 //
-// The layout of the copies:
-//   - Stores go in chunks of kWarp cells: a warp stages the kWarp
-//     consecutive cells it handles in one round of the grid-stride loop,
-//     and its lane 0 sends them. Staging per CTA would put a __syncthreads()
-//     around every chunk and make a CTA's warps take their rounds in step;
-//     at 2050^2 (25 rounds a stage) that cost 3% (PERF.md).
-//   - Every chunk starts at a multiple of 128 bytes (f32) or 256 (f64) from
-//     the field's base, which the wrapper checks to be 16-byte aligned.
-//     cp.async.bulk takes multiples of 16 bytes: the last chunk of a field
-//     whose E0*E1 is not a multiple of 4 (f32) or 2 (f64) sends its ragged
-//     tail by plain stores.
-//   - Each warp has a ring of kRing staging chunks; a chunk is written again
-//     only after cp.async.bulk.wait_group.read has seen the copy that used
-//     it kRing stores before finish reading it. Every store commits one
-//     bulk group, even an empty one, so the group count is the store count.
-//     The ring keeps the staging bounded: all four outputs staged at once
-//     would not fit the card's ~30 MB of shared memory at 2050^2 f64.
-//   - p's entry copies go in chunks of kThreads cells, a CTA's round, and
-//     take up to kPinBytes a CTA. Where the CTA owns more chunks than that
-//     (f64 beyond ~1270^2 at three CTAs an SM, f32 beyond ~2320^2 at
-//     five), the rest of its entry p is read from global memory at the
-//     seed.
-//   - The cooperative launch is sized with the occupancy at the most
-//     shared memory any launch of the type asks for.
-#include <cooperative_groups.h>
-
+// What bounds it on the H100: a chain of dependent passes a tile and a
+// grid barrier between two groups, as fullstep.cu, and beside them the
+// copy unit's rate of requests: a box row is 33-44 cells, so a finish tile
+// is ~196 requests, a predict tile ~84 and a Jacobi tile ~64, which an
+// SM's unit serves one at a time, while fullstep.cu's threads stage the
+// same boxes in a few wide loads each (the barrier stamps of
+// scripts/torch_ab2d.py --stamps, PERF.md). So this kernel stays slower
+// than fullstep.cu: 1.2-1.5x in f32 from 2050^2 down to 514^2.
+//
+// The scratch is five blocks (u*, v*, rhs and two Jacobi levels), each of
+// E0 * E1 cells rounded up to a 16-byte unit, so that each starts aligned
+// (scratch_block; the wrappers ask tv_fullstep_dma_scratch_* for its size).
 #include <cstdint>
 
-#include "step_cell.cuh"
-
-namespace cg = cooperative_groups;
+#include "step_groups.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarp = 32;
-constexpr int kRing = 4;
-constexpr int kPinBytes = 32768;
-
-template <typename T>
-constexpr int pin_slots_max() {
-  return kPinBytes / (kThreads * static_cast<int>(sizeof(T)));
-}
-
-template <typename T>
-constexpr int smem_bytes_max() {
-  return (pin_slots_max<T>() + kRing) * kThreads * static_cast<int>(sizeof(T));
-}
+using tv::Block;
+using tv::Box;
+using tv::kJacobiLevels;
+using tv::kThreads;
+using tv::kTW;
+using tv::kTX;
+using tv::kTY;
+using tv::StepArgs;
 
 // ---- the bulk-copy and mbarrier instructions (PTX ISA 8.0, sm_90) ----
 
@@ -82,9 +78,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -116,274 +112,360 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// shared -> global, in the issuing thread's current bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// until at most kRing - 1 of this thread's bulk groups still read shared memory
-__device__ __forceinline__ void bulk_wait_ring_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kRing - 1) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// makes this thread's shared-memory writes visible to the bulk copies
-__device__ __forceinline__ void fence_proxy_async() {
+// orders this thread's shared-memory accesses before later bulk copies
+__device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-template <typename T>
-struct StepArgs {
-  const T *F, *u, *v, *p;      // entry block fields
-  T *F_out, *u_out, *v_out, *p_out;
-  T *kr, *us, *vs, *pa, *pb, *un, *vn;  // scratch, each one block
-  tv::Block b;
-  tv::PredictParams<T> pq;
-  tv::ProjectParams<T> jq;
-  tv::SweepParams<T> sx, sy;
-  int n_jacobi, even_step;
-  int pin_slots;  // entry chunks of p each CTA copies into shared memory
-};
-
-// The elements of a chunk of `len` cells that one bulk copy moves: the
-// largest whole number of 16-byte units.
-template <typename T>
-__device__ __forceinline__ int bulk_elems(int len) {
-  return (len * static_cast<int>(sizeof(T))) / 16 * 16 / static_cast<int>(sizeof(T));
+// the same for global memory: stores before a grid barrier, bulk loads
+// after it
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
-// A warp's store ring: the warp stages a chunk's values, then its lane 0
-// sends the chunk to global memory. Every lane of the warp calls acquire()
-// and send() the same number of times (the rounds loop is warp-uniform),
-// and no CTA barrier is needed: the warps go through their rounds
-// independently, as in fullstep.cu.
+// ---- the memory map ----
+
+// Cells of T in a 16-byte unit.
 template <typename T>
-struct StoreRing {
-  T* slots;   // this warp's kRing chunks of kWarp values
-  int lane;
-  int count;  // stores issued so far
+constexpr int kU = 16 / static_cast<int>(sizeof(T));
 
-  // The next staging chunk, once the copy that used it last has read it.
-  __device__ __forceinline__ T* acquire() {
-    if (count >= kRing && lane == 0) bulk_wait_ring_read();
-    __syncwarp();
-    return slots + (count % kRing) * kWarp;
+// Rows of a tile: 24, as fullstep.cu's at every block whose 16-row tiles
+// do not all fit on the card at once (514^2 and beyond); the memory map and
+// the pitches below are compile-time for it.
+constexpr int kRowsDma = 24;
+
+constexpr int max_of(int a, int b) { return a > b ? a : b; }
+
+// The most values a bulk box of rows x cols takes: its lead (< kU), and
+// rows at its largest pitch, cols + 2 (kU - 1), rounded up to a unit.
+template <typename T>
+constexpr int box_values(int rows, int cols) {
+  return (kU<T> - 1 + rows * (cols + 2 * kU<T> - 2) + kU<T> - 1) / kU<T> * kU<T>;
+}
+
+// Where each group's boxes go, in values of T from the dynamic shared
+// memory's start. Predict's and finish's input boxes start at 0; Jacobi's
+// start after predict's, so that the entry p copied at kernel entry lands
+// where no predict tile works. A group's work boxes (the ones its passes
+// fill: predict's kappa and normals, Jacobi's second level) sit at the end.
+template <typename T, int TH>
+struct Map {
+  static constexpr int predict_in =
+      box_values<T>(TH + 6, kTW + 6) + 2 * box_values<T>(TH + 3, kTW + 3);
+  static constexpr int predict_work = (TH + 2) * (kTW + 2) + 2 * (TH + 4) * (kTW + 4);
+  static constexpr int jacobi_box =
+      box_values<T>(TH + 2 * kJacobiLevels, kTW + 2 * kJacobiLevels);
+  static constexpr int jacobi_work = (TH + 2 * kJacobiLevels) * (kTW + 2 * kJacobiLevels);
+  static constexpr int finish_in =
+      2 * box_values<T>(TH + 10, kTW + 10) + 4 * box_values<T>(TH + 8, kTW + 8);
+  static constexpr int values =
+      (max_of(max_of(finish_in, predict_in + predict_work),
+              max_of(predict_in + 2 * jacobi_box + jacobi_work,
+                     predict_in + jacobi_box + predict_work)) +
+       kU<T> - 1) / kU<T> * kU<T>;
+  static constexpr int smem = values * static_cast<int>(sizeof(T));
+};
+
+// The work values of a group (Map's terms), and whether it is a Jacobi
+// group.
+template <class G>
+struct GroupOf;
+template <int TH, typename T>
+struct GroupOf<tv::PredictGroup<TH, T>> {
+  static constexpr int work = Map<T, TH>::predict_work;
+  static constexpr bool jacobi = false;
+};
+template <int TH, int D, typename T>
+struct GroupOf<tv::JacobiGroup<TH, D, T>> {
+  static constexpr int work = (TH + 2 * D) * (kTW + 2 * D);
+  static constexpr bool jacobi = true;
+};
+template <int TH, typename T>
+struct GroupOf<tv::FinishGroup<TH, T>> {
+  static constexpr int work = 0;
+  static constexpr bool jacobi = false;
+};
+
+// The layout of bulk boxes (stage_groups.cuh's layout form) on a block
+// whose E1 is R modulo kU: input boxes from value `at` on, each at a
+// compile-time pitch congruent to R modulo kU and at least its width +
+// kU - 1, its first cell at the unit residue of its global index; work
+// boxes packed from `work_at` at the pitch given.
+template <typename T, int R>
+struct BulkLayout {
+  static constexpr int U = kU<T>;
+  T* base;
+  int at;
+  T* work_at;
+  __device__ __forceinline__ Box<T> in(int i0, int j0, int rows, int cols, int /*w*/) {
+    const int w = cols + (U - 1) + ((R - cols - (U - 1)) & (U - 1));
+    const int lead = (i0 * R + j0) & (U - 1);
+    const Box<T> box{base + at + lead, i0, j0, w};
+    at = (at + lead + rows * w + U - 1) & ~(U - 1);
+    return box;
   }
-
-  // Chunk `base` of `out` (len cells) from the staged slot; this lane
-  // staged `val` for cell base + lane if lane < len.
-  __device__ __forceinline__ void send(T* slot, T* out, int base, int len, T val) {
-    const int n_bulk = bulk_elems<T>(len);
-    if (lane >= n_bulk && lane < len) out[base + lane] = val;  // the ragged tail
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) {
-      if (n_bulk > 0) bulk_store(out + base, slot, n_bulk * sizeof(T));
-      bulk_commit();
-    }
-    ++count;
+  __device__ __forceinline__ Box<T> work(int i0, int j0, int rows, int w) {
+    const Box<T> box{work_at, i0, j0, w};
+    work_at += rows * w;
+    return box;
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fullstep_dma_kernel(const StepArgs<T> a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t p_bar;
-  cg::grid_group grid = cg::this_grid();
-  const tv::Block& b = a.b;
-  const int n = b.E0 * b.E1;
-  const int t = threadIdx.x;
-  const int first = blockIdx.x * blockDim.x + t;
-  const int stride = gridDim.x * blockDim.x;
-  const int cta0 = blockIdx.x * kThreads;  // this CTA's first chunk
-  const int lane = t % kWarp;
-  T* pin = reinterpret_cast<T*>(smem);
-  StoreRing<T> ring{pin + a.pin_slots * kThreads + (t - lane) * kRing, lane, 0};
-#define TV_CELLS for (int c = first, i = c / b.E1, j = c % b.E1; c < n; \
-                      c += stride, i = c / b.E1, j = c % b.E1)
-// This warp's chunks of kWarp cells, in warp-uniform rounds (the body may
-// hold __syncwarp()): each starts at cell base; this lane's cell is
-// base + lane, the cell TV_CELLS gives this thread.
-#define TV_CHUNKS for (int base = first - lane; base < n; base += stride)
+// The block's rows [rlo, rhi) and columns [clo, chi) inside the global
+// domain, and `tail`, the first cell past the field's last whole unit.
+struct Reach {
+  int rlo, rhi, clo, chi, tail;
+  __device__ __forceinline__ Reach(const Block& b, int U)
+      : rlo(max(0, -b.oi)),
+        rhi(min(b.E0, b.nx + 2 - b.oi)),
+        clo(max(0, -b.oj)),
+        chi(min(b.E1, b.ny + 2 - b.oj)),
+        tail(b.E0 * b.E1 & ~(U - 1)) {}
+};
 
-  // entry: start the copies of this CTA's first pin_slots chunks of p
-  if (t == 0) mbar_init(&p_bar);
-  __syncthreads();
-  if (t == 0) {
-    uint32_t bytes = 0;
-    for (int k = 0, base = cta0; base < n && k < a.pin_slots; ++k, base += stride)
-      bytes += bulk_elems<T>(min(kThreads, n - base)) * sizeof(T);
-    mbar_arrive_expect_tx(&p_bar, bytes);
-    for (int k = 0, base = cta0; base < n && k < a.pin_slots; ++k, base += stride) {
-      const int m = bulk_elems<T>(min(kThreads, n - base));
-      if (m > 0) bulk_load(pin + k * kThreads, a.p + base, m * sizeof(T), &p_bar);
+// The aligned global cells [as, ae) that cover row i of a box from
+// column j0, W wide, inside the block and the domain (q), up to the
+// field's last whole unit; gs: the global index of the row's first such
+// cell. False where there is nothing to copy.
+template <int U>
+__device__ __forceinline__ bool row_span(const Block& b, const Reach& q, int i, int j0, int W,
+                                         int& gs, int& as, int& ae) {
+  const int jl = max(j0, q.clo), jh = min(j0 + W, q.chi);
+  if (i < q.rlo || i >= q.rhi || jh <= jl) return false;
+  gs = i * b.E1 + jl;
+  as = gs & ~(U - 1);
+  ae = min((i * b.E1 + jh + U - 1) & ~(U - 1), q.tail);
+  return ae > as;
+}
+
+// The staging policy of bulk copies (step_groups.cuh's policy form) on a
+// block whose E1 is R modulo kU. Every warp issues a share of the copies;
+// bar[0] is the boxes' mbarrier, bar[1] that of the inputs of a group's
+// first tile issued before a grid barrier; each expects one arrival a
+// warp. Its one piece of state is the mbarriers' phase bits: every other
+// quantity is derived from the block where it is used.
+template <typename T, int TH, int R>
+struct Bulk {
+  using M = Map<T, TH>;
+  static constexpr int U = kU<T>;
+  static constexpr uint32_t kEarly = 1u << 2;  // a first tile's inputs on bar[1]
+  const Block& b;
+  T* sm;
+  uint64_t* bar;
+  uint32_t phase = 0;  // bit k < 2: the parity bar[k] completes next; kEarly
+
+  __device__ __forceinline__ Bulk(const Block& b_, T* sm_, uint64_t* bar_)
+      : b(b_), sm(sm_), bar(bar_) {
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      for (int k = 0; k < 2; ++k) mbar_init(&bar[k], kThreads / kTX);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    __syncthreads();
   }
 
-  TV_CELLS { a.kr[c] = tv::curvature_at(a.F, b, i, j, a.pq); }
-  grid.sync();
-  TV_CELLS { tv::momentum_at(a.u, a.v, a.F, a.kr, b, i, j, a.pq, a.us[c], a.vs[c]); }
-  grid.sync();
-  // rhs over kappa's buffer (kappa is dead); both Jacobi buffers <- the
-  // sanitized entry p, from shared memory where it was copied
-  mbar_wait(&p_bar, 0);
-  for (int k = 0, base = cta0; base < n; ++k, base += stride) {
-    const int c = base + t;
-    if (c >= n) continue;
-    const int i = c / b.E1, j = c % b.E1;
-    a.kr[c] = b.interior(i, j) ? tv::rhs_at(a.F, a.us, a.vs, b, i, j, a.jq) : T(0);
-    const T pv = k < a.pin_slots && t < bulk_elems<T>(min(kThreads, n - base))
-                     ? (b.inside(i, j) && b.domain(i, j) ? pin[k * kThreads + t] : T(0))
-                     : tv::ld(a.p, b, i, j);
-    a.pa[c] = pv;
-    a.pb[c] = pv;
+  __device__ __forceinline__ int tiles_j() const { return (b.E1 + kTW - 1) / kTW; }
+  __device__ __forceinline__ int n_tiles() const { return tiles_j() * ((b.E0 + TH - 1) / TH); }
+
+  template <class G>
+  __device__ __forceinline__ BulkLayout<T, R> layout() const {
+    return {sm, GroupOf<G>::jacobi ? M::predict_in : 0, sm + M::values - GroupOf<G>::work};
   }
-  grid.sync();
-  T* src = a.pa;
-  T* dst = a.pb;
-  for (int it = 0; it < a.n_jacobi; ++it) {
-    TV_CELLS {
-      if (b.interior(i, j) && i >= 1 && i < b.E0 - 1 && j >= 1 && j < b.E1 - 1)
-        dst[c] = tv::jacobi_at(src, a.kr[c], b, i, j, a.jq);
+
+  // A visitor of a group's inputs (G::load) in every thread: the rows of
+  // each load's NF boxes are numbered box by box, and thread r takes row r
+  // (every load has fewer rows than the CTA has threads). It counts the
+  // bytes of the row copies of the fields it takes (src == x if only,
+  // src != x else), or issues them on mbarrier m.
+  struct Issue {
+    const Block& b;
+    const T* x;
+    bool only, send;
+    uint64_t* m;
+    uint32_t bytes;
+    template <int H, int W, int NF, typename>
+    __device__ __forceinline__ void load(const Block&, const Box<T> (&box)[NF],
+                                         const T* const (&src)[NF]) {
+      static_assert(NF * H <= kThreads, "a row a thread");
+      const int tid = static_cast<int>(threadIdx.y) * kTX + static_cast<int>(threadIdx.x);
+      const Reach q(b, U);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const int r = tid - f * H;
+        if (r < 0 || r >= H || (src[f] == x) != only) continue;
+        const int i = box[f].i0 + r;
+        int gs, as, ae;
+        if (!row_span<U>(b, q, i, box[f].j0, W, gs, as, ae)) continue;
+        const uint32_t n = static_cast<uint32_t>(ae - as) * sizeof(T);
+        if (send) bulk_load(&box[f](i, gs - i * b.E1) - (gs - as), src[f] + as, n, m);
+        bytes += n;
+      }
     }
-    grid.sync();
-    T* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  const T* p = src;
-  // wall BCs at global indices (tpuvof's _bc_u, _bc_v, _bc_scal): u
-  // mirrored across the j-walls then zero on the i-wall faces; v zero on
-  // the j-wall faces then mirrored across the i-walls; F and p mirrored j
-  // first, then i.
-  auto mirror = [&](int i, int j, int& di, int& dj) {
-    const int gi = i + b.oi, gj = j + b.oj;
-    di = gi == 0 ? 1 : (gi == b.nx + 1 ? -1 : 0);
-    dj = gj == 0 ? 1 : (gj == b.ny + 1 ? -1 : 0);
   };
-  // the correction; p is final: its BC'd chunk goes out under the rest
-  TV_CHUNKS {
-    const int c = base + lane;
-    const int len = min(kWarp, n - base);
-    const int i = c / b.E1, j = c % b.E1;
-    T pbc = T(0);
-    if (lane < len) {
-      tv::correct_at(a.F, a.us, a.vs, p, a.u, a.v, b, i, j, a.jq, a.un[c], a.vn[c]);
-      int di, dj;
-      mirror(i, j, di, dj);
-      pbc = tv::ld(p, b, i + di, j + dj);
-    }
-    T* slot = ring.acquire();
-    if (lane < len) slot[lane] = pbc;
-    ring.send(slot, a.p_out, base, len, pbc);
-  }
-  grid.sync();
-  // the two sweeps: the first into us' buffer, the second, clamped, into
-  // vs' (u* and v* are dead); u and v are final: their BC'd chunks go out
-  // under the sweeps, which read the pre-BC un and vn
-  const int ax1 = a.even_step ? 1 : 0;
-  TV_CHUNKS {
-    const int c = base + lane;
-    const int len = min(kWarp, n - base);
-    const int i = c / b.E1, j = c % b.E1;
-    T ubc = T(0), vbc = T(0);
-    if (lane < len) {
-      a.us[c] = ax1 ? tv::sweep_at<T, 1>(a.F, a.vn, b, i, j, a.sy)
-                    : tv::sweep_at<T, 0>(a.F, a.un, b, i, j, a.sx);
-      const int gi = i + b.oi, gj = j + b.oj;
-      int di, dj;
-      mirror(i, j, di, dj);
-      ubc = gi == 1 || gi == b.nx + 1 ? T(0) : tv::ld(a.un, b, i, j + dj);
-      vbc = gj == 1 || gj == b.ny + 1 ? T(0) : tv::ld(a.vn, b, i + di, j);
-    }
-    T* slot = ring.acquire();
-    if (lane < len) slot[lane] = ubc;
-    ring.send(slot, a.u_out, base, len, ubc);
-    slot = ring.acquire();
-    if (lane < len) slot[lane] = vbc;
-    ring.send(slot, a.v_out, base, len, vbc);
-  }
-  grid.sync();
-  TV_CELLS {
-    a.vs[c] = tv::clamp01(ax1 ? tv::sweep_at<T, 0>(a.us, a.un, b, i, j, a.sx)
-                              : tv::sweep_at<T, 1>(a.us, a.vn, b, i, j, a.sy));
-  }
-  grid.sync();
-  TV_CHUNKS {
-    const int c = base + lane;
-    const int len = min(kWarp, n - base);
-    T fbc = T(0);
-    if (lane < len) {
-      const int i = c / b.E1, j = c % b.E1;
-      int di, dj;
-      mirror(i, j, di, dj);
-      fbc = tv::ld(a.vs, b, i + di, j + dj);
-    }
-    T* slot = ring.acquire();
-    if (lane < len) slot[lane] = fbc;
-    ring.send(slot, a.F_out, base, len, fbc);
-  }
-  // no bulk store may be in flight when the CTA exits
-  if (lane == 0) bulk_wait_all();
-#undef TV_CHUNKS
-#undef TV_CELLS
-}
 
-// Blocks of kThreads that the card holds resident at once with the most
-// dynamic shared memory a launch asks for (the most a cooperative launch
-// may have), asked once a device, or a negative CUDA error.
-template <typename T>
-int resident_blocks() {
-  static std::atomic<int> cache[tv::kMaxDevices];
-  return tv::per_device(cache, [](int dev) {
-    int sms, per_sm, coop;
-    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fullstep_dma_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes_max<T>());
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fullstep_dma_kernel<T>,
-                                                        kThreads, smem_bytes_max<T>());
-    if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
-    return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
-  });
-}
+  // A visitor of a group's inputs in every thread, once the copies have
+  // landed: in each box that reaches outside the block or the domain or
+  // past the field's last whole unit (a CTA-uniform test), zeroes the
+  // cells outside the block or the domain and loads those past the unit.
+  struct Fix {
+    template <int H, int W, int NF, typename>
+    __device__ __forceinline__ void load(const Block& b, const Box<T> (&box)[NF],
+                                         const T* const (&src)[NF]) const {
+      const Reach q(b, U);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const Box<T>& bx = box[f];
+        if (bx.i0 >= q.rlo && bx.i0 + H <= q.rhi && bx.j0 >= q.clo && bx.j0 + W <= q.chi &&
+            (bx.i0 + H - 1) * b.E1 + bx.j0 + W <= q.tail)
+          continue;
+        const T* a = src[f];
+        tv::for_cells<H, W>(bx.i0, bx.j0, [&](int i, int j) {
+          if (i < q.rlo || i >= q.rhi || j < q.clo || j >= q.chi) {
+            bx(i, j) = T(0);
+          } else if (i * b.E1 + j >= q.tail) {
+            bx(i, j) = a[i * b.E1 + j];
+          }
+        });
+      }
+    }
+  };
 
-// The launch's shape for an E0 x E1 block: CTAs, chunks of kThreads cells
-// the busiest CTA owns (its rounds), and the entry chunks of p each CTA
-// copies into shared memory; or a CUDA error.
-struct Plan {
-  int blocks, rounds, pin_slots;
+  // The CTA issues the inputs of tile t of group g (those the filter x,
+  // only takes) on mbarrier k: each warp counts its copies' bytes, and its
+  // lane 0 arrives with them before the warp issues them (the mbarrier
+  // expects one arrival a warp).
+  template <class G>
+  __device__ __forceinline__ void issue(const G& g, int t, const T* x, bool only, int k) {
+    const typename G::Boxes boxes(layout<G>(), t / tiles_j() * TH, t % tiles_j() * kTW);
+    Issue count{b, x, only, false, &bar[k], 0};
+    g.load(count, boxes);
+    const uint32_t bytes = __reduce_add_sync(0xffffffffu, count.bytes);
+    if (threadIdx.x == 0) mbar_arrive_expect_tx(&bar[k], bytes);
+    __syncwarp();
+    Issue copy{b, x, only, true, &bar[k], 0};
+    g.load(copy, boxes);
+  }
+
+  __device__ __forceinline__ void wait(int k) {
+    mbar_wait(&bar[k], (phase >> k) & 1u);
+    phase ^= 1u << k;
+  }
+
+  template <class G>
+  __device__ __forceinline__ void run(const G& g, bool pre) {
+    const int n = n_tiles();
+    for (int t = blockIdx.x; t < n; t += gridDim.x) {
+      const bool first = t == static_cast<int>(blockIdx.x);
+      if (!first || !pre) issue(g, t, nullptr, false, 0);
+      wait(0);
+      if (first && pre && (phase & kEarly)) {
+        wait(1);
+        phase &= ~kEarly;
+      }
+      const int ti = t / tiles_j() * TH, tj = t % tiles_j() * kTW;
+      const typename G::Boxes s(layout<G>(), ti, tj);
+      g.load(Fix{}, s);
+      __syncthreads();
+      g.compute(s, ti, tj);
+      fence_async_shared();  // before the boxes' next copies
+      __syncthreads();
+    }
+  }
+
+  // the Jacobi group of depth d: the rest of its first tile, then its tiles
+  template <class Make>
+  __device__ __forceinline__ void jacobi(int d, const Make& make, const T* x) {
+    tv::with_depth<kJacobiLevels>(d, [&](auto depth) {
+      const auto g = make(depth);
+      late(g, x, false);
+      run(g, true);
+    });
+  }
+
+  template <class G>
+  __device__ __forceinline__ void early(const G& g, const T* x, bool only) {
+    if (static_cast<int>(blockIdx.x) >= n_tiles()) return;
+    issue(g, blockIdx.x, x, only, 1);
+    phase |= kEarly;
+  }
+
+  template <class G>
+  __device__ __forceinline__ void late(const G& g, const T* x, bool only) {
+    if (static_cast<int>(blockIdx.x) < n_tiles()) issue(g, blockIdx.x, x, only, 0);
+  }
+
+  // the entry p of the first Jacobi group's first tile
+  template <class G>
+  __device__ __forceinline__ void begin(const G& g) {
+    early(g, g.src, true);
+  }
+
+  __device__ __forceinline__ void sync(cooperative_groups::grid_group& grid) {
+    fence_async_global();
+    grid.sync();
+    fence_async_global();
+  }
 };
 
+// At least 3 CTAs an SM in f32, as fullstep.cu's kernel (the f64 boxes
+// allow 2). R: the block's E1 modulo kU, which sets the boxes' pitches.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
+    fullstep_dma_kernel(const StepArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2];
+  Bulk<T, kRowsDma, R> pol(a.b, reinterpret_cast<T*>(smem_raw), bars);
+  tv::step_groups<kRowsDma>(a, pol);
+}
+
+// The kernel for E1 = R modulo kU (R < kU), or null.
 template <typename T>
-int plan_fullstep_dma(int E0, int E1, Plan& plan) {
-  const int resident = resident_blocks<T>();
-  if (resident < 0) return -resident;
-  const long long want = (static_cast<long long>(E0) * E1 + kThreads - 1) / kThreads;
-  plan.blocks = static_cast<int>(want < resident ? want : resident);
-  plan.rounds = static_cast<int>((want + plan.blocks - 1) / plan.blocks);
-  plan.pin_slots = plan.rounds < pin_slots_max<T>() ? plan.rounds : pin_slots_max<T>();
-  return 0;
+const void* kernel_of(int r) {
+  if constexpr (sizeof(T) == 4) {
+    const void* k[] = {reinterpret_cast<const void*>(fullstep_dma_kernel<T, 0>),
+                       reinterpret_cast<const void*>(fullstep_dma_kernel<T, 1>),
+                       reinterpret_cast<const void*>(fullstep_dma_kernel<T, 2>),
+                       reinterpret_cast<const void*>(fullstep_dma_kernel<T, 3>)};
+    return k[r];
+  } else {
+    const void* k[] = {reinterpret_cast<const void*>(fullstep_dma_kernel<T, 0>),
+                       reinterpret_cast<const void*>(fullstep_dma_kernel<T, 1>)};
+    return k[r];
+  }
+}
+
+// The CTAs an SM holds of the kernel for E1 = R modulo kU with its shared
+// bytes (granted once a device), asked once a device; or a negative CUDA
+// error. The kernels for the residues share their resources but not their
+// grants.
+template <typename T>
+int per_sm(int r) {
+  static std::atomic<int> cache[4][tv::kMaxDevices];
+  return tv::coop_per_sm(cache[r], kernel_of<T>(r), Map<T, kRowsDma>::smem);
+}
+
+// The launch on an (E0, E1) block: one CTA a 24-row tile up to what the
+// card holds resident, or a negative CUDA error.
+template <typename T>
+int plan_ctas(int E0, int E1) {
+  const int n = per_sm<T>(E1 % kU<T>);
+  if (n < 0) return n;
+  const long long tiles = tv::tiles_of(kRowsDma, E0, E1);
+  const long long resident = static_cast<long long>(n) * tv::sm_count();
+  return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
+// Cells of T in one block of the scratch on an (E0, E1) block.
+template <typename T>
+size_t scratch_block(int E0, int E1) {
+  return (static_cast<size_t>(E0) * E1 + kU<T> - 1) / kU<T> * kU<T>;
 }
 
 template <typename T>
 int launch_fullstep_dma(const void* const* fields, void* const* outs, void* scratch,
-                        tv::Block b, int n_jacobi, int even_step, const double* pc,
+                        Block b, int n_jacobi, int even_step, const double* pc,
                         const double* jc, const double* sxc, const double* syc,
                         int full_dv, int clamp, cudaStream_t stream) {
+  if (n_jacobi < 0) return static_cast<int>(cudaErrorInvalidValue);
   StepArgs<T> a;
   a.F = static_cast<const T*>(fields[0]);
   a.u = static_cast<const T*>(fields[1]);
@@ -396,10 +478,12 @@ int launch_fullstep_dma(const void* const* fields, void* const* outs, void* scra
   for (int k = 0; k < 4; ++k)  // cp.async.bulk's alignment
     if (reinterpret_cast<uintptr_t>(fields[k]) % 16 || reinterpret_cast<uintptr_t>(outs[k]) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
+  if (reinterpret_cast<uintptr_t>(scratch) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   T* s = static_cast<T*>(scratch);
-  const size_t n = static_cast<size_t>(b.E0) * b.E1;
-  T** bufs[] = {&a.kr, &a.us, &a.vs, &a.pa, &a.pb, &a.un, &a.vn};
-  for (int k = 0; k < 7; ++k) *bufs[k] = s + k * n;
+  const size_t n = scratch_block<T>(b.E0, b.E1);
+  T** bufs[] = {&a.us, &a.vs, &a.rhs, &a.pa, &a.pb};
+  for (int k = 0; k < 5; ++k) *bufs[k] = s + k * n;
   a.b = b;
   a.pq = tv::predict_params<T>(pc);
   a.jq = tv::project_params<T>(jc);
@@ -407,31 +491,43 @@ int launch_fullstep_dma(const void* const* fields, void* const* outs, void* scra
   a.sy = tv::sweep_params<T>(b.ny, b.nx, syc, full_dv, clamp);
   a.n_jacobi = n_jacobi;
   a.even_step = even_step;
-  Plan plan;
-  if (const int e = plan_fullstep_dma<T>(b.E0, b.E1, plan)) return e;
-  a.pin_slots = plan.pin_slots;
-  const size_t smem = static_cast<size_t>(a.pin_slots + kRing) * kThreads * sizeof(T);
+  const int ctas = plan_ctas<T>(b.E0, b.E1);
+  if (ctas < 0) return -ctas;
   void* args[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fullstep_dma_kernel<T>), dim3(plan.blocks),
-      dim3(kThreads), args, smem, stream);
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(kernel_of<T>(b.E1 % kU<T>), dim3(ctas), dim3(kTX, kTY), args,
+                                  Map<T, kRowsDma>::smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out = {threads a CTA, shared bytes a CTA, CTAs an SM, CTAs launched, tile
+// rows} on an (E0, E1) block
+template <typename T>
+int fullstep_dma_shape(int E0, int E1, int* out) {
+  const int ctas = plan_ctas<T>(E0, E1);
+  if (ctas < 0) return -ctas;
+  out[0] = kThreads;
+  out[1] = Map<T, kRowsDma>::smem;
+  out[2] = per_sm<T>(E1 % kU<T>);
+  out[3] = ctas;
+  out[4] = kRowsDma;
+  return 0;
+}
+
 }  // namespace
 
-// tv_fullstep_*'s interface (fullstep.cu); every field and output must be
-// 16-byte aligned (cudaErrorMisalignedAddress otherwise).
+// tv_fullstep_*'s interface (fullstep.cu), but the scratch holds
+// tv_fullstep_dma_scratch_*'s cells; every field, output and the scratch
+// must be 16-byte aligned (cudaErrorMisalignedAddress otherwise).
 extern "C" int tv_fullstep_dma_f32(const void* const* fields, void* const* outs,
                                    void* scratch, int E0, int E1, int oi, int oj,
                                    int nx, int ny, int n_jacobi, int even_step,
                                    const double* pc, const double* jc,
                                    const double* sxc, const double* syc,
                                    int full_dv, int clamp, void* stream) {
-  return launch_fullstep_dma<float>(fields, outs, scratch,
-                                    tv::Block{E0, E1, oi, oj, nx, ny}, n_jacobi,
-                                    even_step, pc, jc, sxc, syc, full_dv, clamp,
+  return launch_fullstep_dma<float>(fields, outs, scratch, Block{E0, E1, oi, oj, nx, ny},
+                                    n_jacobi, even_step, pc, jc, sxc, syc, full_dv, clamp,
                                     static_cast<cudaStream_t>(stream));
 }
 
@@ -441,25 +537,27 @@ extern "C" int tv_fullstep_dma_f64(const void* const* fields, void* const* outs,
                                    const double* pc, const double* jc,
                                    const double* sxc, const double* syc,
                                    int full_dv, int clamp, void* stream) {
-  return launch_fullstep_dma<double>(fields, outs, scratch,
-                                     tv::Block{E0, E1, oi, oj, nx, ny}, n_jacobi,
-                                     even_step, pc, jc, sxc, syc, full_dv, clamp,
+  return launch_fullstep_dma<double>(fields, outs, scratch, Block{E0, E1, oi, oj, nx, ny},
+                                     n_jacobi, even_step, pc, jc, sxc, syc, full_dv, clamp,
                                      static_cast<cudaStream_t>(stream));
 }
 
-// The launch's shape for an E0 x E1 block: plan[0..2] <- CTAs, the busiest
-// CTA's rounds, the entry chunks of p each CTA pins in shared memory (the
-// rest of its entry p is read from global memory at the seed).
-extern "C" int tv_fullstep_dma_plan_f32(int E0, int E1, int* plan) {
-  Plan pl{};
-  const int e = plan_fullstep_dma<float>(E0, E1, pl);
-  plan[0] = pl.blocks, plan[1] = pl.rounds, plan[2] = pl.pin_slots;
-  return e;
+// The cells of T the scratch holds on an (E0, E1) block: five blocks, each
+// of E0 * E1 cells rounded up to 16 bytes.
+extern "C" long long tv_fullstep_dma_scratch_f32(int E0, int E1) {
+  return static_cast<long long>(5 * scratch_block<float>(E0, E1));
 }
 
-extern "C" int tv_fullstep_dma_plan_f64(int E0, int E1, int* plan) {
-  Plan pl{};
-  const int e = plan_fullstep_dma<double>(E0, E1, pl);
-  plan[0] = pl.blocks, plan[1] = pl.rounds, plan[2] = pl.pin_slots;
-  return e;
+extern "C" long long tv_fullstep_dma_scratch_f64(int E0, int E1) {
+  return static_cast<long long>(5 * scratch_block<double>(E0, E1));
+}
+
+// The launch shape on an (E0, E1) block: out = {threads a CTA, shared
+// bytes a CTA, CTAs an SM, CTAs launched, tile rows}.
+extern "C" int tv_fullstep_dma_shape_f32(int E0, int E1, int* out) {
+  return fullstep_dma_shape<float>(E0, E1, out);
+}
+
+extern "C" int tv_fullstep_dma_shape_f64(int E0, int E1, int* out) {
+  return fullstep_dma_shape<double>(E0, E1, out);
 }

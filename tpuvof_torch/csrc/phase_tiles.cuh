@@ -1,6 +1,6 @@
 // The 2-D step's predictor and FCT sweep on shared-memory tiles, shared by
-// the phase kernels (predict.cu, fct_sweep.cu) and the whole-step kernel
-// (fullstep.cu).
+// the phase kernels (predict.cu, fct_sweep.cu) and the whole-step kernels
+// (step_groups.cuh).
 //
 // predict_values: a CTA stages F (rim 3) and u, v (rim 1) of its TH x kTW
 // tile through ld(), computes each Youngs normal once a cell, then kappa,
@@ -9,8 +9,8 @@
 // (u*, v*) to the caller. sweep_lines: one FCT sweep over a region, each
 // quantity once a position, a warp a 32-position line segment passing
 // neighbours by shuffles. Both evaluate step_cell.cuh's functions on the
-// same inputs in the same order as the per-cell ``*_at`` forms, so every
-// value is the same IEEE operations on the same operands.
+// same inputs in the order of the Pallas bodies, so every value is the
+// same IEEE operations on the same operands as the plain versions.
 #pragma once
 
 #include "stage_groups.cuh"
@@ -28,37 +28,47 @@ constexpr int predict_tile_values(int th, int ext) {
 
 // The predictor's shared-memory boxes for the TH x kTW tile at (ti, tj),
 // with u*/v* wanted on the tile and EXT (0 or 1) rows and columns beyond
-// it: F from (ti - 3, tj - 3), u and v from (ti - 1, tj - 1), kappa from
-// (ti - 1, tj - 1), the normals from (ti - 2, tj - 2).
+// it: F from (ti - 3, tj - 3), u and v from (ti - 1, tj - 1) (loaded),
+// kappa from (ti - 1, tj - 1), the normals from (ti - 2, tj - 2) (filled);
+// from a layout (stage_groups.cuh), or packed at sm.
 template <int TH, int EXT, typename T>
 struct PredictBoxes {
   static constexpr int H = TH + EXT, W = kTW + EXT;  // the u*/v* region
   Box<T> F, u, v, K, mx, my;
+  template <class L>
+  __device__ __forceinline__ PredictBoxes(L&& lay, int ti, int tj)
+      : F(lay.in(ti - 3, tj - 3, H + 5, W + 5, W + 5)),
+        u(lay.in(ti - 1, tj - 1, H + 2, W + 2, W + 2)),
+        v(lay.in(ti - 1, tj - 1, H + 2, W + 2, W + 2)),
+        K(lay.work(ti - 1, tj - 1, H + 1, W + 1)),
+        mx(lay.work(ti - 2, tj - 2, H + 3, W + 3)),
+        my(lay.work(ti - 2, tj - 2, H + 3, W + 3)) {}
   __device__ __forceinline__ PredictBoxes(T* sm, int ti, int tj)
-      : F{sm, ti - 3, tj - 3, W + 5},
-        u{F.end(H + 5), ti - 1, tj - 1, W + 2},
-        v{u.end(H + 2), ti - 1, tj - 1, W + 2},
-        K{v.end(H + 2), ti - 1, tj - 1, W + 1},
-        mx{K.end(H + 1), ti - 2, tj - 2, W + 3},
-        my{mx.end(H + 3), ti - 2, tj - 2, W + 3} {}
+      : PredictBoxes(Packed<T>{sm}, ti, tj) {}
 };
 
-// Stages F, u, v into the boxes s (read through ld(): 0 outside the block
-// and the global domain), computes the normals once a cell (zero off the
-// global interior), kappa (0 off the global interior and outside the
-// block) and u*, v* on the (TH + EXT) x (kTW + EXT) region at (ti, tj),
-// handing each to out(i, j, u*, v*). The normals are dead during the u*/v*
-// pass, so out may store into their space; the caller syncs before the
-// boxes are used again.
+// The predictor's inputs as a visitor sees them: F (rim 3), u and v (rim
+// 1) of their block fields.
+template <int TH, int EXT, typename T, class V>
+__device__ __forceinline__ void predict_load(V&& st, const Block& b,
+                                             const PredictBoxes<TH, EXT, T>& s, const T* F,
+                                             const T* u, const T* v) {
+  constexpr int H = PredictBoxes<TH, EXT, T>::H, W = PredictBoxes<TH, EXT, T>::W;
+  st.template load<H + 5, W + 5, 1, T>(b, {s.F}, {F});
+  st.template load<H + 2, W + 2, 2, T>(b, {s.u, s.v}, {u, v});
+}
+
+// On the staged boxes s: the normals once a cell (zero off the global
+// interior), kappa (0 off the global interior and outside the block) and
+// u*, v* on the (TH + EXT) x (kTW + EXT) region at (ti, tj), handing each
+// to out(i, j, u*, v*). The normals are dead during the u*/v* pass, so
+// out may store into their space; the caller syncs before the boxes are
+// used again.
 template <int TH, int EXT, typename T, class Out>
-__device__ __forceinline__ void predict_values(const Block& b, const PredictParams<T>& q,
-                                               const PredictBoxes<TH, EXT, T>& s, const T* F,
-                                               const T* u, const T* v, int ti, int tj,
+__device__ __forceinline__ void predict_passes(const Block& b, const PredictParams<T>& q,
+                                               const PredictBoxes<TH, EXT, T>& s, int ti, int tj,
                                                const Out& out) {
   constexpr int H = PredictBoxes<TH, EXT, T>::H, W = PredictBoxes<TH, EXT, T>::W;
-  stage<H + 5, W + 5, 1, T>(b, {s.F}, {F});
-  stage<H + 2, W + 2, 2, T>(b, {s.u, s.v}, {u, v});
-  __syncthreads();
   for_cells<H + 3, W + 3>(ti - 2, tj - 2, [&](int i, int j) {
     T x = T(0), y = T(0);
     if (b.interior(i, j)) normal_of(Tile<T>(s.F, i, j), q, x, y);
@@ -79,6 +89,18 @@ __device__ __forceinline__ void predict_values(const Block& b, const PredictPara
                 b, i, j, q, x, y);
     out(i, j, x, y);
   });
+}
+
+// Stages F, u, v into the boxes s with thread loads (read through ld():
+// 0 outside the block and the global domain), then predict_passes.
+template <int TH, int EXT, typename T, class Out>
+__device__ __forceinline__ void predict_values(const Block& b, const PredictParams<T>& q,
+                                               const PredictBoxes<TH, EXT, T>& s, const T* F,
+                                               const T* u, const T* v, int ti, int tj,
+                                               const Out& out) {
+  predict_load(ThreadStage{}, b, s, F, u, v);
+  __syncthreads();
+  predict_passes(b, q, s, ti, tj, out);
 }
 
 // ---- one FCT sweep ----

@@ -21,7 +21,7 @@
 //   first: stages the entry p, F, u* and v* on the tile + the group's rim
 //          and forms rhs there, then the group's sweeps; writes the tile's
 //          rhs (the later groups stage it) and p;
-//   middle: tv::jacobi_tile (stages p and rhs); writes p;
+//   middle: tv::jacobi_depth_tile (stages p and rhs); writes p;
 //   last:  its sweeps on the tile + 1 (one more rim), so that p is final
 //          where the correction reads it (the cell and one below/left),
 //          then the correction of the tile; writes p, u, v.

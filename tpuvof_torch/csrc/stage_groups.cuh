@@ -22,7 +22,16 @@
 // global memory. Jacobi runs out of place, ping-ponging two boxes; it
 // updates the cells of the global interior that are not on the block's
 // edge, so every other p keeps its staged entry value.
+//
+// A group's tile is described once (its boxes, its inputs, its passes)
+// and run under a staging policy: thread loads (stage, thread_tile) here,
+// bulk asynchronous copies in fullstep_dma.cu. The boxes come from a
+// layout object: in(i0, j0, rows, cols, w) for a box whose cells are
+// loaded, work(i0, j0, rows, w) for one the passes fill, w the pitch the
+// thread-load layout (Packed) gives it.
 #pragma once
+
+#include <type_traits>
 
 #include "step_cell.cuh"
 
@@ -110,6 +119,56 @@ __device__ __forceinline__ void stage(const Block& b, const Box<T> (&box)[NF],
   }
 }
 
+// The layout of thread loads: boxes packed from ``next`` in the order
+// asked, each at the pitch given.
+template <typename T>
+struct Packed {
+  T* next;
+  __device__ __forceinline__ Box<T> work(int i0, int j0, int rows, int w) {
+    const Box<T> box{next, i0, j0, w};
+    next += rows * w;
+    return box;
+  }
+  __device__ __forceinline__ Box<T> in(int i0, int j0, int rows, int /*cols*/, int w) {
+    return work(i0, j0, rows, w);
+  }
+};
+
+// Thread loads as a visitor of a group's inputs (G::load): each H x W
+// region of NF fields is staged at once (stage).
+struct ThreadStage {
+  template <int H, int W, int NF, typename T>
+  __device__ __forceinline__ void load(const Block& b, const Box<T> (&box)[NF],
+                                       const T* const (&src)[NF]) const {
+    stage<H, W, NF, T>(b, box, src);
+  }
+};
+
+// The tile at (ti, tj) of group g with thread loads into the boxes at sm:
+// stage its inputs, run its passes, and a barrier before the next tile
+// reuses the boxes.
+template <class G, typename T>
+__device__ __forceinline__ void thread_tile(const G& g, T* sm, int ti, int tj) {
+  const typename G::Boxes s(Packed<T>{sm}, ti, tj);
+  g.load(ThreadStage{}, s);
+  __syncthreads();
+  g.compute(s, ti, tj);
+  __syncthreads();
+}
+
+// f(std::integral_constant<int, d>) for a depth 1 <= d <= D known at run
+// time.
+template <int D, class F>
+__device__ __forceinline__ void with_depth(int d, const F& f) {
+  if constexpr (D > 1) {
+    if (d < D) {
+      with_depth<D - 1>(d, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, D>{});
+}
+
 // Sweeps M..D of a Jacobi group whose exact region at the end is the
 // TH x TW region at (ti, tj), from cur into nxt: sweep M is exact on that
 // region + D - M.
@@ -127,43 +186,58 @@ __device__ __forceinline__ void jacobi_sweeps(const Block& b, const ProjectParam
   }
 }
 
-// Shared values of T of jacobi_tile's boxes at depth D: two levels and rhs.
+// Shared values of T of a Jacobi group's boxes at depth D: two levels and rhs.
 constexpr int jacobi_tile_values(int th, int d) {
   return 3 * (th + 2 * d) * (kTW + 2 * d);
 }
 
-// D sweeps of the tile at (ti, tj), from src into dst, with rhs a block
-// field (0 off the global interior).
+// A Jacobi group of depth D on tiles of TH rows: D sweeps from src into
+// dst, rhs a block field (0 off the global interior). Its boxes: p and rhs
+// on the tile + D (loaded) and the second level (filled).
 template <int TH, int D, typename T>
-__device__ __forceinline__ void jacobi_tile(const Block& b, const ProjectParams<T>& q, T* sm,
-                                            int ti, int tj, const T* src, const T* rhs_f,
-                                            T* dst) {
-  constexpr int H = TH + 2 * D, W = kTW + 2 * D;
-  const Box<T> p0{sm, ti - D, tj - D, W};
-  const Box<T> p1{p0.end(H), ti - D, tj - D, W};
-  const Box<T> rhs{p1.end(H), ti - D, tj - D, W};
-  stage<H, W, 2, T>(b, {p0, rhs}, {src, rhs_f});
-  __syncthreads();
-  jacobi_sweeps<TH, kTW, D, 1>(b, q, p0, p1, rhs, ti, tj);
-  const Box<T>& out = D % 2 ? p1 : p0;
-  for_cells<TH, kTW>(ti, tj, [&](int i, int j) {
-    if (b.inside(i, j)) dst[i * b.E1 + j] = out(i, j);
-  });
-  __syncthreads();
-}
+struct JacobiGroup {
+  static constexpr int kRows = TH;
+  static constexpr int H = TH + 2 * D, W = kTW + 2 * D;
+  const Block& b;
+  const ProjectParams<T>& q;
+  const T* src;
+  const T* rhs;
+  T* dst;
 
-// jacobi_tile at a depth 1 <= d <= D known at run time.
+  struct Boxes {
+    Box<T> p0, p1, rhs;
+    template <class L>
+    __device__ __forceinline__ Boxes(L&& lay, int ti, int tj)
+        : p0(lay.in(ti - D, tj - D, H, W, W)),
+          p1(lay.work(ti - D, tj - D, H, W)),
+          rhs(lay.in(ti - D, tj - D, H, W, W)) {}
+  };
+
+  template <class V>
+  __device__ __forceinline__ void load(V&& st, const Boxes& s) const {
+    st.template load<H, W, 2, T>(b, {s.p0, s.rhs}, {src, rhs});
+  }
+
+  __device__ __forceinline__ void compute(const Boxes& s, int ti, int tj) const {
+    jacobi_sweeps<TH, kTW, D, 1>(b, q, s.p0, s.p1, s.rhs, ti, tj);
+    const Box<T>& out = D % 2 ? s.p1 : s.p0;
+    for_cells<TH, kTW>(ti, tj, [&](int i, int j) {
+      if (b.inside(i, j)) dst[i * b.E1 + j] = out(i, j);
+    });
+  }
+};
+
+// d <= D sweeps (d known at run time) of the tile at (ti, tj) with thread
+// loads, from src into dst, with rhs a block field (0 off the global
+// interior).
 template <int TH, int D, typename T>
 __device__ __forceinline__ void jacobi_depth_tile(int d, const Block& b,
                                                   const ProjectParams<T>& q, T* sm, int ti,
                                                   int tj, const T* src, const T* rhs_f, T* dst) {
-  if constexpr (D > 1) {
-    if (d < D) {
-      jacobi_depth_tile<TH, D - 1>(d, b, q, sm, ti, tj, src, rhs_f, dst);
-      return;
-    }
-  }
-  jacobi_tile<TH, D>(b, q, sm, ti, tj, src, rhs_f, dst);
+  with_depth<D>(d, [&](auto depth) {
+    const JacobiGroup<TH, decltype(depth)::value, T> g{b, q, src, rhs_f, dst};
+    thread_tile(g, sm, ti, tj);
+  });
 }
 
 // The tiles of TH rows x kTW columns that cover an (E0, E1) block.

@@ -6,9 +6,8 @@
 // nx x ny interior cells. Each stage's arithmetic is written once, in a
 // function ``*_of`` that reads its fields through accessors: A(di, dj) is
 // the field at (i + di, j + dj), zero outside the block and the global
-// domain. The ``*_at`` functions take global-memory fields (Near, Ld;
-// fullstep_dma.cu calls them); the other kernels call the ``*_of``
-// functions on shared-memory tiles (stage_groups.cuh, phase_tiles.cuh).
+// domain. The kernels call them on shared-memory tiles (stage_groups.cuh,
+// phase_tiles.cuh, step_groups.cuh).
 // A kernel on the whole grid is the case oi = oj = 0,
 // (E0, E1) = (nx+2, ny+2). Masks are taken at global indices,
 // and ld() zeroes every value outside the global ghost-included domain
@@ -53,36 +52,6 @@ __device__ __forceinline__ T ld(const T* __restrict__ a, const Block& b, int i,
                                 int j) {
   return b.inside(i, j) && b.domain(i, j) ? a[i * b.E1 + j] : T(0);
 }
-
-// Reads at +-1 around a cell of the global interior: they all lie in the
-// global domain, so where the cell is off the block's edge they are plain
-// loads, and ld() only serves the block's edge.
-template <typename T>
-struct Near {
-  const T* __restrict__ a;
-  const Block& b;
-  int i, j;
-  bool inner;
-  __device__ __forceinline__ Near(const T* __restrict__ a_, const Block& b_, int i_, int j_)
-      : a(a_), b(b_), i(i_), j(j_),
-        inner(i_ >= 1 && i_ < b_.E0 - 1 && j_ >= 1 && j_ < b_.E1 - 1) {}
-  __device__ __forceinline__ T operator()(int di, int dj) const {
-    return inner ? a[(i + di) * b.E1 + (j + dj)] : ld(a, b, i + di, j + dj);
-  }
-};
-
-// ld() at offsets from cell (i, j), as an accessor.
-template <typename T>
-struct Ld {
-  const T* __restrict__ a;
-  const Block& b;
-  int i, j;
-  __device__ __forceinline__ Ld(const T* __restrict__ a_, const Block& b_, int i_, int j_)
-      : a(a_), b(b_), i(i_), j(j_) {}
-  __device__ __forceinline__ T operator()(int di, int dj) const {
-    return ld(a, b, i + di, j + dj);
-  }
-};
 
 // ---- predict: materials, Youngs normals, curvature, momentum ----
 
@@ -141,19 +110,6 @@ __device__ __forceinline__ void normal_of(const A& f, const PredictParams<T>& q,
   my = degenerate ? mysum : quot(mysum, safe_mag);
 }
 
-// Youngs normal of cell (i, j); zero off the global interior.
-template <typename T>
-__device__ __forceinline__ void normal_at(const T* __restrict__ F, const Block& b,
-                                          int i, int j, const PredictParams<T>& q,
-                                          T& mx, T& my) {
-  if (!b.interior(i, j)) {
-    mx = T(0);
-    my = T(0);
-    return;
-  }
-  normal_of(Near<T>(F, b, i, j), q, mx, my);
-}
-
 // kappa = -div(normal) at a cell of the global interior, from the normals
 // of its four neighbours.
 template <typename T>
@@ -162,21 +118,8 @@ __device__ __forceinline__ T curvature_of(T mx_e, T mx_w, T my_n, T my_s,
   return -(q.inv2dx * (mx_e - mx_w) + q.inv2dy * (my_n - my_s));
 }
 
-// kappa = -div(normal) on the global interior, 0 elsewhere.
-template <typename T>
-__device__ __forceinline__ T curvature_at(const T* __restrict__ F, const Block& b,
-                                          int i, int j, const PredictParams<T>& q) {
-  if (!b.interior(i, j)) return T(0);
-  T mx_e, my_e, mx_w, my_w, mx_n, my_n, mx_s, my_s;
-  normal_at(F, b, i + 1, j, q, mx_e, my_e);
-  normal_at(F, b, i - 1, j, q, mx_w, my_w);
-  normal_at(F, b, i, j + 1, q, mx_n, my_n);
-  normal_at(F, b, i, j - 1, q, mx_s, my_s);
-  return curvature_of(mx_e, mx_w, my_n, my_s, q);
-}
-
 // u* on global rows [2, nx+1) x cols [1, ny+1), v* on [1, nx+1) x
-// [2, ny+1), 0 elsewhere; kappa is curvature_at's field.
+// [2, ny+1), 0 elsewhere; kappa is curvature_of's field.
 template <typename T, class A>
 __device__ __forceinline__ void momentum_of(const A& U, const A& V, const A& Fv, const A& K,
                                             const Block& b, int i, int j,
@@ -214,18 +157,6 @@ __device__ __forceinline__ void momentum_of(const A& U, const A& V, const A& Fv,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void momentum_at(const T* __restrict__ u,
-                                            const T* __restrict__ v,
-                                            const T* __restrict__ F,
-                                            const T* __restrict__ kappa,
-                                            const Block& b, int i, int j,
-                                            const PredictParams<T>& q, T& us,
-                                            T& vs) {
-  momentum_of(Near<T>(u, b, i, j), Near<T>(v, b, i, j), Near<T>(F, b, i, j),
-              Near<T>(kappa, b, i, j), b, i, j, q, us, vs);
-}
-
 // ---- projection: rhs, Jacobi, correction ----
 
 template <typename T>
@@ -260,13 +191,6 @@ __device__ __forceinline__ T rhs_of(const A& F, const A& us, const A& vs,
   return rho / q.dt * ((us(1, 0) - us(0, 0)) * q.dxi + (vs(0, 1) - vs(0, 0)) * q.dyi);
 }
 
-template <typename T>
-__device__ __forceinline__ T rhs_at(const T* __restrict__ F, const T* __restrict__ us,
-                                    const T* __restrict__ vs, const Block& b, int i,
-                                    int j, const ProjectParams<T>& q) {
-  return rhs_of(Ld<T>(F, b, i, j), Ld<T>(us, b, i, j), Ld<T>(vs, b, i, j), q);
-}
-
 // One Jacobi update of a cell of the global interior; the edge
 // coefficients are zero on the global walls and ap_inv is picked from the
 // four edge-class constants (_inline_poisson_coeffs).
@@ -282,13 +206,6 @@ __device__ __forceinline__ T jacobi_of(const A& src, T rhs, const Block& b, int 
   const int y_edge = gj == 1 || gj == b.ny;
   return (rhs - ae * src(1, 0) - aw * src(-1, 0) - an * src(0, 1) - a_s * src(0, -1)) *
          q.ap_inv[x_edge][y_edge];
-}
-
-template <typename T>
-__device__ __forceinline__ T jacobi_at(const T* __restrict__ src, T rhs,
-                                       const Block& b, int i, int j,
-                                       const ProjectParams<T>& q) {
-  return jacobi_of(Ld<T>(src, b, i, j), rhs, b, i, j, q);
 }
 
 // u on global rows [2, nx+1) x cols [1, ny+1) and v on [1, nx+1) x
@@ -310,19 +227,6 @@ __device__ __forceinline__ void correct_of(const A& F, const A& us, const A& vs,
     const T r_v = (rho_c + mix_rho(F(0, -1), q.rho_l, q.rho_g)) * T(0.5);
     vo = vs(0, 0) - q.dt / r_v * (pc - p(0, -1)) * q.dyi;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void correct_at(const T* __restrict__ F,
-                                           const T* __restrict__ us,
-                                           const T* __restrict__ vs,
-                                           const T* __restrict__ p,
-                                           const T* __restrict__ u,
-                                           const T* __restrict__ v, const Block& b,
-                                           int i, int j, const ProjectParams<T>& q,
-                                           T& uo, T& vo) {
-  correct_of(Ld<T>(F, b, i, j), Ld<T>(us, b, i, j), Ld<T>(vs, b, i, j), Ld<T>(p, b, i, j),
-             Ld<T>(u, b, i, j), Ld<T>(v, b, i, j), b, i, j, q, uo, vo);
 }
 
 // ---- one Rudman/Zalesak FCT sweep ----
@@ -356,10 +260,9 @@ SweepParams<T> sweep_params(int n_ax, int n_ot, const double* c, int full_dv,
 
 // The sweep's quantities at one position of its line, global index k
 // along the sweep (a face is the lower face of its cell, between cells
-// k - 1 and k): each is a function of its position alone. sweep_of
-// evaluates them on a 7-cell window around every cell; phase_tiles.cuh's
-// sweep_lines evaluates each once a position. Ftd, rp, rm and a are zero
-// off their global ranges, as in _sweep_body.
+// k - 1 and k): each is a function of its position alone.
+// phase_tiles.cuh's sweep_lines evaluates each once a position. Ftd, rp,
+// rm and a are zero off their global ranges, as in _sweep_body.
 
 // low- and high-order fluxes through face k (velocity u at k, donor cells
 // F_lo at k - 1 and F at k)
@@ -423,54 +326,6 @@ __device__ __forceinline__ T sweep_result(T Ftd, T a, T c, T a_hi, T c_hi, T dv,
   T f_new = Ftd - quot(corr * q.dx * q.dy, dv);
   if (q.clamp) f_new = clamp01(f_new);
   return f_new;
-}
-
-// F at cell (i, j) after one sweep along i (AXIS 0) or j (AXIS 1); off the
-// global interior the (sanitized) entry F. The output depends on F and the
-// velocity within +-3 along the axis: the thread loads that 7-cell line
-// and evaluates the quantities it needs (fluxes on 6 faces, Ftd on 5
-// cells, rp/rm on 3, c on 2).
-template <typename T, int AXIS, class A>
-__device__ __forceinline__ T sweep_of(const A& F, const A& vel, const Block& b, int i, int j,
-                                      const SweepParams<T>& q) {
-  const int k = AXIS == 0 ? i + b.oi : j + b.oj;  // global index along
-  const int m = AXIS == 0 ? j + b.oj : i + b.oi;  // and across the sweep
-  if (k < 1 || k > q.n_ax || m < 1 || m > q.n_ot) return F(0, 0);
-
-  // position r of the line holds global index k - 3 + r along the sweep
-  T Fw[7], uw[7];
-#pragma unroll
-  for (int r = 0; r < 7; ++r) {
-    const int di = AXIS == 0 ? r - 3 : 0;
-    const int dj = AXIS == 0 ? 0 : r - 3;
-    Fw[r] = F(di, dj);
-    uw[r] = vel(di, dj);
-  }
-  // fluxes on faces r = 1..6, a on faces 2..5, Ftd on cells 1..5, the
-  // ratios on cells 2..4, c on faces 3 and 4
-  T fL[7], fH[7], a[7], Ftd[7], dv[7], rp[7], rm[7];
-#pragma unroll
-  for (int r = 1; r < 7; ++r) sweep_fluxes(uw[r], Fw[r - 1], Fw[r], q, fL[r], fH[r]);
-#pragma unroll
-  for (int r = 2; r < 6; ++r) a[r] = sweep_anti(k - 3 + r, fL[r], fH[r]);
-#pragma unroll
-  for (int r = 1; r < 6; ++r) {
-    dv[r] = sweep_dv(uw[r], uw[r + 1], q);
-    Ftd[r] = sweep_ftd(k - 3 + r, Fw[r], fL[r], fL[r + 1], dv[r], q);
-  }
-#pragma unroll
-  for (int r = 2; r < 5; ++r)
-    sweep_ratios(k - 3 + r, Ftd[r - 1], Ftd[r], Ftd[r + 1], a[r], a[r + 1], q, rp[r], rm[r]);
-  const T c3 = sweep_factor(a[3], rp[2], rm[2], rp[3], rm[3]);
-  const T c4 = sweep_factor(a[4], rp[3], rm[3], rp[4], rm[4]);
-  return sweep_result(Ftd[3], a[3], c3, a[4], c4, dv[3], q);
-}
-
-template <typename T, int AXIS>
-__device__ __forceinline__ T sweep_at(const T* __restrict__ F,
-                                      const T* __restrict__ vel, const Block& b,
-                                      int i, int j, const SweepParams<T>& q) {
-  return sweep_of<T, AXIS>(Ld<T>(F, b, i, j), Ld<T>(vel, b, i, j), b, i, j, q);
 }
 
 }  // namespace tv

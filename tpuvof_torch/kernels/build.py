@@ -42,7 +42,6 @@ _SIGNATURES = {
     "tv_fct_sweep": [_P] * 3 + _BLOCK + [_I, _D, _I, _I, _P],
     "tv_fullstep": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
     "tv_fullstep_dma": [_PP, _PP, _P] + _BLOCK + [_I, _I, _D, _D, _D, _D, _I, _I, _P],
-    "tv_fullstep_dma_plan": [_I, _I, ctypes.POINTER(_I)],
     "tv_predict3d": [_P] * 9 + _VOL + [_D, _P],
     "tv_correct3d": [_P] * 8 + _VOL + [_D, _P],
     "tv_fct3d": [_P] * 3 + _VOL + [_I, _I, _D, _P],
@@ -51,6 +50,7 @@ _SIGNATURES = {
     "tv_jacobi3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fct3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fullstep_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_fullstep_dma_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_project_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_predict_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fct_sweep_shape": [_I, _I, _I, ctypes.POINTER(_I)],
@@ -143,6 +143,10 @@ def load_library() -> ctypes.CDLL:
         lib.tv_error_string.restype = ctypes.c_char_p
         lib.tv_fullstep_levels.argtypes = [_I, ctypes.POINTER(_I), _I]
         lib.tv_fullstep_levels.restype = ctypes.c_int
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, "tv_fullstep_dma_scratch" + suffix)
+            fn.argtypes = [_I, _I]
+            fn.restype = ctypes.c_longlong
         _lib = lib
         return lib
 

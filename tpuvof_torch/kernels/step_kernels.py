@@ -31,10 +31,12 @@ both sweeps, the clamp and the BCs. ``project`` runs the same Jacobi
 groups in one launch, the rhs in the first and the correction in the
 last.
 
-``fullstep_dma`` computes ``fullstep``'s step bit for bit and moves the
-state by bulk asynchronous copies. As in tpuvof, no solver route calls
-it: its callers are its A/B script (scripts/torch_mono_dma_ab.py) and the
-tests. Its operands must be 16-byte aligned.
+``fullstep_dma`` computes ``fullstep``'s step bit for bit, in the same
+stage groups, and moves each tile's inputs and outputs by bulk
+asynchronous copies. As in tpuvof, no solver route calls it: its callers
+are its A/B scripts (scripts/torch_mono_dma_ab.py, scripts/torch_ab2d.py)
+and the tests. Its operands must be 16-byte aligned, and its scratch is
+laid out by its library (``scratch_cells``).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
@@ -87,6 +89,7 @@ __all__ = [
     "fullstep_win_plain",
     "fullstep_strips_plain",
     "fullstep_dma_plain",
+    "scratch_cells",
 ]
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
@@ -355,15 +358,27 @@ def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
     return _launch_sweep("fct_sweep_win", cfg, F, vel, axis, shape, int(oi), int(oj))
 
 
-#: Block-sized scratch fields each whole-step entry point takes.
-_SCRATCH_BLOCKS = {"fullstep": 5, "fullstep_dma": 7}
+#: Block-sized scratch fields the whole-step kernels take.
+_SCRATCH_BLOCKS = 5
+
+
+def scratch_cells(entry: str, shape, dtype) -> int:
+    """Cells of the scratch a whole-step entry point allocates on an
+    (E0, E1) block of ``dtype``: five blocks for ``fullstep``; for
+    ``fullstep_dma``, whose bulk copies need every block aligned, as many
+    as its library lays out (``tv_fullstep_dma_scratch_*``)."""
+    e0, e1 = int(shape[0]), int(shape[1])
+    if entry != "fullstep_dma":
+        return _SCRATCH_BLOCKS * e0 * e1
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    return int(getattr(load_library(), "tv_fullstep_dma_scratch" + suffix)(e0, e1))
 
 
 def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step, entry="fullstep"):
     lib, fn, stream = _checked(entry, shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
     outs = [torch.empty_like(F) for _ in range(4)]
-    scratch = torch.empty((_SCRATCH_BLOCKS[entry],) + tuple(shape), dtype=F.dtype,
+    scratch = torch.empty(scratch_cells(entry, shape, F.dtype), dtype=F.dtype,
                           device=F.device)
     ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
     out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
@@ -408,8 +423,8 @@ def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool):
 
 
 def fullstep_dma(cfg: SimConfig, F, u, v, p, even_step: bool):
-    """(F, u, v, p) after one lean step as one kernel launch whose state
-    moves by bulk asynchronous copies, equal to fullstep's bit for bit;
+    """(F, u, v, p) after one lean step as one kernel launch whose tiles
+    move by bulk asynchronous copies, equal to fullstep's bit for bit;
     counterpart of tpuvof's pallas_fullstep_dma. CUDA operands must start
     on a 16-byte boundary (a sliced view may not)."""
     if _on_cpu(F):
