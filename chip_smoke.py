@@ -115,6 +115,25 @@ Phases, each fatal on failure:
      beside its plain version's and its bound, with fullstep's from the
      same call; both launch shapes, on lines of their own; in f64 at 512^2
      and 2048^2 the two kernels' us per launch on the device alone.
+ 15. the differentiable path (tpuvof_torch.diff, models.advection), plain
+     torch on the card as tpuvof's runs plain XLA ops: counts set to 0
+     before and read after, and no kernel of csrc/ launched. loss and
+     dL/dF0 on the card in f64 against the same call on the CPU (unrolled
+     and self-adjoint Jacobi at 24^2 x 20, the converged mg and rbsor at
+     16^2 x 3). The reference's workload, uncut: diff_config(80) (gy =
+     -1000, FCT_DIFF, self-adjoint Jacobi, 10 sweeps) in f32, 3 epochs of
+     optimize_f0 over 999 steps with remat from F0 = 0 toward the circle:
+     each loss, max|g| and the gate's share, s/epoch after the first, the
+     host ms a step and the device's idle share (torch.profiler), the peak
+     memory of one loss_and_grad with and without remat. max|g| under
+     'unrolled' and 'selfadjoint' at 10 to 400 steps from F0 = 0 (finite,
+     < 50, and one gradient: no cotangent reaches the solve there), and at
+     10 to 200 from the dam break beside the CPU's f32 unrolled gradient;
+     the converged mg projection (sor_tol_rel 1e-3) over 100 steps from
+     both starts (finite, < 50 from F0 = 0), its V-cycles a solve; the
+     single vortex at its defaults (500^2, 1000 steps, f32): mass, bounds,
+     host ms a step and idle share; one advection_loss_and_grad over 20
+     steps at 500^2.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -212,6 +231,30 @@ OPS_PER_CELL.update({"predict3d_rhs": 160, "correct3d": 30, "fct3d_sweep": 45,
 NORMAL_OPS, NORMAL_UNIFORM_OPS, KAPPA_OPS, SIGMA_OPS = 189, 30, 9, 60
 FIELDS_MOVED.update({"kappa3d": 2, "predict3d_rhs csf": 8})
 FIELDS_MOVED.update({"predict3d_rhs": 8, "correct3d": 8, "fct3d_sweep": 3, "jacobi3d": 3})
+
+
+# phase 15: the differentiable path. Card f64 against CPU f64 through the
+# same code: reductions may reassociate on the card, nothing else differs
+DIFF_TOL_GRAD = 1e-9  # |dgrad| / max|grad|
+DIFF_TOL_LOSS = 1e-12
+DIFF_N = 80  # the reference's diff grid (diff_vof.py), uncut
+DIFF_STEPS = 999
+DIFF_EPOCHS = 3
+DIFF_HORIZONS = (10, 50, 100, 200, 400)
+DIFF_HORIZONS_DAM = (10, 50, 100, 200)  # from the dam break, card beside CPU
+DIFF_MG_STEPS = 100  # the mg exit test reads the host once a V-cycle
+DIFF_IDLE_STEPS = 20  # the profiled window of the idle share
+# tpuvof's bound on |g| at the 999-step horizon
+# (tests/test_diff_implicit.py::test_diff_mg_grads_bounded_999_steps)
+DIFF_GRAD_BOUND = 50.0
+# the vortex at its defaults runs at CFL 1, where the test variant's
+# flux-only dV compensation loses mass linearly: -1.86e-2 over 1000 steps
+# for tpuvof and the port alike (f32, CPU: tests/test_torch_advection.py::
+# test_vortex_at_reference_size_matches_tpuvof); bounds as tpuvof's test
+VORTEX_STEPS = 1000
+VORTEX_MASS_BAR = 2.5e-2
+VORTEX_BOUND = 5e-2
+ADVECTION_GRAD_STEPS = 20
 
 
 def check(cond: bool, msg: str) -> None:
@@ -898,6 +941,222 @@ def sweep_shapes(lib) -> dict:
     return out
 
 
+def idle_share(fn) -> tuple[float, float | None]:
+    """(host-clock ms of one call of ``fn`` behind synchronize fences, the
+    device's idle share over it: 1 - the kernels' summed device time from
+    torch.profiler / that time; None where the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+                  for ev in prof.key_averages()) / 1e3
+    return wall_ms, (1.0 - busy_ms / wall_ms if busy_ms > 0 else None)
+
+
+def run_diff_phase(tt, counters, tag) -> None:
+    """Phase 15: the differentiable path on the card (see the module's
+    docstring)."""
+    from tpuvof_torch import diff
+    from tpuvof_torch.models.advection import simulate_advection, single_vortex
+    from tpuvof_torch.ops import mg as mg_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset_launch_counts()
+
+    # card f64 against CPU f64, the same seeded F0
+    rng = np.random.default_rng(SEED)
+    cases = [("unrolled 24^2 x20", diff.diff_config(24, adjoint="unrolled"), 20),
+             ("selfadjoint 24^2 x20", diff.diff_config(24), 20)]
+    cases += [(f"{s} 16^2 x3", diff.diff_config(16, pressure_solver=s, sor_tol=1e-11,
+                                                sor_max_iter=3000), 3) for s in ("mg", "rbsor")]
+    for label, cfg, steps in cases:
+        F0 = rng.uniform(0.2, 0.8, cfg.grid.shape)
+        T = diff.diff_target(cfg, 2, device="cpu").to(torch.float64)
+        (lc, gc), (lh, gh) = (diff.loss_and_grad(cfg, torch.as_tensor(F0, device=d),
+                                                 T.to(d), steps) for d in ("cuda", "cpu"))
+        loss_rel = abs(lc.item() - lh.item()) / abs(lh.item())
+        grad_rel = (gc.cpu() - gh).abs().max().item() / gh.abs().max().item()
+        print(f"diff card f64 vs CPU f64 {label}: loss {lc.item():.15e} rel {loss_rel:.3e} "
+              f"(bar {DIFF_TOL_LOSS:.0e}); grad rel {grad_rel:.3e} (bar {DIFF_TOL_GRAD:.0e}), "
+              f"max|g| {gh.abs().max().item():.4e}")
+        check(loss_rel <= DIFF_TOL_LOSS, f"diff {label}: loss rel {loss_rel:.3e}")
+        check(grad_rel <= DIFF_TOL_GRAD, f"diff {label}: grad rel {grad_rel:.3e}")
+
+    # the reference's workload, f32, uncut: 3 epochs of 999 steps
+    cfg = diff.diff_config(DIFF_N)
+    target = diff.diff_target(cfg, 2)
+    zeros = torch.zeros_like(target)
+    opts = diff.DiffOptions(n_steps=DIFF_STEPS, remat=True)
+    stamps, epochs = [], []
+    base = {}  # bytes allocated when the peak was reset: earlier phases' tensors
+
+    def record(epoch, loss, F0, grad):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        g_int = grad[1:-1, 1:-1]
+        epochs.append({"loss": loss, "max_g": grad.abs().max().item(),
+                       "gate_share": (g_int.abs() < opts.grad_gate).double().mean().item(),
+                       "finite": bool(torch.isfinite(grad).all()),
+                       "F0_range": (F0.min().item(), F0.max().item())})
+        if epoch == DIFF_EPOCHS - 2:  # the last epoch's peak: one loss_and_grad's
+            torch.cuda.reset_peak_memory_stats()
+            base[True] = torch.cuda.memory_allocated()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    diff.optimize_f0(cfg, target, opts=opts, n_epochs=DIFF_EPOCHS, callback=record)
+    peak = {True: torch.cuda.max_memory_allocated() - base[True]}
+    secs = [b - a for a, b in zip(stamps[::2], stamps[1::2])]
+    for k, (e, sec) in enumerate(zip(epochs, secs)):
+        print(f"diff {DIFF_N}^2 f32 x{DIFF_STEPS} epoch {k}: loss {e['loss']:.6e} max|g| "
+              f"{e['max_g']:.4e} gate |g| < {opts.grad_gate} lets {e['gate_share']:.4f} of the "
+              f"interior through; F0 in [{e['F0_range'][0]:.4f}, {e['F0_range'][1]:.4f}]; "
+              f"{sec:.3f} s {tag}")
+        check(np.isfinite(e["loss"]) and e["finite"], f"diff epoch {k}: non-finite")
+        check(0.0 <= e["F0_range"][0] and e["F0_range"][1] <= 1.0,
+              f"diff epoch {k}: F0 outside [0, 1]: {e['F0_range']}")
+    print(f"diff {DIFF_N}^2 f32 x{DIFF_STEPS}: {np.mean(secs[1:]):.3f} s/epoch (epochs 1-"
+          f"{DIFF_EPOCHS - 1}; host clock behind synchronize fences) {tag}")
+    wall, idle = idle_share(lambda: diff.loss_and_grad(cfg, zeros, target, DIFF_IDLE_STEPS))
+    print(f"diff {DIFF_N}^2 f32 loss_and_grad x{DIFF_IDLE_STEPS}: {wall / DIFF_IDLE_STEPS:.3f} "
+          f"ms/step host, device idle "
+          f"{'not measured' if idle is None else f'{100 * idle:.1f}%'} {tag}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base[False] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, grad = diff.loss_and_grad(cfg, zeros, target, DIFF_STEPS, remat=False)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak[False] = torch.cuda.max_memory_allocated() - base[False]
+    check(bool(torch.isfinite(grad).all()), "diff remat=False: non-finite grad")
+    for remat, b in peak.items():
+        print(f"diff {DIFF_N}^2 f32 x{DIFF_STEPS} one loss_and_grad remat={remat}: peak "
+              f"{b / 2**20:.1f} MiB (max_memory_allocated above the {base[remat] / 2**20:.1f} "
+              f"MiB held before it{', the last epoch' if remat else f'; {sec:.3f} s'}) {tag}")
+
+    # max|g| under 'unrolled' and 'selfadjoint' over the horizon (remat off:
+    # the same gradient, bit for bit, in less time). From F0 = 0, F stays 0,
+    # every flux F u dt and its derivative in u vanish, and no cotangent
+    # reaches the velocity or the pressure solve: both adjoints must give one
+    # gradient. From the dam break the solve's adjoint acts; there the card
+    # is held beside the CPU's f32 unrolled gradient (recorded, not gated).
+    dam = torch.as_tensor(tt.initial_volume_fraction(cfg.grid, 1), device="cuda")
+    blowup = {"zeros": {}, "dam_break": {}}
+    for start, F0, horizons in (("zeros", zeros, DIFF_HORIZONS),
+                                ("dam_break", dam, DIFF_HORIZONS_DAM)):
+        for h in horizons:
+            row, grads = {}, {}
+            for adjoint in ("unrolled", "selfadjoint"):
+                _, grads[adjoint] = diff.loss_and_grad(
+                    diff.diff_config(DIFF_N, adjoint=adjoint), F0, target, h, remat=False)
+                row[adjoint] = grads[adjoint].abs().max().item()
+            if start == "zeros":
+                same = torch.equal(grads["unrolled"], grads["selfadjoint"])
+                print(f"diff blow-up probe {DIFF_N}^2 f32 x{h} from F0 = 0: max|g| unrolled "
+                      f"{row['unrolled']:.4e}, selfadjoint {row['selfadjoint']:.4e} (bar "
+                      f"{DIFF_GRAD_BOUND}); equal bit for bit {same}")
+                check(np.isfinite(row["selfadjoint"]) and row["selfadjoint"] < DIFF_GRAD_BOUND,
+                      f"diff selfadjoint x{h}: max|g| {row['selfadjoint']}")
+                check(same, f"diff x{h} from F0 = 0: the adjoints' gradients differ")
+            else:
+                _, g_cpu = diff.loss_and_grad(diff.diff_config(DIFF_N, adjoint="unrolled"),
+                                              F0.cpu(), target.cpu(), h, remat=False)
+                row["unrolled_cpu"] = g_cpu.abs().max().item()
+                row["card_vs_cpu"] = ((grads["unrolled"].cpu() - g_cpu).abs().max().item()
+                                      / max(row["unrolled_cpu"], 1e-30))
+                print(f"diff blow-up probe {DIFF_N}^2 f32 x{h} from the dam break: max|g| "
+                      f"unrolled {row['unrolled']:.4e} (CPU {row['unrolled_cpu']:.4e}, "
+                      f"|card - CPU| / max|CPU| {row['card_vs_cpu']:.3e}), selfadjoint "
+                      f"{row['selfadjoint']:.4e}")
+            blowup[start][h] = row
+    for start, rows in blowup.items():
+        (h0, r0), (h1, r1) = next(iter(rows.items())), list(rows.items())[-1]
+        u0, u1 = r0["unrolled"], r1["unrolled"]
+        if np.isfinite(u1) and u0 > 0:
+            print(f"diff unrolled growth from {start}, {h0} -> {h1} steps: x{u1 / u0:.4e}, "
+                  f"x{(u1 / u0) ** (1.0 / (h1 - h0)):.6f} a step")
+
+    # the converged mg projection; its V-cycles counted through the exit test
+    cfg_mg = diff.diff_config(DIFF_N, pressure_solver="mg", sor_tol=0.0, sor_tol_rel=1e-3,
+                              sor_max_iter=50)
+    keep = mg_mod.keep_iterating
+    for start, F0 in (("zeros", zeros), ("dam_break", dam)):
+        calls = [0, 0]  # exit tests, solves
+
+        def counting(it, *a):
+            calls[0] += 1
+            calls[1] += it == 0
+            return keep(it, *a)
+
+        mg_mod.keep_iterating = counting
+        try:
+            # the forward alone gives the V-cycles a forward solve takes
+            for _ in diff.rollout_frames(cfg_mg, F0, DIFF_MG_STEPS, DIFF_MG_STEPS):
+                pass
+            cycles_fwd = (calls[0] - calls[1]) / calls[1]
+            calls[:] = [0, 0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grad = diff.loss_and_grad(cfg_mg, F0, target, DIFF_MG_STEPS)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        finally:
+            mg_mod.keep_iterating = keep
+        max_g = grad.abs().max().item()
+        print(f"diff mg {DIFF_N}^2 f32 x{DIFF_MG_STEPS} (sor_tol_rel 1e-3) from {start}: loss "
+              f"{loss.item():.6e} max|g| {max_g:.4e}; {sec:.3f} s; {cycles_fwd:.2f} V-cycles a "
+              f"forward solve; {calls[1]} solves, {calls[0] - calls[1]} V-cycles in "
+              f"loss_and_grad (forward, recompute, adjoint) {tag}")
+        check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+              f"diff mg from {start}: non-finite")
+        if start == "zeros":
+            check(max_g < DIFF_GRAD_BOUND, f"diff mg: max|g| {max_g}")
+
+    # the single vortex at the reference's own size
+    case, F0, u, v, Ftarget = single_vortex()
+    mass0 = F0[1:-1, 1:-1].double().sum().item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    F = simulate_advection(case, F0, u, v, VORTEX_STEPS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / VORTEX_STEPS
+    drift = (F[1:-1, 1:-1].double().sum().item() - mass0) / mass0
+    Fmin, Fmax = F.min().item(), F.max().item()
+    print(f"advection single_vortex {case.grid.nx}^2 f32 x{VORTEX_STEPS}: mass drift "
+          f"{drift:.4e} (bar {VORTEX_MASS_BAR:.1e}), F in [{Fmin:.4f}, {Fmax:.4f}] (bar "
+          f"{VORTEX_BOUND}), {ms:.4f} ms/step host {tag}")
+    check(bool(torch.isfinite(F).all()), "vortex: non-finite F")
+    check(abs(drift) <= VORTEX_MASS_BAR, f"vortex: mass drift {drift:.3e}")
+    check(Fmin > -VORTEX_BOUND and Fmax < 1 + VORTEX_BOUND, f"vortex: F in [{Fmin}, {Fmax}]")
+    wall, idle = idle_share(lambda: simulate_advection(case, F0, u, v, DIFF_IDLE_STEPS))
+    print(f"advection single_vortex {case.grid.nx}^2 f32 x{DIFF_IDLE_STEPS}: "
+          f"{wall / DIFF_IDLE_STEPS:.4f} ms/step host, device idle "
+          f"{'not measured' if idle is None else f'{100 * idle:.1f}%'} {tag}")
+    loss, grad = diff.advection_loss_and_grad(case, F0, u, v, Ftarget, ADVECTION_GRAD_STEPS)
+    print(f"advection_loss_and_grad {case.grid.nx}^2 f32 x{ADVECTION_GRAD_STEPS}: loss "
+          f"{loss.item():.6e} max|g| {grad.abs().max().item():.4e}")
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()),
+          "advection_loss_and_grad: non-finite")
+
+    torch.cuda.synchronize()
+    launches = {k: n for c in counters for k, n in c.LAUNCHES.items() if n}
+    print(f"diff path launches of csrc/ kernels: {launches}")
+    check(not launches, f"the differentiable path launched kernels: {launches}")
+    print(f"phase 15 (differentiable path): {time.perf_counter() - t_phase:.1f} s {tag}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1392,6 +1651,9 @@ def main() -> int:
     path_launches["fullstep_dma"] = dma[N_MAIN]["launches"]
     times["fullstep_dma"] = {k: dma[N_MAIN][k] for k in (
         "ms", "plain_ms", "host_ms", "plain_host_ms", "bound_ms", "bound_by")}
+
+    # ---- 15. the differentiable path ----
+    run_diff_phase(tt, counters, tag)
 
     site = "tpuvof/pallas_kernels/step_kernels.py"
     sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),

@@ -162,12 +162,13 @@ def test_convert_round_trips():
     got = config_from_tpuvof(jcfg.replace(num=num)).num
     assert (got.pressure_solver, got.sor_omega, got.sor_tol, got.sor_max_iter,
             got.sor_tol_rel) == ("mg", 1.5, 1e-5, 77, 1e-2)
-    with pytest.raises(NotImplementedError):
+    # the pressure adjoint and the mirror between sweeps are carried
+    num = dataclasses.replace(jcfg.num, pressure_adjoint="selfadjoint", bc_between_sweeps=True)
+    got = config_from_tpuvof(jcfg.replace(num=num)).num
+    assert (got.pressure_adjoint, got.bc_between_sweeps) == ("selfadjoint", True)
+    with pytest.raises(NotImplementedError, match="unknown tpuvof backend"):
         config_from_tpuvof(jcfg.replace(num=dataclasses.replace(jcfg.num,
                                                                 backend="pallas_dma")))
-    with pytest.raises(NotImplementedError):
-        config_from_tpuvof(jcfg.replace(num=dataclasses.replace(
-            jcfg.num, pressure_adjoint="selfadjoint")))
     with pytest.raises(TypeError):
         config_from_tpuvof({"grid": None})
 
@@ -213,6 +214,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, tpuvof_torch, tpuvof_torch.convert, tpuvof_torch.kernels, "
             "tpuvof_torch.kernels.build, tpuvof_torch.models, tpuvof_torch.metrics, "
             "tpuvof_torch.solver, tpuvof_torch.ops.mg, tpuvof_torch.ops.window, "
+            "tpuvof_torch.diff, tpuvof_torch.models.advection, "
             "tpuvof_torch.parallel, tpuvof_torch.parallel.dist3d; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuvof')); print(bad); sys.exit(1 if bad else 0)")

@@ -4,8 +4,10 @@ The 2-D and 3-D forward steps of the two-phase Navier-Stokes/VOF solver:
 staggered MAC grid, Youngs normals with Brackbill CSF surface tension
 (opt-in in 3-D), Chorin projection with the reference's fixed-iteration
 Jacobi, Rudman/Zalesak flux-corrected VOF transport, and the
-pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid), and the
-3-D domain decomposition over a device mesh (``parallel``).
+pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid), the
+3-D domain decomposition over a device mesh (``parallel``), and the
+differentiable F0 optimisation (``diff``) with the advection cases
+(``models.advection``).
 ``backend='torch'`` runs plain torch ops; the ``'cuda*'`` backends run the
 hand-written kernels of ``csrc/`` (see ``solver`` and ``solver3d``).
 
@@ -22,6 +24,7 @@ from .config import (
     SimConfig,
     dam_break_2d,
 )
+from . import diff
 from .grid import Grid2D, Grid3D
 from .metrics import Metrics, compute_metrics
 from .parallel import Decomp3D, admission_3d, make_mesh
@@ -38,6 +41,7 @@ __all__ = [
     "Numerics",
     "SimConfig",
     "dam_break_2d",
+    "diff",
     "Grid2D",
     "Grid3D",
     "Metrics",

@@ -1,9 +1,9 @@
 """Simulation configuration (counterpart of tpuvof/config.py:28-145).
 
 Frozen dataclasses, as in tpuvof. ``Numerics`` carries the fields the
-forward 2-D step reads, the pressure-solver ladder's settings included.
-tpuvof's ``pressure_adjoint`` belongs to the differentiable path, which is
-not ported yet (ROADMAP Queue 1 item 6).
+2-D step reads: the pressure-solver ladder's settings, the FCT test
+variant's mirror between sweeps, and the pressure adjoint of the
+differentiable path (``diff``).
 """
 from __future__ import annotations
 
@@ -70,6 +70,11 @@ class Numerics:
     # mirror F ghosts between the two half sweeps (the FCT test variant);
     # the main solver does not
     bc_between_sweeps: bool = False
+    # how autograd crosses the pressure solve: 'unrolled' differentiates
+    # through the Jacobi sweeps; 'selfadjoint' runs the hand-written
+    # adjoints of ops/poisson.py and ops/mg.py (the same truncated Jacobi
+    # on the cotangent; one more converged rbsor/mg solve)
+    pressure_adjoint: str = "unrolled"
     # 'torch' = plain torch ops (tpuvof's 'xla'); 'cuda' = the hand-written
     # phase kernels of tpuvof_torch/csrc (tpuvof's 'pallas'); 'cuda_mono' =
     # the whole-step kernel on the whole grid ('pallas_mono'); 'cuda_tiled'

@@ -68,9 +68,9 @@ def fluid_from_tpuvof(fl) -> Fluid:
 def config_from_tpuvof(cfg) -> SimConfig:
     """The port's SimConfig for a tpuvof SimConfig.
 
-    The solver ladder's settings are carried. The port has no
-    differentiable path yet, so a ``pressure_adjoint`` other than
-    tpuvof's default 'unrolled' raises rather than be dropped."""
+    Every field is carried, the solver ladder's settings and the
+    pressure adjoint included; tpuvof's backend names map to the port's
+    routes. An unknown backend name raises."""
     if not dataclasses.is_dataclass(cfg):
         raise TypeError(f"expected a tpuvof SimConfig, got {type(cfg).__name__}")
     d = dataclasses.asdict(cfg)
@@ -78,12 +78,8 @@ def config_from_tpuvof(cfg) -> SimConfig:
     backend = num["backend"]
     if backend not in _BACKENDS:
         raise NotImplementedError(
-            f"tpuvof backend {backend!r} has no port yet; "
-            f"mapped: {sorted(_BACKENDS)} (ROADMAP Queue 2)")
-    if num["pressure_adjoint"] != "unrolled":
-        raise NotImplementedError(
-            f"pressure_adjoint={num['pressure_adjoint']!r} belongs to the "
-            "differentiable path, which is not ported yet (ROADMAP Queue 1 item 6)")
+            f"unknown tpuvof backend {backend!r}; tpuvof's backends are "
+            f"{sorted(_BACKENDS)}")
     gd = d["grid"]
     return SimConfig(
         grid=Grid2D(gd["nx"], gd["ny"], gd["Lx"], gd["Ly"]),
@@ -93,6 +89,7 @@ def config_from_tpuvof(cfg) -> SimConfig:
             n_jacobi=num["n_jacobi"],
             fct=FCTVariant(**num["fct"]),
             bc_between_sweeps=num["bc_between_sweeps"],
+            pressure_adjoint=num["pressure_adjoint"],
             backend=_BACKENDS[backend],
             pressure_solver=num["pressure_solver"],
             sor_omega=num["sor_omega"],

@@ -14,15 +14,20 @@ loop runs V-cycles until the nullspace-projected residual meets the
 tolerance, the cycle cap, or the stall exit. tpuvof runs it as a
 ``lax.while_loop``; here the exit test reads the residual on the host once
 per V-cycle (ops.poisson.keep_iterating).
+
+``mg_solve_implicit`` is ``mg_solve`` with the implicit-function adjoint,
+one more mg solve on the mean-free cotangent (ops.poisson.RbsorImplicit
+explains it); the differentiable path's 'selfadjoint' route reaches mg
+that way.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .poisson import effective_tol, keep_iterating
+from .poisson import effective_tol, keep_iterating, mean_free_interior
 
-__all__ = ["mg_solve", "mg_levels", "STALL_CYCLES"]
+__all__ = ["mg_solve", "mg_solve_implicit", "mg_levels", "STALL_CYCLES"]
 
 #: V-cycles without a new best residual before the stall exit may fire.
 STALL_CYCLES = 4
@@ -186,3 +191,26 @@ def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
     out = p.clone()
     out[interior] = p_l
     return out
+
+
+class _MgImplicit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, rhs, kw):
+        ctx.kw = kw
+        return mg_solve(p, rhs, **kw)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        y = mg_solve(torch.zeros_like(g_out), mean_free_interior(g_out), **ctx.kw)
+        return torch.zeros_like(g_out), mean_free_interior(y), None
+
+
+def mg_solve_implicit(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
+                      coarse_iters: int = 50, tol_rel: float = 0.0):
+    """``mg_solve``, differentiable by the implicit-function adjoint
+    (tpuvof's mg_solve_implicit): the cotangent of rhs is one more mg
+    solve, from zero, on the mean-free interior cotangent of p, made
+    mean-free again; the warm start p gets a zero cotangent. The primal
+    is mg_solve's, bit for bit; nothing is saved."""
+    return _MgImplicit.apply(p, rhs, dict(inv2=inv2, tol=tol, max_cycles=max_cycles, nu=nu,
+                                          coarse_iters=coarse_iters, tol_rel=tol_rel))

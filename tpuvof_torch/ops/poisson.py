@@ -7,8 +7,15 @@ check (the reference); 'rbsor' and 'mg' (ops/mg.py) iterate to a residual
 tolerance. tpuvof runs those two as ``lax.while_loop``s on the device;
 here the exit test reads the residual on the host once per iteration, in
 the dtype tpuvof compares it in, so both take the same number of
-iterations. The adjoints of the ladder belong to the differentiable path
-(ROADMAP Queue 1 item 6).
+iterations.
+
+``Numerics.pressure_adjoint`` says how autograd crosses the solve, as in
+tpuvof: 'unrolled' tapes the Jacobi sweeps; 'selfadjoint' runs hand-written
+adjoints that save nothing: the same truncated Jacobi on the cotangent
+(``JacobiSelfAdjoint``, the reference's diff_vof_replaced.py adjoint), and
+for rbsor and mg the implicit-function adjoint, one more converged solve on
+the mean-free cotangent (``RbsorImplicit``, ops.mg.mg_solve_implicit). The
+residual-driven solvers are differentiable only that way.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ __all__ = [
     "ap_inv_3d",
     "divergence_rhs",
     "jacobi_sweeps",
+    "JacobiSelfAdjoint",
+    "RbsorImplicit",
     "solve_pressure",
     "residual",
     "effective_tol",
@@ -150,20 +159,45 @@ def jacobi_sweeps(g: Grid2D, n_iter: int, p, rhs):
     return p
 
 
-def solve_pressure(g: Grid2D, nm: Numerics, p, u_star, v_star, rho):
-    """rhs assembly and the configured solver; returns a new p."""
-    rhs = divergence_rhs(g, nm, u_star, v_star, rho)
-    if nm.pressure_solver == "rbsor":
-        return _rbsor(g, nm, p, rhs)
-    if nm.pressure_solver == "mg":
-        from .mg import mg_solve
+class JacobiSelfAdjoint(torch.autograd.Function):
+    """``jacobi_sweeps`` with the reference's hand-written adjoint
+    (tpuvof's _jacobi_selfadjoint): the backward pass iterates the same
+    stencil n_iter times from zero on the interior cotangent of p, which
+    gives the cotangent of rhs, as if the truncated solve were a converged
+    one with a self-adjoint operator. The initial p gets a zero cotangent.
+    Nothing is saved. Call as ``JacobiSelfAdjoint.apply(g, n_iter, p, rhs)``."""
 
-        return mg_solve(p, rhs, (g.dxi**2, g.dyi**2), nm.sor_tol,
-                        nm.sor_max_iter, tol_rel=nm.sor_tol_rel)
+    @staticmethod
+    def forward(ctx, g, n_iter, p, rhs):
+        ctx.g, ctx.n_iter = g, n_iter
+        return jacobi_sweeps(g, n_iter, p, rhs)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        y = jacobi_sweeps(ctx.g, ctx.n_iter, torch.zeros_like(g_out), g_out[1:-1, 1:-1])
+        return None, None, torch.zeros_like(g_out), y[1:-1, 1:-1]
+
+
+def solve_pressure(g: Grid2D, nm: Numerics, p, u_star, v_star, rho):
+    """rhs assembly and the configured solver; returns a new p. Under
+    pressure_adjoint='selfadjoint' every rung runs its hand-written
+    adjoint; 'unrolled' tapes what the solver computes."""
+    rhs = divergence_rhs(g, nm, u_star, v_star, rho)
+    sa = nm.pressure_adjoint == "selfadjoint"
+    if nm.pressure_solver == "rbsor":
+        return RbsorImplicit.apply(g, nm, p, rhs) if sa else _rbsor(g, nm, p, rhs)
+    if nm.pressure_solver == "mg":
+        from .mg import mg_solve, mg_solve_implicit
+
+        fn = mg_solve_implicit if sa else mg_solve
+        return fn(p, rhs, (g.dxi**2, g.dyi**2), nm.sor_tol,
+                  nm.sor_max_iter, tol_rel=nm.sor_tol_rel)
     if nm.pressure_solver != "jacobi":
         raise ValueError(
             f"unknown pressure_solver {nm.pressure_solver!r} "
             "(expected 'jacobi', 'rbsor' or 'mg'; resolve 'auto' first)")
+    if sa:
+        return JacobiSelfAdjoint.apply(g, nm.n_jacobi, p, rhs)
     return jacobi_sweeps(g, nm.n_jacobi, p, rhs)
 
 
@@ -256,3 +290,30 @@ def _rbsor(g: Grid2D, nm: Numerics, p, rhs):
         best = min(best, r)
         it += 1
     return p
+
+
+def mean_free_interior(a):
+    """The interior of ghosted ``a`` less its mean: the part of a
+    cotangent the pure-Neumann solve can answer."""
+    a = a[(slice(1, -1),) * a.ndim]
+    return a - torch.mean(a)
+
+
+class RbsorImplicit(torch.autograd.Function):
+    """``_rbsor`` with the implicit-function adjoint (tpuvof's
+    _rbsor_implicit): at convergence p solves A p = P rhs, P the mean
+    projection, and A is symmetric, so the cotangent of rhs is P A^+ P
+    p_bar: one more rbsor solve, from zero, on the mean-free interior
+    cotangent, made mean-free again. The warm start gets a zero
+    cotangent. Nothing is saved. Call as ``RbsorImplicit.apply(g, nm, p,
+    rhs)``."""
+
+    @staticmethod
+    def forward(ctx, g, nm, p, rhs):
+        ctx.g, ctx.nm = g, nm
+        return _rbsor(g, nm, p, rhs)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        y = _rbsor(ctx.g, ctx.nm, torch.zeros_like(g_out), mean_free_interior(g_out))
+        return None, None, torch.zeros_like(g_out), mean_free_interior(y)

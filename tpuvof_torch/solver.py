@@ -78,10 +78,13 @@ def _check_supported(cfg: SimConfig) -> None:
     if nm.pressure_solver not in _SOLVERS:
         raise ValueError(f"unknown pressure_solver {nm.pressure_solver!r}; "
                          f"expected one of {_SOLVERS}")
-    if nm.bc_between_sweeps:
+    if nm.bc_between_sweeps and nm.backend != "torch":
+        # tpuvof's Pallas routes sweep with no mirror in between and so
+        # ignore the flag (tpuvof/solver.py:297-301); only its plain path
+        # honours it, as 'torch' does here
         raise NotImplementedError(
             "bc_between_sweeps=True (the FCT test variant's mid-sweep mirror) "
-            "is not ported yet (ROADMAP Queue 1 item 6)")
+            "runs on backend='torch' only: tpuvof's Pallas routes ignore it")
 
 
 def effective_backend(cfg: SimConfig) -> str:
