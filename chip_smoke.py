@@ -135,17 +135,45 @@ Phases, each fatal on failure:
      host ms a step and idle share; one advection_loss_and_grad over 20
      steps at 500^2.
 
+ 16. the app layer on the card: tpuvof_torch.cli.main in-process, counts set
+     to 0 before and read after each run. The main path through the CLI,
+     -ic 1 --nx 512 --steps 1000 --frame-every 100 --backend cuda_mono -s
+     --cycle-views --checkpoint-every 500 --gif: exactly 1000 fullstep
+     launches and no other, ckpt_001000.npz equal bit for bit to phase 5's
+     'cuda_mono' result, ten frames in all five view modes (the vectors
+     frames with arrows), ten -f.png figures, two checkpoints, a ten-frame
+     movie.gif; again under --no-cfl-warn, the same state. --resume of
+     ckpt_000500 for 500 steps: the same state, frames numbered from 5.
+     `python -m tpuvof_torch -ic 2 --nx 512 --steps 200 --frame-every 100`
+     as a subprocess on the device default; --backend cuda_strips and
+     cuda_tiled for 100 steps, with and without --no-cfl-warn, each equal
+     bit for bit to simulate on its route. --three-d --nx 200 --steps 100:
+     phase 9's launches for 100 steps, its state equal to one simulate_3d
+     call, the VTK payload of step-00100.vtk equal to F as float32, a
+     --resume of 0 steps, and --mesh over every card (1 on one card, 2,2
+     on four): F equal to the serial run. --optimize 1 --nx 80 --epochs 2
+     --opt-steps 200, --optimize-case translation, --case single_vortex:
+     no kernel launch, their files. Times: the CLI's cell-updates/s, host
+     ms/step of the CLI without frames with and without the CFL tracker
+     beside simulate's, the device's busy ms a step of simulate and
+     simulate_cfl (torch.profiler), the ms of a frame (render_frame + save_frame_png,
+     plain and with arrows), of save_contour_png, and of one 200^3 VTK
+     write.
+
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -255,6 +283,17 @@ VORTEX_STEPS = 1000
 VORTEX_MASS_BAR = 2.5e-2
 VORTEX_BOUND = 5e-2
 ADVECTION_GRAD_STEPS = 20
+# phase 16: the app layer through tpuvof_torch.cli, at the main paths' sizes
+APP_STEPS = STEPS_MAIN
+APP_FRAME_EVERY = 100
+APP_STEPS_ROUTES = 100  # 'cuda_strips' and 'cuda_tiled' through the CLI
+APP_STEPS3 = 100
+APP_REPEATS = 2  # the timed CLI and simulate runs, alternating
+# --optimize through the CLI: two epochs at the reference's 80^2; 200 steps
+# an epoch, not 999, to keep the phase near 90 s (phase 15 runs the
+# 999-step workload; two such epochs through the CLI took 121 s on an
+# H100 80GB HBM3 at 700 W)
+APP_OPT_STEPS = 200
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1157,6 +1196,281 @@ def run_diff_phase(tt, counters, tag) -> None:
     print(f"phase 15 (differentiable path): {time.perf_counter() - t_phase:.1f} s {tag}")
 
 
+def cli_run(cli, counters, label, argv):
+    """``cli.main(argv)`` with every count set to 0 just before and read
+    just after; fails unless it returns 0. Returns (launches, its standard
+    output, seconds); the output's first and last lines are echoed."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: n for c in counters for k, n in c.LAUNCHES.items() if n}
+    lines = out.getvalue().splitlines()
+    for line in lines[:1] + lines[-2:]:
+        print(f"  {label} | {line}")
+    print(f"{label}: rc {rc}, launches {launches} ({secs:.2f} s)")
+    check(rc == 0, f"{label}: the CLI returned {rc}")
+    return launches, out.getvalue(), secs
+
+
+def cli_rate(text: str) -> tuple[float, float]:
+    """(wall seconds, cell-updates/s) of the CLI's closing line."""
+    import re
+
+    m = re.search(r">>> \d+ steps in ([0-9.]+)s \(([0-9.e+-]+) cell-updates/s", text)
+    check(m is not None, "the CLI printed no closing rate line")
+    return float(m.group(1)), float(m.group(2))
+
+
+def same_state(got, want, label: str) -> None:
+    diff = max((a.double() - b.double()).abs().max().item() for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"{label}: bit for bit {same}, max|d| {diff:.3e}")
+    check(same, f"{label}: max|d| {diff:.3e}")
+
+
+def run_app_phase(tt, counters, s_mono_main, per_step3, tag) -> None:
+    """Phase 16: the app layer on the card (see the module's docstring)."""
+    import re
+
+    from PIL import Image
+
+    from tpuvof_torch import cli, io_utils, viz
+    from tpuvof_torch.solver import TILE_ROWS
+
+    dev = s_mono_main.F.device
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    root = work.name
+    n = str(N_MAIN)
+
+    # ---- a. the main path through the CLI ----
+    main_argv = ["-ic", "1", "--nx", n, "--steps", str(APP_STEPS), "--frame-every",
+                 str(APP_FRAME_EVERY), "--backend", "cuda_mono", "-s", "--cycle-views",
+                 "--checkpoint-every", "500", "--gif"]
+    cli_runs = {}
+    for variant, extra in (("cfl", []), ("no-cfl-warn", ["--no-cfl-warn"])):
+        d = os.path.join(root, f"a-{variant}")
+        launches, text, secs = cli_run(cli, counters, f"CLI main path ({variant})",
+                                       main_argv + extra + ["--outdir", d])
+        check(launches == {"fullstep": APP_STEPS},
+              f"CLI main path ({variant}) launches {launches}")
+        end, istep, echo = io_utils.load_checkpoint(os.path.join(d, "ckpt_001000.npz"),
+                                                    dev)
+        check(istep == APP_STEPS and echo["num"]["backend"] == "cuda_mono",
+              f"ckpt_001000: istep {istep}, backend {echo['num']['backend']}")
+        same_state(end, s_mono_main, f"CLI main path ({variant}) ckpt_001000 == simulate "
+                                     "'cuda_mono' x1000 (phase 5)")
+        cli_runs[variant] = (d, text, secs)
+    d_a, text_a, _ = cli_runs["cfl"]
+    files = sorted(os.listdir(d_a))
+    frames = [f for f in files if re.fullmatch(r"\d{6}-(vof|u|v|vnorm|vectors)\.png", f)]
+    modes = {f[7:-4] for f in frames}
+    figs = [f for f in files if re.fullmatch(r"\d{6}-f\.png", f)]
+    ckpts = [f for f in files if f.startswith("ckpt_")]
+    with Image.open(os.path.join(d_a, "movie.gif")) as gif:
+        n_gif = gif.n_frames
+    print(f"CLI main path files: {len(frames)} frames in modes {sorted(modes)}, "
+          f"{len(figs)} -f.png, checkpoints {ckpts}, movie.gif of {n_gif} frames")
+    check(len(frames) == 10 and modes == set(viz.MODES), f"frames {frames}")
+    check(len(figs) == 10 and ckpts == ["ckpt_000500.npz", "ckpt_001000.npz"],
+          f"figures {figs}, checkpoints {ckpts}")
+    check(n_gif == 10, f"movie.gif has {n_gif} frames")
+    for f in frames:
+        img = np.asarray(Image.open(os.path.join(d_a, f)))
+        ink = int((img[..., :3].max(-1) < 8).sum())  # Blues' darkest is (8, 48, 107)
+        check(img.shape == (2 * N_MAIN, 2 * N_MAIN, 4), f"{f}: shape {img.shape}")
+        check((ink > 0) == f.endswith("vectors.png"), f"{f}: {ink} black arrow pixels")
+    frame_lines = [ln for ln in text_a.splitlines() if ln.startswith(">>> Number of steps:")]
+    check(len(frame_lines) == 10 and not any("NON-FINITE" in ln or "nan" in ln
+                                             for ln in frame_lines),
+          f"frame lines: {frame_lines}")
+
+    # ---- b. resume at step 500 ----
+    d_b = os.path.join(root, "b")
+    launches, _, _ = cli_run(cli, counters, "CLI resume", [
+        "--resume", os.path.join(d_a, "ckpt_000500.npz"), "--nx", n, "--steps", "500",
+        "--frame-every", str(APP_FRAME_EVERY), "--backend", "cuda_mono",
+        "--checkpoint-every", "500", "--outdir", d_b])
+    check(launches == {"fullstep": 500}, f"CLI resume launches {launches}")
+    end, _, _ = io_utils.load_checkpoint(os.path.join(d_b, "ckpt_001000.npz"), dev)
+    same_state(end, s_mono_main, "CLI resume 500 + 500 == simulate x1000")
+    got = sorted(f for f in os.listdir(d_b) if f.endswith(".png"))
+    want = [f"{k:06d}-vof.png" for k in range(5, 10)]
+    print(f"CLI resume frames: {got}")
+    check(got == want, f"resumed frames {got} != {want}")
+
+    # ---- c. the default route as users start it; strips and tiled ----
+    d_c = os.path.join(root, "c")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tpuvof_torch", "-ic", "2", "--nx", n,
+                          "--steps", "200", "--frame-every", "100", "--outdir", d_c],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    lines = res.stdout.splitlines()
+    for line in lines[:1] + lines[-3:]:
+        print(f"  python -m tpuvof_torch (default route) | {line}")
+    print(f"python -m tpuvof_torch -ic 2 --nx {n} --steps 200: rc {res.returncode} "
+          f"({time.perf_counter() - t0:.2f} s with the process's start)")
+    check(res.returncode == 0, f"python -m tpuvof_torch: rc {res.returncode}: "
+                               f"{res.stderr[-2000:]}")
+    frame_lines = [ln for ln in lines if ln.startswith(">>> Number of steps:")]
+    check(len(frame_lines) == 2 and not any("NON-FINITE" in ln or "nan" in ln
+                                            for ln in frame_lines),
+          f"python -m tpuvof_torch frame lines: {frame_lines}")
+    s0 = tt.init_state(tt.dam_break_2d(N_MAIN), device=dev)
+    for backend, kernel, per_step in (("cuda_strips", "fullstep_strips", 1),
+                                      ("cuda_tiled", "fullstep_win", N_MAIN // TILE_ROWS)):
+        cfg_b = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend=backend))
+        want = tt.simulate(cfg_b, s0, APP_STEPS_ROUTES)
+        for variant, extra in (("cfl", []), ("no-cfl-warn", ["--no-cfl-warn"])):
+            d = os.path.join(root, f"c-{backend}-{variant}")
+            label = f"CLI {backend} ({variant})"
+            launches, _, _ = cli_run(cli, counters, label, [
+                "-ic", "1", "--nx", n, "--steps", str(APP_STEPS_ROUTES), "--frame-every",
+                str(APP_FRAME_EVERY), "--backend", backend, "--no-frames",
+                "--checkpoint-every", str(APP_STEPS_ROUTES), "--outdir", d] + extra)
+            check(launches == {kernel: per_step * APP_STEPS_ROUTES},
+                  f"{label} launches {launches}")
+            end, _, _ = io_utils.load_checkpoint(
+                os.path.join(d, f"ckpt_{APP_STEPS_ROUTES:06d}.npz"), dev)
+            same_state(end, want, f"{label} == simulate '{backend}' x{APP_STEPS_ROUTES}")
+
+    # ---- d. 3-D ----
+    g3 = tt.Grid3D(N3_MAIN, N3_MAIN, N3_MAIN)
+    want3 = tt.simulate_3d(g3, tt.init_state_3d(g3, device=dev), APP_STEPS3)
+    d_d = os.path.join(root, "d")
+    argv3 = ["--three-d", "--nx", str(N3_MAIN), "--steps", str(APP_STEPS3), "--frame-every",
+             "50", "--checkpoint-every", str(APP_STEPS3)]
+    launches, _, _ = cli_run(cli, counters, "CLI 3-D", argv3 + ["--outdir", d_d])
+    check(launches == {k: v * APP_STEPS3 for k, v in per_step3.items()},
+          f"CLI 3-D launches {launches}")
+    ck3 = os.path.join(d_d, f"ckpt_{APP_STEPS3:06d}.npz")
+    end3, istep3, _ = io_utils.load_checkpoint_3d(ck3, dev)
+    check(istep3 == APP_STEPS3, f"3-D checkpoint istep {istep3}")
+    same_state(end3, want3, f"CLI 3-D (chunks of 50) == one simulate_3d x{APP_STEPS3}")
+    with open(os.path.join(d_d, f"step-{APP_STEPS3:05d}.vtk"), "rb") as f:
+        data = f.read()
+    payload = data.split(b"LOOKUP_TABLE default\n", 1)[1][:-1]
+    e = N3_MAIN + 2
+    vtk = np.frombuffer(payload, ">f4").reshape(e, e, e).transpose(2, 1, 0)
+    same = np.array_equal(vtk, end3.F.float().cpu().numpy())
+    print(f"CLI 3-D step-{APP_STEPS3:05d}.vtk payload == F as float32: bit for bit {same}")
+    check(same, "the VTK payload differs from F")
+    launches, text, _ = cli_run(cli, counters, "CLI 3-D resume of 0 steps", [
+        "--three-d", "--nx", str(N3_MAIN), "--steps", "0", "--resume", ck3,
+        "--outdir", os.path.join(root, "d-resume")])
+    check(launches == {} and f"resumed from {ck3} at step {APP_STEPS3}" in text,
+          f"3-D resume of 0 steps: launches {launches}")
+    again, _, _ = io_utils.load_checkpoint_3d(ck3, dev)
+    same_state(again, end3, "3-D checkpoint reloaded")
+    cards = torch.cuda.device_count()
+    mesh = "2,2" if cards == 4 else str(cards)
+    d_m = os.path.join(root, "d-mesh")
+    launches, _, _ = cli_run(cli, counters, f"CLI 3-D --mesh {mesh}",
+                             argv3 + ["--mesh", mesh, "--no-frames", "--outdir", d_m])
+    check(launches == {k: cards * v * APP_STEPS3 for k, v in per_step3.items()},
+          f"CLI 3-D --mesh {mesh} launches {launches}")
+    endm, _, _ = io_utils.load_checkpoint_3d(os.path.join(d_m, f"ckpt_{APP_STEPS3:06d}.npz"),
+                                         dev)
+    same_state((endm.F,), (want3.F,), f"CLI 3-D --mesh {mesh} F == the serial run's")
+
+    # ---- e. the optimiser and the advection cases: no kernel ----
+    for label, argv, want_files in (
+            ("CLI --optimize 1", ["--optimize", "1", "--nx", str(DIFF_N), "--epochs", "2",
+                                  "--opt-steps", str(APP_OPT_STEPS)],
+             {"F0_optimized.npy", "opt-0000-f0.png", "opt-0000-vs-target.png",
+              "opt-0000-grad.png"}),
+            ("CLI --optimize-case translation", ["--optimize-case", "translation",
+                                                 "--epochs", "2"],
+             {"F0_optimized.npy", "F0_optimized.png"}),
+            ("CLI --case single_vortex", ["--case", "single_vortex", "--steps", "100"],
+             {"single_vortex-000100.png"})):
+        d = os.path.join(root, label.split()[-1])
+        launches, text, _ = cli_run(cli, counters, label, argv + ["--outdir", d])
+        check(launches == {}, f"{label}: kernel launches {launches}")
+        got = set(os.listdir(d))
+        check(got == want_files, f"{label}: files {sorted(got)}")
+
+    # ---- f. times ----
+    wall, cups = cli_rate(text_a)
+    print(f"{tag} CLI main path {N_MAIN}^2 x{APP_STEPS} cuda_mono with frames (-s, "
+          f"--cycle-views, 2 checkpoints, --gif): {wall:.2f} s, {cups:.4e} cell-updates/s "
+          "incl. frame I/O (the CLI's line)")
+    cfg_mono = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda_mono"))
+    runs = {"CLI (CFL tracker)": [], "CLI --no-cfl-warn": [], "simulate": []}
+
+    def timed_cli(extra):
+        _, text, _ = cli_run(cli, counters, "CLI timing", main_argv[:8] + [
+            "--backend", "cuda_mono", "--no-frames", "--outdir",
+            os.path.join(root, "timing")] + extra)
+        return cli_rate(text)[0]
+
+    def timed_simulate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.simulate(cfg_mono, s0, APP_STEPS)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    legs = [("CLI (CFL tracker)", lambda: timed_cli([])),
+            ("CLI --no-cfl-warn", lambda: timed_cli(["--no-cfl-warn"])),
+            ("simulate", timed_simulate)]
+    for r in range(APP_REPEATS):
+        for name, fn in legs if r % 2 == 0 else legs[::-1]:
+            runs[name].append(fn())
+    for name, secs in runs.items():
+        best = min(secs)
+        print(f"{tag} host ms/step {N_MAIN}^2 x{APP_STEPS} cuda_mono, {name}: "
+              f"{1e3 * best / APP_STEPS:.4f} (best of {[round(t, 4) for t in secs]} s)")
+    # where the CFL tracker's cost lies: the device's busy time a step
+    # beside the host's, with and without it
+    for name, fn in (("simulate", lambda: tt.simulate(cfg_mono, s0, APP_FRAME_EVERY)),
+                     ("simulate_cfl", lambda: tt.simulate_cfl(cfg_mono, s0, APP_FRAME_EVERY))):
+        wall_ms, idle = idle_share(fn)
+        busy = "not measured" if idle is None else \
+            f"{wall_ms * (1 - idle) / APP_FRAME_EVERY:.4f} ms/step, idle {100 * idle:.1f}%"
+        print(f"{tag} {name} {N_MAIN}^2 x{APP_FRAME_EVERY} cuda_mono: "
+              f"{wall_ms / APP_FRAME_EVERY:.4f} ms/step host; device busy {busy}")
+    state = s_mono_main
+    cfg = cfg_mono
+    frame_ms = {}
+
+    def frame(mode):
+        path = os.path.join(root, "frame.png")
+        if mode == "vectors":
+            arrows = viz.arrow_field(viz.interp_velocity(cfg, state), arrow_spacing=4)
+            io_utils.save_frame_png(path, viz.render_frame(cfg, state, "vof"), arrows)
+        else:
+            io_utils.save_frame_png(path, viz.render_frame(cfg, state, mode))
+
+    for label, fn, reps in (
+            (f"render_frame + save_frame_png (vof) at {N_MAIN}^2", lambda: frame("vof"), 5),
+            (f"render_frame + save_frame_png (vectors, arrows) at {N_MAIN}^2",
+             lambda: frame("vectors"), 2),
+            (f"save_contour_png (-s) at {N_MAIN}^2", lambda: io_utils.save_contour_png(
+                os.path.join(root, "f.png"), state.F, cfg.grid.Lx, cfg.grid.Ly), 5),
+            (f"write_vtk of F at {N3_MAIN}^3", lambda: io_utils.write_vtk(
+                os.path.join(root, "v"), {"VOF": want3.F}), 3)):
+        fn()
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        frame_ms[label] = 1e3 * min(secs)
+        print(f"{tag} {label}: {frame_ms[label]:.2f} ms (best of "
+              f"{[round(1e3 * t, 2) for t in secs]})")
+    work.cleanup()
+    print(f"phase 16 (the app layer): {time.perf_counter() - t_phase:.1f} s {tag}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1654,6 +1968,9 @@ def main() -> int:
 
     # ---- 15. the differentiable path ----
     run_diff_phase(tt, counters, tag)
+
+    # ---- 16. the app layer through the CLI ----
+    run_app_phase(tt, counters, s_mono_main, per_step, tag)
 
     site = "tpuvof/pallas_kernels/step_kernels.py"
     sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),

@@ -7,7 +7,10 @@ Jacobi, Rudman/Zalesak flux-corrected VOF transport, and the
 pressure-solver ladder (fixed Jacobi, red-black SOR, multigrid), the
 3-D domain decomposition over a device mesh (``parallel``), and the
 differentiable F0 optimisation (``diff``) with the advection cases
-(``models.advection``).
+(``models.advection``), and the app layer: the command line
+(``python -m tpuvof_torch``, ``cli``), frames (``viz``), PNG/GIF/VTK output
+and checkpoints (``io_utils``), the live and paint windows (``live``,
+``paint``) and tracing (``utils``).
 ``backend='torch'`` runs plain torch ops; the ``'cuda*'`` backends run the
 hand-written kernels of ``csrc/`` (see ``solver`` and ``solver3d``).
 
@@ -24,9 +27,9 @@ from .config import (
     SimConfig,
     dam_break_2d,
 )
-from . import diff
+from . import cli, diff, io_utils, live, paint, utils, viz
 from .grid import Grid2D, Grid3D
-from .metrics import Metrics, compute_metrics
+from .metrics import Metrics, banner, compute_metrics, format_frame
 from .parallel import Decomp3D, admission_3d, make_mesh
 from .solver import make_step_fn, simulate, simulate_cfl, step, step_pair
 from .solver3d import simulate_3d, step_3d
@@ -41,11 +44,19 @@ __all__ = [
     "Numerics",
     "SimConfig",
     "dam_break_2d",
+    "cli",
     "diff",
+    "io_utils",
+    "live",
+    "paint",
+    "utils",
+    "viz",
     "Grid2D",
     "Grid3D",
     "Metrics",
+    "banner",
     "compute_metrics",
+    "format_frame",
     "Decomp3D",
     "admission_3d",
     "make_mesh",

@@ -16,12 +16,18 @@ from .config import FCTVariant, Fluid, Numerics, SimConfig
 from .grid import Grid2D, Grid3D
 from .state import State, State3D
 
-__all__ = ["state_from_numpy", "state_to_numpy", "config_from_tpuvof", "state3d_from_numpy",
-           "state3d_to_numpy", "grid3d_from_tpuvof", "fluid_from_tpuvof"]
+__all__ = ["to_numpy", "state_from_numpy", "state_to_numpy", "config_from_tpuvof",
+           "state3d_from_numpy", "state3d_to_numpy", "grid3d_from_tpuvof", "fluid_from_tpuvof"]
 
 # tpuvof backend -> port backend
 _BACKENDS = {"xla": "torch", "pallas": "cuda", "pallas_mono": "cuda_mono",
              "pallas_tiled": "cuda_tiled", "pallas_strips": "cuda_strips"}
+
+
+def to_numpy(a) -> np.ndarray:
+    """A numpy array of ``a``: a tensor on any device (copied to the host)
+    or anything numpy takes."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
@@ -35,7 +41,7 @@ def state_from_numpy(F, u, v, p, device, dtype: torch.dtype) -> State:
 def state_to_numpy(state: State | State3D) -> tuple[np.ndarray, ...]:
     """The fields of a State or State3D, in order, as numpy arrays on the
     host."""
-    return tuple(a.detach().cpu().numpy() for a in state)
+    return tuple(to_numpy(a) for a in state)
 
 
 def state3d_from_numpy(F, u, v, w, p, device, dtype: torch.dtype) -> State3D:

@@ -1,8 +1,10 @@
-"""Per-frame metrics and guards (counterpart of tpuvof/metrics.py:24-55).
+"""Per-frame metrics, guards and log lines (counterpart of
+tpuvof/metrics.py).
 
 Liquid mass, max velocities, CFL numbers, the divergence the fixed Jacobi
 solve leaves behind, and a finiteness guard, as 0-dim tensors on the
-state's device (reading them synchronises with the device).
+state's device (reading them synchronises with the device); the startup
+banner and the per-frame line the CLI prints.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from .config import SimConfig
 from .state import State
 
-__all__ = ["Metrics", "compute_metrics"]
+__all__ = ["Metrics", "compute_metrics", "banner", "format_frame"]
 
 
 class Metrics(NamedTuple):
@@ -46,4 +48,33 @@ def compute_metrics(cfg: SimConfig, state: State) -> Metrics:
         cfl_v=max_v * nm.dt * g.dyi,
         max_div=div.abs().max(),
         finite=finite,
+    )
+
+
+def banner(cfg: SimConfig) -> str:
+    """Startup banner with the reference's derived ratios (2dvof.py:95-98);
+    lines 2-4 are tpuvof's character for character."""
+    g, fl, nm = cfg.grid, cfg.fluid, cfg.num
+    return (
+        f">>> The PyTorch + CUDA port of tpuvof (tpuvof_torch).\n"
+        f">>> Grid resolution: {g.nx} x {g.ny}, dt = {nm.dt:4.2e}\n"
+        f">>> Density ratio: {fl.rho_l / fl.rho_g: 4.2f}, gravity: {fl.gy: 4.2f}, "
+        f"sigma: {fl.sigma: 4.2f}\n"
+        f">>> Viscosity ratio: {fl.nu_l / fl.nu_g: 4.2f}"
+    )
+
+
+def format_frame(istep: int, dt: float, m: Metrics, mode_name: str) -> str:
+    """Per-frame log line (superset of the reference's 2dvof.py:533), as
+    tpuvof's; the metrics reach the host in one copy."""
+    mass, max_u, max_v, cfl_u, cfl_v, max_div, finite = torch.stack(
+        [torch.as_tensor(x, dtype=torch.float64) for x in m]).tolist()
+    warn = " [CFL>0.25!]" if cfl_u > 0.25 or cfl_v > 0.25 else ""
+    nan = "" if finite else " [NON-FINITE!]"
+    return (
+        f">>> Number of steps:{istep:<5d}, Time:{istep * dt:5.2e} sec. "
+        f"Displaying {mode_name}. mass={mass:.4f} "
+        f"max|u|={max_u:.3e} max|v|={max_v:.3e} "
+        f"CFL=({cfl_u:.3f},{cfl_v:.3f}) "
+        f"div={max_div:.3e}{warn}{nan}"
     )
