@@ -159,6 +159,28 @@ Phases, each fatal on failure:
      simulate_cfl (torch.profiler), the ms of a frame (render_frame + save_frame_png,
      plain and with arrows), of save_contour_png, and of one 200^3 VTK
      write.
+ 17. the distributed solver ladder, on virtual meshes on cuda:0, counts set
+     to 0 before and read after each run, and the residual-driven solves'
+     loop tests counted (ops.poisson.keep_iterating: one an SOR iteration
+     or V-cycle, one more a solve, each after a host read of the global
+     residual). a. Decomp3D(backend='torch') in f64 at 32^3 on (2, 2), (4,)
+     and (8,) (shards 4 planes thick, thinner than the wide-halo cone)
+     over 100 steps: no kernel launch, within 1e-12 of the serial 'torch'
+     run, within 1e-9 of the golden's step 100. b. the distributed hybrid,
+     rbsor and mg (sor_tol 1e-8, sor_max_iter 2000), on (2, 2) and (2,) over
+     4 steps in f64 at 32^3 against the serial 'cuda' hybrid: F, u, v, w
+     within 1e-12, p within 1e-7, the same iterations and V-cycles, k x the
+     serial launches on k shards. c. the slice at full width: 200^3 f32 on
+     the 2x2 pencil mesh with sor_tol_rel 1e-2, 'auto' (mg) over 20 steps
+     and rbsor over 5, beside the serial hybrid: 4 x its launches of
+     predict3d_rhs, correct3d and fct3d_sweep and no jacobi3d; finite, 0 <=
+     F <= 1, mass; host ms/step, V-cycles or iterations a step, residual
+     reads a step, the device's idle share (torch.profiler) of both, and
+     the distance from the serial result: mg's F and p equal bit for bit,
+     rbsor's within LADDER_RBSOR_BARS. The CLI with --three-d --mesh
+     2,2 --pressure-solver mg --sor-tol-rel 1e-2 over the same 20 steps on
+     that virtual mesh (it stands in for the CLI's lookup of the cards):
+     its checkpoint equal bit for bit to the Decomp3D run, its VTK written.
 
 It prints one JSON line of per-kernel results and, last, the JSON status
 line. With no CUDA device it exits non-zero before printing any result.
@@ -294,6 +316,24 @@ APP_REPEATS = 2  # the timed CLI and simulate runs, alternating
 # 999-step workload; two such epochs through the CLI took 121 s on an
 # H100 80GB HBM3 at 700 W)
 APP_OPT_STEPS = 200
+# phase 17: the distributed solver ladder. (a) and (b) in f64 at the 3-D
+# golden's 32^3; (b) with tpuvof's hybrid-test solve (sor_tol 1e-8,
+# sor_max_iter 2000, 4 steps: every sweep order and a wrap); (c) at the
+# flagship 200^3 in f32 on the 2x2 pencil mesh, the production upgrade
+# (sor_tol_rel 1e-2): mg ('auto') over 20 steps, rbsor over 5
+LADDER_TORCH_MESHES = ((2, 2), (4,), (8,))
+LADDER_HYBRID_MESHES = ((2, 2), (2,))
+LADDER_SOLVE = dict(sor_tol=1e-8, sor_max_iter=2000)
+STEPS3_LADDER_HYBRID = 4
+LADDER_TOL_REL = 1e-2
+LADDER_RUNS = (("auto", 20), ("rbsor", 5))  # (pressure_solver, steps) of (c)
+LADDER_IDLE_STEPS = 1  # the profiled window of (c)'s idle shares
+# (c) against the serial hybrid: mg equals it bit for bit; rbsor's ap_inv
+# is formed in f32 as tpuvof's distributed solver forms it (the serial one
+# casts f64 edge classes), which moved its 5-step p by 1.15e-6 of max|p| and
+# F by 1.2e-7 on an H100; a solve that drops one of its exchanges reads
+# orders of magnitude more (PERF.md, phase 17 findings)
+LADDER_RBSOR_BARS = (1e-5, 1e-4)  # (max|dF|, max|dp| / max|p|)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1234,6 +1274,188 @@ def same_state(got, want, label: str) -> None:
     check(same, f"{label}: max|d| {diff:.3e}")
 
 
+@contextlib.contextmanager
+def loop_tests():
+    """Count the calls of the residual-driven solves' exit test
+    (ops.poisson.keep_iterating): one for each SOR iteration or V-cycle and
+    one more for each solve, each after one host read of the global
+    residual; in every module that runs such a loop."""
+    from tpuvof_torch.ops import mg, poisson
+    from tpuvof_torch.parallel import mg as pmg
+
+    count = [0]
+    real = poisson.keep_iterating
+
+    def counted(*a):
+        count[0] += 1
+        return real(*a)
+
+    mods = (poisson, mg, pmg)
+    for m in mods:
+        m.keep_iterating = counted
+    try:
+        yield count
+    finally:
+        for m in mods:
+            m.keep_iterating = real
+
+
+def counted_run(counters, fn):
+    """(fn's result, launches, loop tests, seconds), every count set to 0
+    just before ``fn`` and read just after."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset_launch_counts()
+    with loop_tests() as calls:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, {k: n for c in counters for k, n in c.LAUNCHES.items() if n}, calls[0], secs
+
+
+def virtual_mesh(tt, shape, dev):
+    names = ("mx", "my")[:len(shape)]
+    return tt.make_mesh(int(np.prod(shape)), names, [dev] * int(np.prod(shape)))
+
+
+def run_ladder_phase(tt, counters, golden3, tag) -> None:
+    """Phase 17: the distributed solver ladder (see the module's
+    docstring)."""
+    from tpuvof_torch import cli, io_utils
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    I = (slice(1, -1),) * 3
+
+    # ---- a. Decomp3D(backend='torch') vs the serial plain path and the golden ----
+    n, ck = int(golden3["n"]), int(golden3["checkpoint"])
+    g = tt.Grid3D(n, n, n)
+    s0 = tt.init_state_3d(g, 1, dev, f64)
+    serial, launches, _, secs = counted_run(
+        counters, lambda: tt.simulate_3d(g, s0, ck, backend="torch"))
+    print(f"ladder a: serial 'torch' {n}^3 f64 x{ck}: launches {launches} ({secs:.2f} s)")
+    check(launches == {}, f"serial 'torch' launched {launches}")
+    for shape in LADDER_TORCH_MESHES:
+        dec = tt.Decomp3D(g, virtual_mesh(tt, shape, dev), backend="torch")
+        got, launches, _, secs = counted_run(counters, lambda: dec.simulate(s0, ck))
+        rel = max(rel_err(a, b)[0] for a, b in zip(got, serial))
+        gold = max(np.abs(getattr(got, k).cpu().numpy() - golden3[f"{k}100"]).max()
+                   for k in "Fu")
+        print(f"ladder a: Decomp3D(backend='torch') {shape} (nx/px {dec.nxl}) {n}^3 f64 "
+              f"x{ck}: launches {launches}, vs serial 'torch' rel {rel:.3e} (bar 1e-12), vs "
+              f"the golden's F100/u100 {gold:.3e} (bar 1e-9) ({secs:.2f} s)")
+        check(launches == {}, f"Decomp3D(backend='torch') {shape} launched {launches}")
+        check(rel <= 1e-12, f"Decomp3D(backend='torch') {shape} vs serial {rel:.3e}")
+        check(gold <= 1e-9, f"Decomp3D(backend='torch') {shape} vs the golden {gold:.3e}")
+
+    # ---- b. the hybrid vs the serial hybrid, f64 ----
+    steps = STEPS3_LADDER_HYBRID
+    for solver in ("rbsor", "mg"):
+        want, l_ser, c_ser, secs = counted_run(counters, lambda: tt.simulate_3d(
+            g, s0, steps, pressure_solver=solver, **LADDER_SOLVE))
+        print(f"ladder b: serial hybrid {solver} {n}^3 f64 x{steps}: launches {l_ser}, "
+              f"{c_ser - steps} iterations ({secs:.2f} s)")
+        for shape in LADDER_HYBRID_MESHES:
+            dec = tt.Decomp3D(g, virtual_mesh(tt, shape, dev), pressure_solver=solver,
+                              **LADDER_SOLVE)
+            got, launches, calls, secs = counted_run(counters, lambda: dec.simulate(s0, steps))
+            errs = {k: (getattr(got, k)[I] - getattr(want, k)[I]).abs().max().item()
+                    for k in "Fuvwp"}
+            k = len(dec.coords)
+            print(f"ladder b: Decomp3D hybrid {solver} {shape} (W {dec.W}) {n}^3 f64 x{steps}:"
+                  f" launches {launches}, {calls - steps} iterations (serial "
+                  f"{c_ser - steps}), max|d| vs the serial hybrid " +
+                  ", ".join(f"{q} {e:.3e}" for q, e in errs.items()) +
+                  f" (bars 1e-12, p 1e-7) ({secs:.2f} s; {time.perf_counter() - t_phase:.1f} s "
+                  "into the phase)")
+            check(launches == {q: k * v for q, v in l_ser.items()},
+                  f"hybrid {solver} {shape} launches {launches} != {k} x {l_ser}")
+            check(calls == c_ser, f"hybrid {solver} {shape}: {calls} loop tests != {c_ser}")
+            check(max(errs[q] for q in "Fuvw") <= 1e-12 and errs["p"] <= 1e-7,
+                  f"hybrid {solver} {shape} vs serial {errs}")
+
+    # ---- c. the slice at full width: 200^3 f32, 2x2 pencils ----
+    g3 = tt.Grid3D(N3_MAIN, N3_MAIN, N3_MAIN)
+    s3 = tt.init_state_3d(g3, 1, dev)
+    mesh = virtual_mesh(tt, (2, 2), dev)
+
+    def mass(s):
+        return s.F[I].double().sum().item()
+
+    ends = {}
+    for solver, steps in LADDER_RUNS:
+        kw = dict(pressure_solver=solver, sor_tol_rel=LADDER_TOL_REL)
+        want, l_ser, c_ser, secs_ser = counted_run(
+            counters, lambda: tt.simulate_3d(g3, s3, steps, **kw))
+        dec = tt.Decomp3D(g3, mesh, **kw)
+        blocks0 = dec.widen(dec.scatter_state(s3))
+        blocks, launches, calls, secs = counted_run(counters,
+                                                    lambda: dec.advance(blocks0, steps))
+        got = ends[solver] = dec.gather_state(dec.narrow(blocks))
+        finite = all(bool(torch.isfinite(a).all()) for b in blocks for a in b)
+        Fmin = min(b.F.min().item() for b in blocks)
+        Fmax = max(b.F.max().item() for b in blocks)
+        drift = abs(mass(got) - mass(s3)) / mass(s3)
+        dF = (got.F - want.F).abs().max().item()
+        rel_p = rel_err(got.p, want.p)[0]
+        check(launches == {q: 4 * v for q, v in l_ser.items()} and "jacobi3d" not in launches,
+              f"hybrid {solver} 2x2 launches {launches} != 4 x {l_ser}")
+        check(finite, f"hybrid {solver} 2x2: non-finite values in the blocks")
+        check(0.0 <= Fmin and Fmax <= 1.0, f"hybrid {solver} 2x2: F in [{Fmin}, {Fmax}]")
+        check(drift <= 1e-3, f"hybrid {solver} 2x2: mass drift {drift:.3e}")
+        wall_d, idle_d = idle_share(lambda: dec.advance(blocks0, LADDER_IDLE_STEPS))
+        wall_s, idle_s = idle_share(lambda: tt.simulate_3d(g3, s3, LADDER_IDLE_STEPS, **kw))
+
+        def pct(x):
+            return "not measured" if x is None else f"{100 * x:.1f}%"
+
+        unit = "V-cycles" if dec.pressure_solver == "mg" else "iterations"
+        print(f"{tag} ladder c: hybrid {solver} -> {dec.pressure_solver}, sor_tol_rel "
+              f"{LADDER_TOL_REL}, {N3_MAIN}^3 f32 x{steps} on the 2x2 pencil mesh: launches "
+              f"{launches} (4 x the serial {l_ser}); {1e3 * secs / steps:.2f} ms/step on the "
+              f"host clock (serial hybrid {1e3 * secs_ser / steps:.2f}); {unit} a step "
+              f"{(calls - steps) / steps:.2f} (serial {(c_ser - steps) / steps:.2f}); global "
+              f"residual reads a step {calls / steps:.2f} and one tolerance read; idle share "
+              f"{pct(idle_d)} over {LADDER_IDLE_STEPS} steps ({wall_d:.1f} ms; serial "
+              f"{pct(idle_s)}, {wall_s:.1f} ms); finite, F in [{Fmin:.3e}, {Fmax:.3e}], mass "
+              f"drift {drift:.3e}; vs the serial hybrid max|dF| {dF:.3e}, rel p {rel_p:.3e} "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+        if dec.pressure_solver == "mg":
+            check(dF == 0 and rel_p == 0, f"hybrid {solver} 2x2 vs the serial hybrid: "
+                  f"max|dF| {dF:.3e}, rel p {rel_p:.3e} (want bit for bit)")
+        else:
+            check(dF <= LADDER_RBSOR_BARS[0] and rel_p <= LADDER_RBSOR_BARS[1],
+                  f"hybrid {solver} 2x2 vs the serial hybrid: max|dF| {dF:.3e}, rel p "
+                  f"{rel_p:.3e} (bars {LADDER_RBSOR_BARS})")
+
+    # the CLI with the production upgrade on the 2x2 mesh: its device lookup
+    # gives the cards cuda:0 onwards, so the virtual mesh stands in for it
+    solver, steps = LADDER_RUNS[0]
+    work = tempfile.TemporaryDirectory()
+    argv = ["--three-d", "--nx", str(N3_MAIN), "--steps", str(steps), "--frame-every",
+            str(steps), "--checkpoint-every", str(steps), "--mesh", "2,2",
+            "--pressure-solver", "mg", "--sor-tol-rel", str(LADDER_TOL_REL),
+            "--outdir", work.name]
+    real_mesh = cli._mesh_3d
+    cli._mesh_3d = lambda args: (mesh, None)
+    try:
+        launches, _, _ = cli_run(cli, counters, "ladder c: CLI --three-d --mesh 2,2 "
+                                 f"--pressure-solver mg --sor-tol-rel {LADDER_TOL_REL}", argv)
+    finally:
+        cli._mesh_3d = real_mesh
+    end, _, _ = io_utils.load_checkpoint_3d(
+        os.path.join(work.name, f"ckpt_{steps:06d}.npz"), dev)
+    check(os.path.getsize(os.path.join(work.name, f"step-{steps:05d}.vtk")) > N3_MAIN ** 3,
+          "the CLI wrote no VTK")
+    same_state(end, ends[solver], f"ladder c: the CLI's checkpoint == Decomp3D({solver}, "
+               f"sor_tol_rel={LADDER_TOL_REL}) x{steps}")
+    work.cleanup()
+    print(f"phase 17 (the distributed solver ladder): {time.perf_counter() - t_phase:.1f} s "
+          f"{tag}")
+
+
 def run_app_phase(tt, counters, s_mono_main, per_step3, tag) -> None:
     """Phase 16: the app layer on the card (see the module's docstring)."""
     import re
@@ -1971,6 +2193,9 @@ def main() -> int:
 
     # ---- 16. the app layer through the CLI ----
     run_app_phase(tt, counters, s_mono_main, per_step, tag)
+
+    # ---- 17. the distributed solver ladder ----
+    run_ladder_phase(tt, counters, golden3, tag)
 
     site = "tpuvof/pallas_kernels/step_kernels.py"
     sources = {"predict": ("tpuvof_torch/csrc/predict.cu", f"{site}:444"),

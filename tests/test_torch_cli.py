@@ -185,17 +185,35 @@ def test_cli_errors_exit_2(tmp_path, capsys, monkeypatch, case):
         "cpu-mono": ["--device", "cpu", "--backend", "cuda_mono", "--three-d", "--nx", "16"],
         "mesh-2d": CPU + ["--mesh", "2,2", "--nx", "16", "--steps", "2"],
         "plan-mesh": ["--plan-mesh", "8", "--nx", "200", "--three-d"],
-        "mesh-3d-cpu": CPU + ["--three-d", "--mesh", "2,2", "--nx", "16", "--steps", "2"],
+        "mesh-3d-cpu": CPU + ["--three-d", "--mesh", "3", "--nx", "16", "--steps", "2"],
     }[case]
     said = {"resume-grid": "checkpoint grid", "csf-2d": "--csf applies to --three-d",
             "no-card": "--device cpu --backend torch", "cpu-cuda": "--device cpu --backend torch",
             "cpu-mono": "--device cuda", "mesh-2d": "item 9.3", "plan-mesh": "item 9.4",
-            "mesh-3d-cpu": "item 9"}[case]
+            "mesh-3d-cpu": "backend='torch'"}[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(argv + ["--outdir", str(tmp_path / "out")]) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: ") and said in err
     assert not os.path.exists(tmp_path / "out" / "000000-vof.png")
+
+
+def test_cli_three_d_mesh_torch_mg(tmp_path):
+    """--three-d --mesh on --backend torch with mg: the run writes its VTK,
+    and its checkpoint equals Decomp3D's with the same sor_tol_rel bit for
+    bit (the CLI passes sor_tol and sor_tol_rel through)."""
+    rc = cli.main(CPU + ["--three-d", "--mesh", "2,2", "--nx", "16", "--steps", "2",
+                         "--frame-every", "2", "--pressure-solver", "mg", "--sor-tol-rel",
+                         "1e-2", "--checkpoint-every", "2", "--outdir", str(tmp_path)])
+    assert rc == 0
+    assert os.path.getsize(tmp_path / "step-00002.vtk") > 18**3 * 4
+    g = tt.Grid3D(16, 16, 16)
+    mesh = tt.make_mesh(devices=[torch.device("cpu")] * 4)
+    dec = tt.Decomp3D(g, mesh, backend="torch", pressure_solver="mg", sor_tol_rel=1e-2)
+    want = dec.simulate(tt.init_state_3d(g, 1, "cpu"), 2)
+    got = np.load(tmp_path / "ckpt_000002.npz")
+    for k, b in zip("Fuvwp", want):
+        assert np.array_equal(got[k], b.numpy()), k
 
 
 def test_cli_interactive_surfaces_headless(tmp_path):

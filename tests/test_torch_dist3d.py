@@ -199,11 +199,16 @@ def test_inadmissible_shapes_raise(shape, kw, match):
 
 
 def test_unported_engines_and_bad_meshes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.Decomp3D(G16, _mesh((2,)), n_jacobi=NJ, backend="torch")
-    for solver in ("mg", "rbsor", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.Decomp3D(G16, _mesh((2,)), n_jacobi=NJ, pressure_solver=solver)
+    """The engines that once raised here build now: the plain-torch engine
+    and the hybrid (their trajectories: tests/test_torch_dist3d_torch.py
+    and test_torch_hybrid_dist3d.py); the bad meshes still raise."""
+    dec = tt.Decomp3D(G16, _mesh((2,)), n_jacobi=NJ, backend="torch")
+    assert dec.backend == "torch" and not dec.hybrid and dec.W == 0
+    for solver, want in (("mg", "mg"), ("rbsor", "rbsor"), ("auto", "mg")):
+        dec = tt.Decomp3D(G16, _mesh((2,)), n_jacobi=NJ, pressure_solver=solver)
+        assert dec.hybrid and dec.pressure_solver == want and dec.W == 4
+    with pytest.raises(ValueError, match="backend='torch' cannot honour"):
+        tt.Decomp3D(G16, _mesh((2, 1)), n_jacobi=NJ, backend="torch", pencil=True)
     with pytest.raises(ValueError, match="divisible"):
         tt.Decomp3D(tt.Grid3D(18, 18, 8, Lz=0.1 * 8 / 18), _mesh((4,)), n_jacobi=NJ)
     with pytest.raises(ValueError, match="2-axis"):

@@ -13,6 +13,10 @@ Numerics default); --device {cuda,cpu} (default cuda) places the state,
 and nothing falls back to the CPU: without a card, --device cuda is an
 error, as is a 'cuda*' backend on --device cpu; the 2-D --mesh and
 --plan-mesh are not ported yet and exit 2 naming their ROADMAP item.
+--three-d --mesh runs the port's Decomp3D: --backend torch on any mesh
+whose sizes divide the grid, a 'cuda*' backend on the wide-halo engine
+(or its hybrid with --pressure-solver rbsor/mg/auto), which exits 2 on a
+mesh too fine for its cone where tpuvof falls back to its XLA engine.
 
 Usage examples:
   python -m tpuvof_torch -ic 1 -s --steps 2000 --backend cuda_mono
@@ -248,8 +252,9 @@ def run_3d(args) -> int:
         try:
             dec = Decomp3D(g, mesh, dt=args.dt, n_jacobi=args.jacobi,
                            backend=backend, pressure_solver=args.pressure_solver,
+                           sor_tol=args.sor_tol, sor_tol_rel=args.sor_tol_rel,
                            csf=args.csf)
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
     os.makedirs(args.outdir, exist_ok=True)

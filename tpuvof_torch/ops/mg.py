@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .poisson import effective_tol, keep_iterating, mean_free_interior
+from .poisson import cell_mean, effective_tol, keep_iterating, mean_free_interior
 
 __all__ = ["mg_solve", "mg_solve_implicit", "mg_levels", "STALL_CYCLES"]
 
@@ -44,20 +44,30 @@ def mg_levels(shape) -> list[tuple[int, ...]]:
     return shapes
 
 
-def _coeffs(shape, inv2, dtype, device):
+def _index(shape, ax, device, offset: int = 0):
+    """The index along ``ax``, plus ``offset``, broadcastable to ``shape``."""
+    view = [1] * len(shape)
+    view[ax] = shape[ax]
+    return (torch.arange(shape[ax], device=device) + offset).reshape(view)
+
+
+def _coeffs(shape, inv2, dtype, device, offsets=None, whole=None):
     """Edge-zeroed coefficients of one level: ([(a_plus, a_minus) per
     axis], ap, ap_inv). a_plus multiplies the +1 neighbour and is zero on
-    the last slice (the wall); ap and ap_inv accumulate in ``dtype``."""
+    the last slice (the wall); ap and ap_inv accumulate in ``dtype``.
+    ``offsets`` and ``whole`` place a block of a sharded level: its cell 0
+    sits at global index ``offsets`` of a level of shape ``whole``, and
+    only the global walls zero a coefficient."""
+    offsets = offsets or (0,) * len(shape)
+    whole = whole or shape
     total = None
     axes = []
     zero = torch.zeros((), dtype=dtype, device=device)
     for ax, c in enumerate(inv2):
-        view = [1] * len(shape)
-        view[ax] = shape[ax]
-        idx = torch.arange(shape[ax], device=device).reshape(view)
+        idx = _index(shape, ax, device, offsets[ax])
         cval = torch.full((), float(np.float64(c).astype(_NP_DTYPE[dtype])),
                           dtype=dtype, device=device)
-        apl = torch.where(idx == shape[ax] - 1, zero, cval).expand(shape)
+        apl = torch.where(idx == whole[ax] - 1, zero, cval).expand(shape)
         ami = torch.where(idx == 0, zero, cval).expand(shape)
         pair = apl + ami
         total = pair if total is None else total + pair
@@ -73,13 +83,13 @@ def _neigh(axes, p, rhs):
     return out
 
 
-def _red_mask(shape, device):
-    """(i + j [+ k]) % 2 == 0."""
+def _red_mask(shape, device, offsets=None):
+    """(i + j [+ k]) % 2 == 0, at global indices on a block whose cell 0
+    sits at ``offsets``."""
+    offsets = offsets or (0,) * len(shape)
     s = None
     for ax in range(len(shape)):
-        view = [1] * len(shape)
-        view[ax] = shape[ax]
-        idx = torch.arange(shape[ax], device=device).reshape(view)
+        idx = _index(shape, ax, device, offsets[ax])
         s = idx if s is None else s + idx
     return (s % 2) == 0
 
@@ -169,13 +179,13 @@ def mg_solve(p, rhs, inv2, tol, max_cycles, nu: int | None = None,
             f"pressure_solver='mg' needs a coarsenable interior grid "
             f"(all extents even and >= 8); got {tuple(rhs.shape)} - use 'rbsor'")
     levels = _build_levels(shapes, inv2, p.dtype, p.device)
-    rhs = rhs - torch.mean(rhs)
+    rhs = rhs - cell_mean(rhs)
     tol = effective_tol(tol, tol_rel, rhs).item()
     axes0, ap0, _, _ = levels[0]
 
     def resid(p_l):
         r = _neigh(axes0, p_l, rhs) - ap0 * p_l
-        r = r - torch.mean(r)
+        r = r - cell_mean(r)
         return torch.max(torch.abs(r)).item()
 
     interior = (slice(1, -1),) * rhs.ndim

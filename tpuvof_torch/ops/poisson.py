@@ -38,6 +38,12 @@ __all__ = [
     "solve_pressure",
     "residual",
     "effective_tol",
+    "effective_tol_blocks",
+    "block_max",
+    "cell_mean",
+    "rhs_3d",
+    "neigh_3d",
+    "rbsor_3d_blocks",
     "STALL_ITERS",
     "PLATEAU_FACTOR",
 ]
@@ -240,6 +246,15 @@ def effective_tol(tol: float, tol_rel: float, rhs_projected):
     return _scalar(tol, rhs_projected)
 
 
+def cell_mean(x):
+    """The mean of ``x`` in an order that a domain decomposition can keep:
+    the sums along the last axis (z in 3-D, which Decomp3D never splits),
+    then their sum. parallel/mg.py adds the shards of a field in the same
+    order, so a distributed solve subtracts the serial mean bit for bit
+    and stops where the serial one stops."""
+    return x.sum(-1).sum() / x.numel()
+
+
 def _scalar(x: float, like):
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
@@ -251,6 +266,95 @@ def keep_iterating(it: int, max_iter: int, r: float, tol: float, best: float,
     agrees with the dtype's; 2 * best is exact)."""
     floored = stall >= stall_limit and r <= PLATEAU_FACTOR * best
     return it < max_iter and r > tol and not floored
+
+
+def block_max(xs):
+    """The max over a list of blocks, on the first block's device (exact
+    in any order)."""
+    dev = xs[0].device
+    out = None
+    for x in xs:
+        m = x.max().to(dev)
+        out = m if out is None else torch.maximum(out, m)
+    return out
+
+
+def effective_tol_blocks(tol: float, tol_rel: float, rhss) -> float:
+    """``effective_tol`` over mean-free blocks: the relative scale is the
+    max|rhs'| of all of them."""
+    scale = block_max([r.abs() for r in rhss]) if tol_rel and tol_rel > 0.0 else rhss[0]
+    return effective_tol(tol, tol_rel, scale).item()
+
+
+def rhs_3d(g, dt, u_star, v_star, w_star, rho):
+    """rhs = rho/dt * div(u*) on the interior of a ghosted 3-D block,
+    shape (nx, ny, nz)."""
+    I = (slice(1, -1),) * 3
+    return rho[I] / dt * (
+        (u_star[2:, 1:-1, 1:-1] - u_star[I]) * g.dxi
+        + (v_star[1:-1, 2:, 1:-1] - v_star[I]) * g.dyi
+        + (w_star[1:-1, 1:-1, 2:] - w_star[I]) * g.dzi
+    )
+
+
+def neigh_3d(coeffs, p, rhs):
+    """rhs less the six neighbour terms of the 7-point stencil on the
+    interior of ghosted ``p``; coeffs = (ae, aw, an, as, af, ab, ap_inv)."""
+    ae, aw, an, a_s, af, ab, _ = coeffs
+    return (
+        rhs
+        - ae * p[2:, 1:-1, 1:-1]
+        - aw * p[:-2, 1:-1, 1:-1]
+        - an * p[1:-1, 2:, 1:-1]
+        - a_s * p[1:-1, :-2, 1:-1]
+        - af * p[1:-1, 1:-1, 2:]
+        - ab * p[1:-1, 1:-1, :-2]
+    )
+
+
+def rbsor_3d_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: float,
+                    max_iter: int, mean_free, exchange=None):
+    """3-D red-black SOR on ghosted blocks: the whole grid as one block,
+    or one block a shard of a decomposition. Against the mean-free rhs,
+    until max|Ap - rhs'| <= the tolerance, the iteration cap or the stall
+    exit. Block k has the coefficients ``coeffs[k]`` and the red mask
+    ``reds[k]`` (red at even global i + j + k). ``mean_free`` takes a list
+    of blocks and subtracts the mean over all of them; ``exchange``
+    refreshes the blocks' ghosts in place after each half sweep. tpuvof
+    loops on the device; here the exit test reads the global residual on
+    the host once per iteration (keep_iterating). Returns new blocks."""
+    I = (slice(1, -1),) * 3
+    rhss = mean_free(rhss)
+    tol = effective_tol_blocks(tol, tol_rel, rhss)
+    aps = [1.0 / c[-1] for c in coeffs]
+
+    def half_sweep(ps, black):
+        new = []
+        for c, red, p, rhs in zip(coeffs, reds, ps, rhss):
+            gs = neigh_3d(c, p, rhs) * c[-1]
+            p_int = p[I]
+            upd = p_int + omega * (gs - p_int)
+            q = p.clone()
+            q[I] = torch.where(~red if black else red, upd, p_int)
+            new.append(q)
+        if exchange is not None:
+            exchange(new)
+        return new
+
+    def resid(ps):
+        rs = [neigh_3d(c, p, rhs) - ap * p[I] for c, ap, p, rhs in zip(coeffs, aps, ps, rhss)]
+        return block_max([r.abs() for r in mean_free(rs)]).item()
+
+    r = best = resid(ps)
+    it = stall = 0
+    while keep_iterating(it, max_iter, r, tol, best, stall, STALL_ITERS):
+        ps = half_sweep(ps, False)
+        ps = half_sweep(ps, True)
+        r = resid(ps)
+        stall = 0 if r < best else stall + 1
+        best = min(best, r)
+        it += 1
+    return ps
 
 
 def _rbsor(g: Grid2D, nm: Numerics, p, rhs):

@@ -1,15 +1,24 @@
 """Distributed 3-D solver: x slabs or (x, y) pencils on a device mesh
-(counterpart of tpuvof/parallel/dist3d.py, its resident wide-halo engine).
+(counterpart of tpuvof/parallel/dist3d.py).
 
-tpuvof runs this engine as ``backend='pallas'`` under ``shard_map``; the
-port runs it as ``backend='cuda'`` from one controller: one set of tensors
-per shard on its mesh device, the four 3-D kernels of
-kernels/step3d_kernels.py on each shard's extended block, and halo
+tpuvof runs its engines under ``shard_map``; the port runs them from one
+controller: one set of tensors per shard on its mesh device, and halo
 exchange by ``Tensor.copy_`` between shard tensors (tpuvof's
 ``lax.ppermute``). Given CPU devices, the kernel wrappers run their plain
-versions, which is how the CPU tests drive it.
+versions, which is how the CPU tests drive it. Three engines:
 
-The engine (tpuvof's round-3 design):
+``backend='torch'`` (tpuvof's XLA engine): tpuvof's _local_step on every
+shard, plain torch ops on a local grid (the local extents with the global
+spacing) and one-layer exchanges of each field it needs fresh: the
+normals and kappa with csf, u*, v*, w*, p after each Jacobi sweep or SOR
+half sweep, F after each FCT sweep, and the masked wall BCs. The x sweep
+runs on a block widened by two planes of the neighbours (global-index
+masks keep what lies beyond the walls inert), the y sweep likewise on a
+pencil mesh. It needs only nx % px == ny % py == 0: a shard may be one
+plane thick.
+
+``backend='cuda'`` with the fixed Jacobi (tpuvof's resident wide-halo
+engine, round-3 design):
 - each shard's block is extended once at entry: W planes of neighbour data
   on each x side and, in pencil mode, Wy rows on each y side, zeros beyond
   the walls (the kernels' global masks keep that junk inert);
@@ -21,37 +30,49 @@ The engine (tpuvof's round-3 design):
   origin, the sweeps in the istep % 3 rotation, the last with mirror_out,
   and the x-edge shards restore their F wall plane;
 - the centre is sliced out once at exit, then the exit BC.
-
 W = n_jacobi + 4 (+6 with csf) is the step's dependency cone: after a
 refresh every block plane holds current data, and the final F is exact on
 the owned planes iff W covers the rhs's outer plane, n_jacobi erosions,
 the correction's p at i-1 and the x-sweep's 3 planes. Wy likewise.
 
+``backend='cuda'`` with rbsor, mg or auto (tpuvof's distributed hybrid):
+the same resident blocks with W = 4 (+2 with csf), the cone without the
+Jacobi erosion: predict3d_rhs, then the distributed solve (this module's
+rbsor, or parallel/mg.py) on each block's ring layout (owned cells and one
+ghost layer), the solved p put back into a zeroed block and its halo
+refreshed once, then correct3d and the three sweeps. No jacobi3d launch.
+
 Ordering across devices: every kernel launches on the current stream of
 its shard's device (the engine enters that device first), and ``copy_``
 between two CUDA devices makes the source's and the destination's current
 streams wait for each other before and after the copy, so a halo copy runs
-after the kernels that wrote its source and before those that read its
+after the ops that wrote its source and before those that read its
 destination. On a single device (a virtual mesh) one stream orders it all.
 The CPU tests cannot show this ordering: they run on one device.
 
-Not ported (ROADMAP): tpuvof's XLA engine (per-op exchanges, windowed
-sweeps: what runs shards too thin for the cone), the distributed hybrid
-(rbsor/mg between the kernel phases) and the mesh planner. Where tpuvof
-falls back to its XLA engine with a warning, the port raises.
+Where tpuvof falls back from its Pallas engine to its XLA engine with a
+warning, the port raises: no fallback trades the kernels for plain ops.
 """
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..config import Fluid
 from ..grid import Grid3D
 from ..kernels import step3d_kernels as K3
-from ..ops import apply_bc_3d_
-from ..ops.fct3d import SWEEP_ORDER
+from ..ops import apply_bc_3d_, clamp01, mix_properties
+from ..ops.fct3d import (SWEEP_ORDER, fct3d_sweep_y, fct3d_sweep_z, sweep_masked_2axis,
+                         sweep_x_masked)
+from ..ops.mg import _red_mask, mg_levels
+from ..ops.momentum3d import predict_velocity_3d, update_velocity_3d
+from ..ops.normals3d import curvature_from_normals_3d, young_normals_3d
+from ..ops.poisson import neigh_3d, rbsor_3d_blocks, rhs_3d
 from ..state import State3D
+from . import mg as pmg
 from .mesh import Mesh
 
 __all__ = ["Decomp3D", "admission_3d"]
@@ -70,13 +91,14 @@ def admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
       why      the reason when not ok
 
     Only tpuvof's decisions are ported: W = n_jacobi + 4 (+6 with csf),
-    the step's dependency cone, and Wy likewise; each halo of W+1 planes
-    (Wy+1 rows) must come from one neighbour's owned planes, so W+1 <=
-    nx/px (and Wy+1 <= ny/py). Its slab-chunk rounding of W (the reason
-    for its ``halo_width`` option), its even-nx/px condition and its VMEM
-    residency test size the TPU's chunks and scratch and are dropped: a
-    wider W only adds sacrificial halo work, since the cells a shard keeps
-    do not depend on it, so W is the cone and nothing sets it."""
+    the step's dependency cone, and Wy likewise (the hybrid passes
+    n_jacobi = 0); each halo of W+1 planes (Wy+1 rows) must come from one
+    neighbour's owned planes, so W+1 <= nx/px (and Wy+1 <= ny/py). Its
+    slab-chunk rounding of W (the reason for its ``halo_width`` option),
+    its even-nx/px condition and its VMEM residency test size the TPU's
+    chunks and scratch and are dropped: a wider W only adds sacrificial
+    halo work, since the cells a shard keeps do not depend on it, so W is
+    the cone and nothing sets it."""
     nxl, nyl = g.nx // px, g.ny // py
     use_pencil = (py > 1) if pencil is None else bool(pencil)
     # csf widens the predictor's F cone from +-1 to +-3 planes (kappa at
@@ -98,68 +120,100 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+@dataclass(frozen=True)
+class _LocalGrid3:
+    """A shard's grid for the plain ops: the local extents, with the global
+    spacing copied, not derived again (a spacing recomputed from a local
+    length would not round the same)."""
+
+    nx: int
+    ny: int
+    nz: int
+    dx: float
+    dy: float
+    dz: float
+    dxi: float
+    dyi: float
+    dzi: float
+
+
 class Decomp3D:
     """Domain decomposition of a 3-D grid: x slabs over a 1-axis mesh, or
     (x, y) pencils over a 2-axis mesh with py > 1. ``pencil=True`` forces
-    the pencil engine on a 2-axis mesh with py == 1 (tpuvof's option): it
-    computes the slab engine's answer with 2 Wy more rows a block, so it
-    serves only to hold the pencil path to the slab and serial ones, as the
-    tests do.
+    the pencil form of the wide-halo engine on a 2-axis mesh with py == 1
+    (tpuvof's option): it computes the slab engine's answer with 2 Wy more
+    rows a block, so it serves only to hold the pencil path to the slab and
+    serial ones, as the tests do; ``backend='torch'`` cannot honour it.
 
-    Only ``backend='cuda'`` with the fixed Jacobi exists: ``'torch'`` (the
-    counterpart of tpuvof's XLA engine) and the residual-driven solvers
-    (its distributed hybrid) raise NotImplementedError, and a shape that
-    the engine does not admit raises ValueError where tpuvof would fall
-    back to its XLA engine, so no fallback hides the kernels.
+    ``pressure_solver``: 'jacobi' (n_jacobi fixed sweeps), 'rbsor', 'mg',
+    or 'auto' (mg where the global grid coarsens, else rbsor), with
+    tpuvof's sor_* options. On ``backend='cuda'``, rbsor/mg run the
+    distributed hybrid. A shape that the wide-halo engine does not admit
+    raises ValueError where tpuvof would fall back to its XLA engine:
+    ``backend='torch'`` runs it.
 
     ``simulate`` takes and returns a whole-grid State3D. Its stages are
     public for callers that keep the shards resident: ``scatter_state``,
-    ``widen`` (entry BC and extension), ``advance`` (the steps, on the
-    extended blocks), ``narrow`` (slice and exit BC) and ``gather_state``.
-    Shards are lists in ``coords`` order, (xi, yi) row-major."""
+    ``widen`` (the engine's entry layout), ``advance`` (the steps),
+    ``narrow`` (back to the ring layout) and ``gather_state``. Shards are
+    lists in ``coords`` order, (xi, yi) row-major."""
 
     def __init__(self, g: Grid3D, mesh: Mesh, fl: Fluid | None = None, dt: float = 4e-6,
                  n_jacobi: int = 10, backend: str = "cuda", pencil: bool = False,
-                 pressure_solver: str = "jacobi", csf: bool = False):
+                 pressure_solver: str = "jacobi", csf: bool = False, sor_omega: float = 1.7,
+                 sor_tol: float = 1e-3, sor_max_iter: int = 200, sor_tol_rel: float = 0.0):
         axes = tuple(mesh.axis_names)
         if len(axes) not in (1, 2):
             raise ValueError("Decomp3D expects a 1-axis (x slabs) or 2-axis (x, y "
                              "pencils) mesh")
-        if backend == "torch":
-            raise NotImplementedError(
-                "Decomp3D backend='torch' (tpuvof's XLA engine: per-op exchanges and "
-                "windowed sweeps) is not ported yet (ROADMAP Queue 1 item 9)")
-        if backend != "cuda":
-            raise ValueError(f"unknown backend {backend!r}; Decomp3D has 'cuda'")
-        if pressure_solver in ("rbsor", "mg", "auto"):
-            raise NotImplementedError(
-                f"Decomp3D pressure_solver={pressure_solver!r} runs tpuvof's distributed "
-                "hybrid (parallel/mg.py), which is not ported yet (ROADMAP Queue 1 "
-                "item 9); the port's engine runs the fixed Jacobi")
-        if pressure_solver != "jacobi":
-            raise ValueError(f"unknown pressure_solver {pressure_solver!r}")
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {backend!r}; Decomp3D has 'torch' and 'cuda'")
+        if pressure_solver == "auto":
+            # mg where the global grid coarsens (its coarse levels ride one
+            # gather, parallel/mg.py), rbsor where it does not
+            pressure_solver = "mg" if len(mg_levels((g.nx, g.ny, g.nz))) >= 2 else "rbsor"
+        if pressure_solver not in ("jacobi", "rbsor", "mg"):
+            raise ValueError(f"unknown pressure_solver {pressure_solver!r} "
+                             "(jacobi | rbsor | mg | auto)")
         g.validate()
         self.g = g
         self.px = mesh.devices.shape[0]
         self.py = mesh.devices.shape[1] if len(axes) == 2 else 1
         if g.nx % self.px or g.ny % self.py:
             raise ValueError(f"grid {g.nx}x{g.ny} not divisible by mesh "
-                             f"{self.px}x{self.py}")
+                             f"{self.px}x{self.py}: every engine needs nx % px == ny % py "
+                             "== 0, backend='torch' too")
         if pencil and len(axes) == 1:
             raise ValueError("pencil=True needs a 2-axis mesh")
+        if pencil and backend != "cuda":
+            raise ValueError("pencil=True forces the wide-halo pencil engine; "
+                             f"backend={backend!r} cannot honour it")
         self.nxl, self.nyl = g.nx // self.px, g.ny // self.py
         self.fl = fl or Fluid()
         self.dt, self.n_jacobi, self.csf = dt, n_jacobi, bool(csf)
-        self.pencil = len(axes) == 2 and (self.py > 1 or bool(pencil))
-        adm = admission_3d(g, self.px, self.py, n_jacobi, self.pencil, self.csf)
-        if not adm["ok"]:
-            raise ValueError(f"Decomp3D: the wide-halo engine {adm['why']}; tpuvof falls "
-                             "back to its XLA engine there, which the port does not have "
-                             "yet (ROADMAP Queue 1 item 9)")
-        self.W, self.nloc, self.Wy, self.nyE = adm["W"], adm["nloc"], adm["Wy"], adm["nyE"]
+        self.backend, self.pressure_solver = backend, pressure_solver
+        self.sor_omega, self.sor_tol = sor_omega, sor_tol
+        self.sor_max_iter, self.sor_tol_rel = sor_max_iter, sor_tol_rel
+        self.hybrid = backend == "cuda" and pressure_solver != "jacobi"
+        self.pencil = backend == "cuda" and len(axes) == 2 and (self.py > 1 or bool(pencil))
+        self.W, self.nloc, self.Wy, self.nyE = 0, self.nxl, 0, self.nyl
+        if backend == "cuda":
+            # the hybrid's cone leaves out the Jacobi erosion: its solve
+            # makes p globally valid between predict3d_rhs and correct3d
+            adm = admission_3d(g, self.px, self.py, 0 if self.hybrid else n_jacobi,
+                               self.pencil, self.csf)
+            if not adm["ok"]:
+                raise ValueError(f"Decomp3D backend='cuda': the wide-halo engine "
+                                 f"{adm['why']}; backend='torch' runs shards of any width "
+                                 "(tpuvof falls back to its XLA engine here, the port does "
+                                 "not fall back)")
+            self.W, self.nloc, self.Wy, self.nyE = adm["W"], adm["nloc"], adm["Wy"], adm["nyE"]
         self.coords = [(xi, yi) for xi in range(self.px) for yi in range(self.py)]
         flat = mesh.devices.reshape(self.px, self.py)
         self.devices = [flat[xi, yi] for xi, yi in self.coords]
+        self._gl = _LocalGrid3(nx=self.nxl, ny=self.nyl, nz=g.nz, dx=g.dx, dy=g.dy, dz=g.dz,
+                               dxi=g.dxi, dyi=g.dyi, dzi=g.dzi)
+        self._cache = {}
 
     def _index(self, xi: int, yi: int) -> int:
         return xi * self.py + yi
@@ -190,7 +244,37 @@ class Decomp3D:
         u, v, w, F, p = apply_bc_3d_(u, v, w, F, p)
         return State3D(F=F, u=u, v=v, w=w, p=p)
 
-    # ---- masked BCs and the one-layer exchange ----
+    # ---- halos, exchanges and the masked wall BCs ----
+    def _halo_(self, arrs: list, W: int, nxl: int, Wy: int, nyl: int) -> None:
+        """Overwrite the (W+1) outermost planes on each x side of each
+        shard's tensor with the neighbour's owned planes, then the (Wy+1)
+        outermost rows on each y side over the full x extent (tpuvof's
+        _refresh_halo; with W = Wy = 0 its one-layer _exchange). Edge shards
+        keep what lies beyond their walls."""
+        def stage(axis, n, w, step, count):
+            for k, (xi, yi) in enumerate(self.coords):
+                pos, dst = (xi, yi)[axis], arrs[k]
+                if pos > 0:
+                    dst.narrow(axis, 0, w + 1).copy_(
+                        arrs[k - step].narrow(axis, n, w + 1), non_blocking=True)
+                if pos < count - 1:
+                    dst.narrow(axis, w + n + 1, w + 1).copy_(
+                        arrs[k + step].narrow(axis, w + 1, w + 1), non_blocking=True)
+
+        if self.px > 1:
+            stage(0, nxl, W, self.py, self.px)
+        if self.py > 1:
+            stage(1, nyl, Wy, 1, self.py)
+
+    def _exchange_(self, arrs: list) -> None:
+        """The one-layer ghost exchange of one field's ring-layout tensors."""
+        self._halo_(arrs, 0, self.nxl, 0, self.nyl)
+
+    def _refresh(self, shards: list[State3D], W: int, nxl: int, Wy: int, nyl: int) -> None:
+        """``_halo_`` on every field of the shards."""
+        for f in range(5):
+            self._halo_([s[f] for s in shards], W, nxl, Wy, nyl)
+
     def _bc_(self, shards: list[State3D]) -> None:
         """The walls in place on the shards that own them (y faces, then x,
         then z: ops/bc.apply_bc_3d_ on each edge), then the ghost-layer
@@ -219,67 +303,58 @@ class Decomp3D:
             w[:, :, -1] = 0.0
         self._refresh(shards, 0, self.nxl, 0, self.nyl)
 
-    def _refresh(self, shards: list[State3D], W: int, nxl: int, Wy: int, nyl: int) -> None:
-        """Overwrite the (W+1) outermost planes on each x side of every
-        field with the neighbour's owned planes, then the (Wy+1) outermost
-        rows on each y side over the full x extent (tpuvof's _refresh_halo;
-        with W = Wy = 0 its one-layer _exchange). Edge shards keep what lies
-        beyond their walls."""
-        def stage(axis, n, w, lo_nbr, hi_nbr):
-            for k, (xi, yi) in enumerate(self.coords):
-                lo, hi = lo_nbr(xi, yi), hi_nbr(xi, yi)
-                for f in range(5):
-                    dst = shards[k][f]
-                    if lo is not None:
-                        dst.narrow(axis, 0, w + 1).copy_(
-                            shards[lo][f].narrow(axis, n, w + 1), non_blocking=True)
-                    if hi is not None:
-                        dst.narrow(axis, w + n + 1, w + 1).copy_(
-                            shards[hi][f].narrow(axis, w + 1, w + 1), non_blocking=True)
+    def _widen_(self, arrs: list, axis: int, w: int) -> list:
+        """Each tensor with w more planes (axis 0) or rows (axis 1) of
+        current data on each side, each taken from the shard that holds it,
+        zeros beyond the walls (tpuvof's _widen / _widen_y, whose one
+        neighbour serves while w <= its extent; here a shard one plane
+        thick widens too)."""
+        n, count = (self.nxl, self.px) if axis == 0 else (self.nyl, self.py)
+        last = n * count + 1  # the global index of the high wall's ghost
 
-        if self.px > 1:
-            stage(0, nxl, W,
-                  lambda xi, yi: self._index(xi - 1, yi) if xi > 0 else None,
-                  lambda xi, yi: self._index(xi + 1, yi) if xi < self.px - 1 else None)
-        if self.py > 1:
-            stage(1, nyl, Wy,
-                  lambda xi, yi: self._index(xi, yi - 1) if yi > 0 else None,
-                  lambda xi, yi: self._index(xi, yi + 1) if yi < self.py - 1 else None)
+        def piece(k, G):
+            # global (ghosted) index G along ``axis``, in shard k's row
+            a = arrs[k]
+            if G < 0 or G > last:
+                return torch.zeros_like(a.narrow(axis, 0, 1))
+            t = min(max((G - 1) // n, 0), count - 1)
+            xi, yi = self.coords[k]
+            src = arrs[self._index(t, yi) if axis == 0 else self._index(xi, t)]
+            return src.narrow(axis, G - t * n, 1).to(a.device)
+
+        out = []
+        for k, (xi, yi) in enumerate(self.coords):
+            base = (xi, yi)[axis] * n  # block plane l holds global base + l
+            lo = [piece(k, base + l) for l in range(-w, 0)]
+            hi = [piece(k, base + n + 2 + l) for l in range(w)]
+            out.append(torch.cat(lo + [arrs[k]] + hi, dim=axis).contiguous())
+        return out
 
     def _widen(self, shards: list[State3D], axis: int, w: int) -> list[State3D]:
-        """Each block with w more planes (axis 0) or rows (axis 1) of
-        current neighbour data on each side, zeros beyond the walls
-        (tpuvof's _widen / _widen_y): the neighbour's a[-2-w:-2] below and
-        a[2:2+w] above."""
-        n_ax = self.px if axis == 0 else self.py
-        out = []
-        for k, ((xi, yi), dev) in enumerate(zip(self.coords, self.devices)):
-            pos = xi if axis == 0 else yi
-            step = self.py if axis == 0 else 1
-            fields = []
-            for f, a in enumerate(shards[k]):
-                n = a.shape[axis]
-                lo = (shards[k - step][f].narrow(axis, n - 2 - w, w).to(dev) if pos > 0
-                      else torch.zeros_like(a.narrow(axis, 0, w)))
-                hi = (shards[k + step][f].narrow(axis, 2, w).to(dev) if pos < n_ax - 1
-                      else torch.zeros_like(a.narrow(axis, 0, w)))
-                fields.append(torch.cat([lo, a, hi], dim=axis).contiguous())
-            out.append(State3D(*fields))
-        return out
+        """``_widen_`` on every field of the shards."""
+        fields = [self._widen_([s[f] for s in shards], axis, w) for f in range(5)]
+        return [State3D(*(fields[f][k] for f in range(5))) for k in range(len(shards))]
 
     # ---- the engine ----
     def widen(self, shards: list[State3D]) -> list[State3D]:
-        """Entry: the BCs and the ghost exchange on copies of the shards,
-        then the resident extended blocks, (nloc+2, nyE+2, nz+2) each."""
+        """Entry, on copies of the shards. 'torch': the shards as they are
+        (tpuvof's XLA engine applies no entry BC). 'cuda': the BCs and the
+        ghost exchange, then the resident extended blocks, (nloc+2, nyE+2,
+        nz+2) each."""
         shards = [State3D(*(a.clone() for a in s)) for s in shards]
+        if self.backend == "torch":
+            return shards
         self._bc_(shards)
         if self.pencil:
             shards = self._widen(shards, 1, self.Wy)
         return self._widen(shards, 0, self.W)
 
     def narrow(self, blocks: list[State3D]) -> list[State3D]:
-        """Exit: each block's centre (owned cells and one ghost layer), with
-        the BCs and the ghost exchange."""
+        """Exit: on 'cuda', each block's centre (owned cells and one ghost
+        layer), with the BCs and the ghost exchange; on 'torch' the shards
+        as they are."""
+        if self.backend == "torch":
+            return blocks
         sx = slice(self.W, self.W + self.nxl + 2)
         sy = slice(self.Wy, self.Wy + self.nyl + 2)
         shards = [State3D(*(a[sx, sy].contiguous() for a in b)) for b in blocks]
@@ -287,10 +362,16 @@ class Decomp3D:
         return shards
 
     def step(self, blocks: list[State3D], phase: int) -> list[State3D]:
-        """One step on the extended blocks: the in-place halo refresh, then
-        each shard's kernels (tpuvof's _local_step_pallas). Returns new
-        blocks; the refresh writes into the given ones."""
+        """One step: on 'torch' tpuvof's _local_step over the shards; on
+        'cuda' the in-place halo refresh of the extended blocks, then each
+        shard's kernels (tpuvof's _local_step_pallas), or the hybrid
+        (_local_step_hybrid). Returns new blocks; the refresh and the BCs
+        write into the given ones."""
+        if self.backend == "torch":
+            return self._step_torch(blocks, phase)
         self._refresh(blocks, self.W, self.nxl, self.Wy, self.nyl)
+        if self.hybrid:
+            return self._step_hybrid(blocks, phase)
         return [self._step_shard(k, blocks[k], phase) for k in range(len(blocks))]
 
     def origin(self, k: int) -> dict:
@@ -310,12 +391,48 @@ class Decomp3D:
             us, vs, ws, rhs = K3.predict3d_rhs(g, self.fl, self.dt, u, v, w, F, self.csf,
                                                **kw)
             p = K3.jacobi3d(g, self.n_jacobi, p, rhs, **kw)
-            vels = K3.correct3d(g, self.fl, self.dt, us, vs, ws, p, F, **kw)
-            for idx, axis in enumerate(SWEEP_ORDER[phase]):
-                F = K3.fct3d_sweep(g, self.dt, F, vels[axis], axis, idx == 2, **kw)
-            self._restore_wall_planes(k, F)
+            return self._finish_shard(k, F, (us, vs, ws), p, phase)
+
+    def _finish_shard(self, k: int, F, stars, p, phase: int) -> State3D:
+        """correct3d and the three sweeps on shard k's block, then its F
+        wall planes; the caller has entered the shard's device."""
+        g, kw = self.g, self.origin(k)
+        vels = K3.correct3d(g, self.fl, self.dt, *stars, p, F, **kw)
+        for idx, axis in enumerate(SWEEP_ORDER[phase]):
+            F = K3.fct3d_sweep(g, self.dt, F, vels[axis], axis, idx == 2, **kw)
+        self._restore_wall_planes(k, F)
         u, v, w = vels
         return State3D(F=F, u=u, v=v, w=w, p=p)
+
+    def _step_hybrid(self, blocks: list[State3D], phase: int) -> list[State3D]:
+        """tpuvof's _local_step_hybrid on the refreshed blocks: the solve
+        runs on the ring-layout views (the block ghosts at W and W+nxl+1
+        hold the neighbours' boundary planes, the ghosts the torch engine's
+        solve reads); the solved p goes back into a zeroed block (p
+        persists across steps, so the planes beyond the ring must stay
+        zero) and one refresh gives its halo the neighbours' owned planes,
+        so correct3d reads p as it read the resident Jacobi's."""
+        g, W, Wy, nxl, nyl = self.g, self.W, self.Wy, self.nxl, self.nyl
+        stars, rhss = [], []
+        for k, b in enumerate(blocks):
+            with _on(self.devices[k]):
+                *st, rhs = K3.predict3d_rhs(g, self.fl, self.dt, b.u, b.v, b.w, b.F, self.csf,
+                                            **self.origin(k))
+            stars.append(st)
+            rhss.append(rhs[W + 1:W + nxl + 1, Wy + 1:Wy + nyl + 1, 1:g.nz + 1])
+        sx, sy = slice(W, W + nxl + 2), slice(Wy, Wy + nyl + 2)
+        ps = self._solve_upgraded([b.p[sx, sy].clone() for b in blocks], rhss)
+        pjs = []
+        for b, p in zip(blocks, ps):
+            pj = torch.zeros_like(b.p)
+            pj[sx, sy] = p
+            pjs.append(pj)
+        self._halo_(pjs, W, nxl, Wy, nyl)
+        out = []
+        for k, b in enumerate(blocks):
+            with _on(self.devices[k]):
+                out.append(self._finish_shard(k, b.F, stars[k], pjs[k], phase))
+        return out
 
     def _restore_wall_planes(self, k: int, F: torch.Tensor) -> None:
         """On an x-edge shard the global x-wall plane of F sits mid-block,
@@ -328,8 +445,157 @@ class Decomp3D:
         if xi == self.px - 1:
             F[W + nxl + 1] = F[W + nxl]
 
+    # ---- the plain-torch engine (backend='torch') ----
+    def _zero_wall_faces_(self, us: list, vs: list) -> None:
+        """The serial wall faces (global face 1 of u, and of v when y is
+        split) on the edge shards only: the local ops update every face."""
+        for (xi, yi), u, v in zip(self.coords, us, vs):
+            if xi == 0:
+                u[1] = 0.0
+            if self.py > 1 and yi == 0:
+                v[:, 1] = 0.0
+
+    def _step_torch(self, shards: list[State3D], phase: int) -> list[State3D]:
+        gl, fl, dt = self._gl, self.fl, self.dt
+        F, u, v, w, p = (list(f) for f in zip(*shards))
+        rho, nu = (list(x) for x in zip(*(mix_properties(fl, f) for f in F)))
+        if self.csf:
+            # local normals (their +-1 F window is the exchanged ghosts),
+            # exchanged for the curvature's +-1 window, and kappa exchanged
+            # for the predictor's face means; wall ghosts stay the serial
+            # op's zeros
+            normals = [list(m) for m in zip(*(young_normals_3d(gl, f) for f in F))]
+            for m in normals:
+                self._exchange_(m)
+            kappa = [curvature_from_normals_3d(gl, *m) for m in zip(*normals)]
+            self._exchange_(kappa)
+        else:
+            kappa = [torch.zeros_like(f) for f in F]  # surface tension inert
+        # every local face (u_lo = 1; v_lo = 1 when y is split), then the
+        # serial wall faces zeroed on the edge shards
+        v_lo = 1 if self.py > 1 else 2
+        us, vs, ws = (list(x) for x in zip(*(
+            predict_velocity_3d(gl, fl, dt, *a, u_lo=1, v_lo=v_lo)
+            for a in zip(u, v, w, F, rho, nu, kappa))))
+        self._zero_wall_faces_(us, vs)
+        for a in (us, vs, ws):
+            self._exchange_(a)
+        self._bc_([State3D(*s) for s in zip(F, u, v, w, p)])
+        # rho needs no exchange: it is pointwise in F, whose ghosts entered
+        # the step current
+        rhss = [rhs_3d(gl, dt, *a) for a in zip(us, vs, ws, rho)]
+        p = self._solve_pressure(p, rhss)
+        u, v, w = (list(x) for x in zip(*(
+            update_velocity_3d(gl, dt, *a, u_lo=1, v_lo=v_lo)
+            for a in zip(u, v, w, us, vs, ws, p, rho))))
+        self._zero_wall_faces_(u, v)
+        self._bc_([State3D(*s) for s in zip(F, u, v, w, p)])
+        vels = (u, v, w)
+        for axis in SWEEP_ORDER[phase]:
+            F = self._sweep(axis, F, vels[axis])
+            self._exchange_(F)
+        shards = [State3D(*s) for s in zip((clamp01(f) for f in F), u, v, w, p)]
+        self._bc_(shards)
+        return shards
+
+    def _sweep(self, axis: int, F: list, vel: list) -> list:
+        """One FCT sweep of every shard's F. Along x (and y on a pencil
+        mesh) on the block widened by 2, at global-index masks, keeping the
+        centre; z, and y on slabs, split nothing the sweep reads across, so
+        the serial sweep applies."""
+        g, dt = self.g, self.dt
+        if axis == 2 or (axis == 1 and self.py == 1):
+            sweep = fct3d_sweep_z if axis == 2 else fct3d_sweep_y
+            return [sweep(g, dt, f, c) for f, c in zip(F, vel)]
+        Fw, cw = self._widen_(F, axis, 2), self._widen_(vel, axis, 2)
+        out = []
+        for (xi, yi), f, c in zip(self.coords, Fw, cw):
+            gi0, gj0 = xi * self.nxl - 2 * (axis == 0), yi * self.nyl - 2 * (axis == 1)
+            if axis == 0 and self.py == 1:
+                out.append(sweep_x_masked(g, dt, f, c, gi0)[2:-2])
+            else:
+                o = sweep_masked_2axis(g, dt, f, c, axis, gi0, gj0)
+                out.append(o[2:-2] if axis == 0 else o[:, 2:-2])
+        return out
+
+    # ---- the distributed pressure solves ----
+    def _coeffs(self, k: int, dtype, device):
+        """Shard k's 7-point coefficients (ae, aw, an, as, af, ab, ap_inv)
+        and red mask, cached: the edge coefficients zero only at the global
+        walls, ap_inv formed in ``dtype`` as tpuvof's _poisson_coeffs forms
+        it, the mask (i + j + k) % 2 == 0 at global indices (ops.mg._red_mask
+        at the shard's offsets)."""
+        key = (k, dtype, device)
+        if key not in self._cache:
+            g, nxl, nyl = self.g, self.nxl, self.nyl
+            xi, yi = self.coords[k]
+            i = torch.arange(nxl, device=device).reshape(-1, 1, 1)
+            j = torch.arange(nyl, device=device).reshape(1, -1, 1)
+            kk = torch.arange(g.nz, device=device).reshape(1, 1, -1)
+
+            def const(h):
+                return torch.full((), float(np.float64(h) ** 2), dtype=dtype, device=device)
+
+            zero = torch.zeros((), dtype=dtype, device=device)
+            cx, cy, cz = const(g.dxi), const(g.dyi), const(g.dzi)
+            ae = torch.where((i == nxl - 1) & (xi == self.px - 1), zero, cx)
+            aw = torch.where((i == 0) & (xi == 0), zero, cx)
+            an = torch.where((j == nyl - 1) & (yi == self.py - 1), zero, cy)
+            a_s = torch.where((j == 0) & (yi == 0), zero, cy)
+            af = torch.where(kk == g.nz - 1, zero, cz)
+            ab = torch.where(kk == 0, zero, cz)
+            ap_inv = -1.0 / (ae + aw + an + a_s + ab + af)
+            red = _red_mask((nxl, nyl, g.nz), device, (xi * nxl, yi * nyl, 0))
+            self._cache[key] = ((ae, aw, an, a_s, af, ab, ap_inv), red)
+        return self._cache[key]
+
+    def _solve_pressure(self, ps: list, rhss: list) -> list:
+        """The torch engine's solve: the residual-driven rungs, or the fixed
+        Jacobi with one exchange of p per sweep."""
+        if self.pressure_solver != "jacobi":
+            return self._solve_upgraded(ps, rhss)
+        I = (slice(1, -1),) * 3
+        coeffs = [self._coeffs(k, p.dtype, p.device)[0] for k, p in enumerate(ps)]
+        for _ in range(self.n_jacobi):
+            new = []
+            for c, p, rhs in zip(coeffs, ps, rhss):
+                q = p.clone()
+                q[I] = neigh_3d(c, p, rhs) * c[-1]
+                new.append(q)
+            self._exchange_(new)
+            ps = new
+        return ps
+
+    def _solve_upgraded(self, ps: list, rhss: list) -> list:
+        """rbsor or mg on ring-layout blocks (ghosted p, interior rhs), for
+        the torch engine and the hybrid alike; returns new ghosted blocks."""
+        if self.pressure_solver == "rbsor":
+            return self._solve_rbsor(ps, rhss)
+        g = self.g
+        return pmg.mg_solve_dist(pmg.MGDecomp((self.px, self.py, 1)), ps, rhss,
+                                 (g.dxi**2, g.dyi**2, g.dzi**2), self.sor_tol,
+                                 self.sor_max_iter, tol_rel=self.sor_tol_rel)
+
+    def _solve_rbsor(self, ps: list, rhss: list) -> list:
+        """Red-black SOR over the shards (tpuvof's _solve_pressure_rbsor):
+        the serial solver's loop (ops.poisson.rbsor_3d_blocks) on the
+        shards' blocks, with the nullspace projection as a global mean
+        (summed in the serial order, parallel/mg._mean_free), the global
+        max, red and black at global (i + j + k), and one exchange per
+        half sweep."""
+        g = self.g
+        spec = pmg.MGDecomp((self.px, self.py, 1))
+        npts = g.nx * g.ny * g.nz
+        cm = [self._coeffs(k, p.dtype, p.device) for k, p in enumerate(ps)]
+        return rbsor_3d_blocks(ps, rhss, [c for c, _ in cm], [red for _, red in cm],
+                               self.sor_omega, self.sor_tol, self.sor_tol_rel,
+                               self.sor_max_iter,
+                               mean_free=lambda xs: pmg._mean_free(spec, xs, npts),
+                               exchange=self._exchange_)
+
+    # ---- driving ----
     def advance(self, blocks: list[State3D], n_steps: int, istep0: int = 0) -> list[State3D]:
-        """``n_steps`` steps on the extended blocks; ``istep0`` is the last
+        """``n_steps`` steps on the engine's blocks; ``istep0`` is the last
         global step already taken, so the istep % 3 rotation continues
         across chunked calls (first step phase (istep0 + 1) % 3)."""
         ph1 = (istep0 % 3 + 1) % 3

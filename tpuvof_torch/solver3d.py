@@ -32,11 +32,11 @@ from .grid import Grid3D
 from .kernels import step3d_kernels as K3
 from .ops import apply_bc_3d, apply_bc_3d_, clamp01, mix_properties
 from .ops.fct3d import SWEEP_ORDER, rudman_advect_3d
-from .ops.mg import mg_levels, mg_solve
+from .ops.mg import _red_mask, mg_levels, mg_solve
 from .ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from .ops.normals3d import young_normals_curvature_3d
-from .ops.poisson import (STALL_ITERS, ap_inv_3d, effective_tol, keep_iterating,
-                          poisson_constants_3d)
+from .ops.poisson import (ap_inv_3d, cell_mean, neigh_3d, poisson_constants_3d, rbsor_3d_blocks,
+                          rhs_3d)
 from .state import State3D
 
 __all__ = ["step_3d", "simulate_3d"]
@@ -72,80 +72,25 @@ def _poisson_coeffs_3d(g: Grid3D, dtype, device):
     return ae, aw, an, a_s, af, ab, ap_inv
 
 
-def _rhs_3d(g: Grid3D, dt, u_star, v_star, w_star, rho):
-    """rhs = rho/dt * div(u*) on the interior, shape (nx, ny, nz)."""
-    I = (slice(1, -1),) * 3
-    return rho[I] / dt * (
-        (u_star[2:, 1:-1, 1:-1] - u_star[I]) * g.dxi
-        + (v_star[1:-1, 2:, 1:-1] - v_star[I]) * g.dyi
-        + (w_star[1:-1, 1:-1, 2:] - w_star[I]) * g.dzi
-    )
-
-
-def _neigh_3d(coeffs, p, rhs):
-    ae, aw, an, a_s, af, ab, _ = coeffs
-    return (
-        rhs
-        - ae * p[2:, 1:-1, 1:-1]
-        - aw * p[:-2, 1:-1, 1:-1]
-        - an * p[1:-1, 2:, 1:-1]
-        - a_s * p[1:-1, :-2, 1:-1]
-        - af * p[1:-1, 1:-1, 2:]
-        - ab * p[1:-1, 1:-1, :-2]
-    )
-
-
 def _solve_pressure_3d(g: Grid3D, dt, n_iter, p, u_star, v_star, w_star, rho):
     """The reference's fixed Jacobi sweeps; returns a new p whose ghosts
     keep p's values."""
-    rhs = _rhs_3d(g, dt, u_star, v_star, w_star, rho)
+    rhs = rhs_3d(g, dt, u_star, v_star, w_star, rho)
     coeffs = _poisson_coeffs_3d(g, p.dtype, p.device)
     ap_inv = coeffs[-1]
     p = p.clone()
     for _ in range(n_iter):
-        p[1:-1, 1:-1, 1:-1] = _neigh_3d(coeffs, p, rhs) * ap_inv
+        p[1:-1, 1:-1, 1:-1] = neigh_3d(coeffs, p, rhs) * ap_inv
     return p
 
 
 def _rbsor_3d(g: Grid3D, p, rhs, omega: float, tol: float, max_iter: int,
               tol_rel: float = 0.0):
-    """Red-black SOR on (i+j+k) % 2 against the mean-free rhs, until
-    max|Ap - rhs'| <= the tolerance, the iteration cap or the stall exit.
-    tpuvof loops on the device; here the exit test reads the residual on
-    the host once per iteration (ops.poisson.keep_iterating)."""
-    rhs = rhs - torch.mean(rhs)
-    tol = effective_tol(tol, tol_rel, rhs).item()
-    coeffs = _poisson_coeffs_3d(g, p.dtype, p.device)
-    ap_inv = coeffs[-1]
-    ap = 1.0 / ap_inv
-    I = (slice(1, -1),) * 3
-    dev = p.device
-    red = ((torch.arange(g.nx, device=dev)[:, None, None]
-            + torch.arange(g.ny, device=dev)[None, :, None]
-            + torch.arange(g.nz, device=dev)[None, None, :]) % 2 == 0)
-
-    def half_sweep(p, mask):
-        gs = _neigh_3d(coeffs, p, rhs) * ap_inv
-        p_int = p[I]
-        upd = p_int + omega * (gs - p_int)
-        p = p.clone()
-        p[I] = torch.where(mask, upd, p_int)
-        return p
-
-    def resid(p):
-        r = _neigh_3d(coeffs, p, rhs) - ap * p[I]
-        r = r - torch.mean(r)
-        return torch.max(torch.abs(r)).item()
-
-    r = best = resid(p)
-    it = stall = 0
-    while keep_iterating(it, max_iter, r, tol, best, stall, STALL_ITERS):
-        p = half_sweep(p, red)
-        p = half_sweep(p, ~red)
-        r = resid(p)
-        stall = 0 if r < best else stall + 1
-        best = min(best, r)
-        it += 1
+    """Red-black SOR on (i+j+k) % 2 against the mean-free rhs: the whole
+    grid as the one block of ops.poisson.rbsor_3d_blocks."""
+    (p,) = rbsor_3d_blocks([p], [rhs], [_poisson_coeffs_3d(g, p.dtype, p.device)],
+                           [_red_mask((g.nx, g.ny, g.nz), p.device)], omega, tol, tol_rel,
+                           max_iter, mean_free=lambda xs: [x - cell_mean(x) for x in xs])
     return p
 
 
@@ -187,7 +132,7 @@ def _step_3d_torch(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega
     if pressure_solver == "jacobi":
         p = _solve_pressure_3d(g, dt, n_jacobi, p, u_star, v_star, w_star, rho)
     else:
-        rhs = _rhs_3d(g, dt, u_star, v_star, w_star, rho)
+        rhs = rhs_3d(g, dt, u_star, v_star, w_star, rho)
         p = _solve_residual(g, p, rhs, pressure_solver, sor_omega, sor_tol, sor_max_iter,
                             sor_tol_rel)
     u, v, w = update_velocity_3d(g, dt, u, v, w, u_star, v_star, w_star, p, rho)
