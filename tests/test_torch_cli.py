@@ -175,7 +175,8 @@ def _hot_ckpt(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["resume-grid", "csf-2d", "no-card", "cpu-cuda",
-                                  "cpu-mono", "mesh-2d", "plan-mesh", "mesh-3d-cpu"])
+                                  "cpu-mono", "mesh-indivisible", "mesh-three-sizes",
+                                  "mesh-3d-cpu"])
 def test_cli_errors_exit_2(tmp_path, capsys, monkeypatch, case):
     argv = {
         "resume-grid": CPU + ["--resume", _hot_ckpt(tmp_path), "--nx", "64", "--steps", "2"],
@@ -183,19 +184,62 @@ def test_cli_errors_exit_2(tmp_path, capsys, monkeypatch, case):
         "no-card": ["--nx", "16", "--steps", "2"],
         "cpu-cuda": ["--device", "cpu", "--backend", "cuda", "--nx", "16", "--steps", "2"],
         "cpu-mono": ["--device", "cpu", "--backend", "cuda_mono", "--three-d", "--nx", "16"],
-        "mesh-2d": CPU + ["--mesh", "2,2", "--nx", "16", "--steps", "2"],
-        "plan-mesh": ["--plan-mesh", "8", "--nx", "200", "--three-d"],
+        "mesh-indivisible": CPU + ["--mesh", "3,2", "--nx", "16", "--steps", "2"],
+        "mesh-three-sizes": CPU + ["--mesh", "2,2,2", "--nx", "16", "--steps", "2"],
         "mesh-3d-cpu": CPU + ["--three-d", "--mesh", "3", "--nx", "16", "--steps", "2"],
     }[case]
     said = {"resume-grid": "checkpoint grid", "csf-2d": "--csf applies to --three-d",
             "no-card": "--device cpu --backend torch", "cpu-cuda": "--device cpu --backend torch",
-            "cpu-mono": "--device cuda", "mesh-2d": "item 9.3", "plan-mesh": "item 9.4",
+            "cpu-mono": "--device cuda", "mesh-indivisible": "not divisible by mesh 3x2",
+            "mesh-three-sizes": "use --mesh PX,PY",
             "mesh-3d-cpu": "backend='torch'"}[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(argv + ["--outdir", str(tmp_path / "out")]) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: ") and said in err
     assert not os.path.exists(tmp_path / "out" / "000000-vof.png")
+
+
+def test_cli_mesh_2d_matches_decomp_and_tpuvof(tmp_path):
+    """--mesh 2,2 without --three-d on --device cpu --backend torch, from a
+    tpuvof f64 checkpoint: the same files as tpuvof's --mesh 2,2 run, and a
+    final checkpoint equal to Decomp.simulate bit for bit and to tpuvof's
+    at its parity bars, 1e-12 (p 1e-7: its jitted run contracts FMAs, and
+    p's scale is ~200)."""
+    cfg = tv.SimConfig(grid=tv.Grid2D(16, 16))
+    ck = str(tmp_path / "ckpt_000000.npz")
+    jio.save_checkpoint(ck, cfg, tv.State(*(a.astype(jax.numpy.float64)
+                                            for a in tv.init_state(cfg, 1))), 0)
+    flags = ["--resume", ck, "--mesh", "2,2", "--nx", "16", "--steps", "6", "--frame-every",
+             "6", "-s", "--checkpoint-every", "6"]
+    mine, ref = run_both(tmp_path, flags)
+    assert mine == ref == {"ckpt_000006.npz", "000000-vof.png", "000000-f.png"}
+    got = np.load(tmp_path / "port" / "ckpt_000006.npz")
+    want = np.load(tmp_path / "tpuvof" / "ckpt_000006.npz")
+    state, _, _ = tt.io_utils.load_checkpoint(ck, "cpu")
+    dec = tt.Decomp(tt.dam_break_2d(16, num=tt.Numerics(backend="torch")),
+                    tt.make_mesh(devices=[torch.device("cpu")] * 4))
+    ours = dec.simulate(state, 6)
+    for k, a in zip("Fuvp", ours):
+        assert got[k].dtype == np.float64 and np.array_equal(got[k], a.numpy()), k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-7 if k == "p" else 1e-12,
+                                   err_msg=k)
+
+
+def test_cli_plan_mesh_prints_tpuvofs_table_format(capsys):
+    """--plan-mesh prints tpuvof's table layout (header, one row a mesh
+    shape) with the port's engines, 2-D and --three-d, with no device."""
+    for extra in ([], ["--three-d"]):
+        argv = ["--plan-mesh", "8", "--nx", "64"] + extra
+        assert jcli.main(argv) == 0
+        ref = capsys.readouterr().out.splitlines()
+        assert cli.main(argv) == 0
+        mine = capsys.readouterr().out.splitlines()
+        assert mine[0] == ref[0] and len(mine) == len(ref)
+        assert sorted(line.split()[0] for line in mine[1:]) == sorted(
+            line.split()[0] for line in ref[1:])
+        assert all(line.split()[1] in ("cuda-full", "cuda-slab", "cuda-pencil", "torch")
+                   for line in mine[1:])
 
 
 def test_cli_three_d_mesh_torch_mg(tmp_path):

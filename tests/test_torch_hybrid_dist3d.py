@@ -88,6 +88,22 @@ def test_hybrid_matches_serial_hybrid(solver, shape, loop_tests):
     assert loop_tests[0] == n_serial > 2 * STEPS, (loop_tests[0], n_serial)
 
 
+def test_hybrid_rbsor_f32_matches_serial_hybrid(loop_tests):
+    """In f32, at the production tolerance (sor_tol_rel 1e-2): the shards'
+    coefficients are the serial solver's on their blocks (ap_inv from the
+    f64 edge classes; tpuvof forms it in the dtype), so the distributed
+    rbsor stops where the serial one stops and gives its values bit for
+    bit."""
+    s0 = tt.init_state_3d(G, 1, "cpu")
+    kw = dict(pressure_solver="rbsor", sor_tol_rel=1e-2)
+    want = tt.simulate_3d(G, s0, 3, **kw)
+    n_serial, loop_tests[0] = loop_tests[0], 0
+    got = tt.Decomp3D(G, _mesh((2, 2)), **kw).simulate(s0, 3)
+    assert loop_tests[0] == n_serial > 6, (loop_tests[0], n_serial)
+    for name, a, b in zip("Fuvwp", got, want):
+        assert torch.equal(a, b), name
+
+
 def test_hybrid_matches_tpuvof_serial():
     """(2, 2) pencils with rbsor against tpuvof's serial step_3d on 'xla',
     eager, as tpuvof holds its own distributed hybrid. Eager tpuvof takes

@@ -215,7 +215,9 @@ def test_import_pulls_in_no_jax():
             "tpuvof_torch.kernels.build, tpuvof_torch.models, tpuvof_torch.metrics, "
             "tpuvof_torch.solver, tpuvof_torch.ops.mg, tpuvof_torch.ops.window, "
             "tpuvof_torch.diff, tpuvof_torch.models.advection, "
-            "tpuvof_torch.parallel, tpuvof_torch.parallel.dist3d; "
+            "tpuvof_torch.parallel, tpuvof_torch.parallel.dist3d, "
+            "tpuvof_torch.parallel.dist, tpuvof_torch.parallel.halo, "
+            "tpuvof_torch.parallel.plan; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuvof')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

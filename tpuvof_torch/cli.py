@@ -11,12 +11,12 @@ Every flag, default, message, file name and exit code is tpuvof's, except:
 --backend names the port's routes (default 'cuda', the port's own
 Numerics default); --device {cuda,cpu} (default cuda) places the state,
 and nothing falls back to the CPU: without a card, --device cuda is an
-error, as is a 'cuda*' backend on --device cpu; the 2-D --mesh and
---plan-mesh are not ported yet and exit 2 naming their ROADMAP item.
---three-d --mesh runs the port's Decomp3D: --backend torch on any mesh
-whose sizes divide the grid, a 'cuda*' backend on the wide-halo engine
-(or its hybrid with --pressure-solver rbsor/mg/auto), which exits 2 on a
-mesh too fine for its cone where tpuvof falls back to its XLA engine.
+error, as is a 'cuda*' backend on --device cpu. --mesh PX,PY runs the
+port's Decomp and --three-d --mesh its Decomp3D: --backend torch on any
+mesh whose sizes divide the grid, a 'cuda*' backend on the kernel engines
+(or the hybrid with --pressure-solver rbsor/mg/auto), which exit 2 on a
+mesh too fine for their halo where tpuvof falls back to its XLA engine.
+--plan-mesh N ranks the mesh shapes with the port's planner.
 
 Usage examples:
   python -m tpuvof_torch -ic 1 -s --steps 2000 --backend cuda_mono
@@ -24,6 +24,8 @@ Usage examples:
   python -m tpuvof_torch --resume output/ckpt_001000.npz --steps 1000
   python -m tpuvof_torch --three-d --nx 200 --steps 1000
   python -m tpuvof_torch --device cpu --backend torch --nx 64 --steps 200
+  python -m tpuvof_torch --mesh 2,2 --nx 512 --steps 1000 --backend cuda_mono
+  python -m tpuvof_torch --plan-mesh 8 --nx 1024
 """
 from __future__ import annotations
 
@@ -149,14 +151,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "before optimizing (needs a display)")
     # distributed execution
     p.add_argument("--mesh", default=None, metavar="PX,PY",
-                   help="with --three-d: run domain-decomposed over PX (x "
-                        "slabs) or PXxPY (pencils) cards, cuda:0 onwards; the "
-                        "grid must divide evenly. The 2-D decomposition is "
-                        "not ported yet (ROADMAP Queue 1 item 9.3)")
+                   help="run domain-decomposed over a PXxPY mesh of cards, "
+                        "cuda:0 onwards (with --three-d: PX x slabs or PXxPY "
+                        "pencils); the grid must divide evenly. On --device "
+                        "cpu the shards share the CPU")
     p.add_argument("--plan-mesh", type=int, default=0, metavar="N",
                    dest="plan_mesh",
-                   help="print the ranked mesh shapes for this grid at N "
-                        "chips; not ported yet (ROADMAP Queue 1 item 9.4)")
+                   help="print the ranked (PX, PY) mesh shapes for this "
+                        "grid at N chips (admission + relative-cost "
+                        "model; pure shape math, needs no devices) and "
+                        "exit")
     return p
 
 
@@ -184,13 +188,116 @@ def _profile_ctx(args):
 
 
 def run_distributed(args, cfg, state, istep) -> int:
-    """The 2-D domain-decomposed run (tpuvof's Decomp over a device mesh),
-    not ported yet."""
-    print(f"error: --mesh {args.mesh} without --three-d needs the 2-D "
-          "decomposition (tpuvof's parallel.Decomp), which is not ported yet "
-          "(ROADMAP Queue 1 item 9.3); the 3-D one runs with --three-d --mesh",
-          file=sys.stderr)
-    return 2
+    """Domain-decomposed run: scatter once, step in frame-sized chunks on
+    the resident shards, gather per frame for metrics/PNGs."""
+    from .io_utils import save_contour_png, save_frame_png
+    from .metrics import banner, compute_metrics, format_frame
+    from .parallel import Decomp
+    from .viz import MODES, render_frame
+
+    mesh, rc = _mesh_2d(args)
+    if mesh is None:
+        return rc
+    try:
+        dec = Decomp(cfg, mesh)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    px, py = dec.px, dec.py
+    run = dec.make_simulate()
+    shards = dec.scatter_state(state)
+
+    os.makedirs(args.outdir, exist_ok=True)
+    print(banner(cfg))
+    print(f">>> distributed over a {px}x{py} mesh ({dec.devices[0].type} devices, "
+          f"{dec.engine} engine); compiling...")
+    t0 = time.time()
+    target_step = istep + args.steps
+    # seed from the resumed step so a --resume run continues the frame
+    # numbering instead of overwriting the pre-resume frames
+    frame_idx = -(-istep // args.frame_every)  # ceil: a non-frame-aligned
+    # prior run wrote a final partial-chunk frame at floor+1
+    vis_idx = MODES.index(args.view)
+    with _profile_ctx(args):
+        while istep < target_step:
+            n = min(args.frame_every, target_step - istep)
+            shards = run(shards, n, istep)  # istep0: parity continues
+            istep += n
+            state = dec.gather_state(shards, device=state.F.device)
+            m = compute_metrics(cfg, state)
+            print(format_frame(istep, cfg.num.dt, m, "vof"))
+            if not bool(m.finite):
+                print(">>> aborting: non-finite fields", file=sys.stderr)
+                return 1
+            if not args.no_frames:
+                mode = MODES[vis_idx % len(MODES)]
+                save_frame_png(os.path.join(args.outdir, f"{frame_idx:06d}-{mode}.png"),
+                               render_frame(cfg, state, mode))
+                if args.save_fig:
+                    save_contour_png(os.path.join(args.outdir, f"{frame_idx:06d}-f.png"),
+                                     state.F, cfg.grid.Lx, cfg.grid.Ly)
+                frame_idx += 1
+            if args.cycle_views:
+                vis_idx += 1
+            if args.checkpoint_every and istep % args.checkpoint_every == 0:
+                # the gathered state and istep, as the serial run writes
+                # them: a --resume of it continues with or without --mesh
+                from .io_utils import save_checkpoint
+
+                path = os.path.join(args.outdir, f"ckpt_{istep:06d}.npz")
+                save_checkpoint(path, cfg, state, istep)
+                print(f">>> checkpoint saved: {path}")
+    if args.profile_dir:
+        print(f">>> profiler trace written to {args.profile_dir}")
+    if args.gif and not args.no_frames:
+        import glob
+
+        from .io_utils import frames_to_gif
+
+        pat = "*" if args.cycle_views else MODES[vis_idx % len(MODES)]
+        frames = [f for f in glob.glob(os.path.join(args.outdir, f"*-{pat}.png"))
+                  if not f.endswith("-f.png")]
+        if frames:
+            gif = frames_to_gif(frames, os.path.join(args.outdir, "movie.gif"))
+            print(f">>> assembled {len(frames)} frames into {gif}")
+    wall = time.time() - t0
+    cups = cfg.grid.nx * cfg.grid.ny * args.steps / wall
+    print(f">>> {args.steps} steps in {wall:.2f}s on {px}x{py} mesh "
+          f"({cups:.3e} cell-updates/s incl. gather/frame I/O)")
+    return 0
+
+
+def _devices(args, px: int, py: int):
+    """An object array of the px * py devices of a mesh: the cards cuda:0
+    onwards, or on --device cpu the CPU px * py times (a virtual mesh);
+    None after an error message where there are too few."""
+    n = px * py
+    if args.device == "cuda":
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device("cpu")] * n
+    if n > len(devs):
+        print(f"error: mesh {px}x{py} needs {n} devices, have {len(devs)}", file=sys.stderr)
+        return None
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs[:n]
+    return arr
+
+
+def _mesh_2d(args):
+    """(Mesh, None) for a 2-D --mesh PX,PY, or (None, rc) after an error
+    message."""
+    from .parallel import Mesh
+
+    parts = [int(x) for x in args.mesh.split(",")]
+    if len(parts) != 2:
+        print("error: the 2-D solver decomposes along x and y; use --mesh PX,PY "
+              "(--three-d takes --mesh PX or PX,PY)", file=sys.stderr)
+        return None, 2
+    devs = _devices(args, *parts)
+    if devs is None:
+        return None, 2
+    return Mesh(devs.reshape(*parts), ("mx", "my")), None
 
 
 def _mesh_3d(args):
@@ -206,16 +313,9 @@ def _mesh_3d(args):
         print("error: the 3-D solver decomposes along x (and y); use "
               "--mesh PX or --mesh PX,PY", file=sys.stderr)
         return None, 2
-    if args.device == "cuda":
-        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
-        devs = [torch.device("cpu")] * (px * py)
-    if px * py > len(devs):
-        print(f"error: mesh {px}x{py} needs {px * py} devices, have "
-              f"{len(devs)}", file=sys.stderr)
+    arr = _devices(args, px, py)
+    if arr is None:
         return None, 2
-    arr = np.empty(px * py, dtype=object)
-    arr[:] = devs[:px * py]
     if py > 1:
         return Mesh(arr.reshape(px, py), ("mx", "my")), None
     return Mesh(arr, ("mx",)), None
@@ -428,10 +528,20 @@ def main(argv=None) -> int:
               "applies CSF, like the reference)", file=sys.stderr)
         return 2
     if args.plan_mesh:
-        print("error: --plan-mesh needs the mesh planner (tpuvof's "
-              "parallel/plan.py), which is not ported yet (ROADMAP Queue 1 "
-              "item 9.4)", file=sys.stderr)
-        return 2
+        # pure shape math: no device touched, so it runs anywhere
+        from .config import Numerics, SimConfig
+        from .grid import Grid2D, Grid3D
+        from .parallel import format_plans, plan_mesh_2d, plan_mesh_3d
+
+        if args.three_d:
+            g = Grid3D(args.nx, args.nx, args.nx)  # run_3d is cubic too
+            plans = plan_mesh_3d(g, args.plan_mesh, n_jacobi=args.jacobi)
+        else:
+            cfg = SimConfig(grid=Grid2D(args.nx, args.ny or args.nx),
+                            num=Numerics(n_jacobi=args.jacobi))
+            plans = plan_mesh_2d(cfg, args.plan_mesh)
+        print(format_plans(plans))
+        return 0
     err = _device_error(args)
     if err:
         print(f"error: {err}", file=sys.stderr)

@@ -176,11 +176,14 @@ def fullstep_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
     return _win.step_values(cfg, F, u, v, p, 0, 0, even_step)
 
 
-def fullstep_strips_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
-    """One lean step on the strips engine's padded layout: the grid at
-    offset (W2, W2) of (nx+2+2*W2, ny+2+2*W2) arrays, W2 = strips_halo."""
+def fullstep_strips_plain(cfg: SimConfig, F, u, v, p, even_step: bool, oi0: int = 0,
+                          oj0: int = 0):
+    """One lean step on the strips engine's padded layout: a block with its
+    ghost ring at offset (W2, W2) of arrays padded by W2 = strips_halo on
+    every side, the ring's (0, 0) at global index (oi0, oj0) (the whole
+    grid at (0, 0), or a shard of a decomposition)."""
     w2 = strips_halo(cfg)
-    return _win.step_values(cfg, F, u, v, p, -w2, -w2, even_step)
+    return _win.step_values(cfg, F, u, v, p, oi0 - w2, oj0 - w2, even_step)
 
 
 def fullstep_dma_plain(cfg: SimConfig, F, u, v, p, even_step: bool):
@@ -409,17 +412,21 @@ def fullstep_win(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):
                             even_step)
 
 
-def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool):
+def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool, extents=None,
+                    oi0: int = 0, oj0: int = 0):
     """One lean step on the strips engine's padded resident layout
     (fullstep_strips_plain), whose margins may hold anything, NaN
-    included; counterpart of tpuvof's pallas_fullstep_strips."""
+    included; counterpart of tpuvof's pallas_fullstep_strips. ``extents``
+    (nxl, nyl) are the block's interior extents (default the grid's) and
+    (oi0, oj0) the global index of its ghost ring's (0, 0) (default the
+    origin): a decomposition's shard passes both."""
     if _on_cpu(F):
-        return fullstep_strips_plain(cfg, F, u, v, p, even_step)
+        return fullstep_strips_plain(cfg, F, u, v, p, even_step, oi0, oj0)
     w2 = strips_halo(cfg)
-    g = cfg.grid
-    shape = (g.nx + 2 + 2 * w2, g.ny + 2 + 2 * w2)
-    return _launch_fullstep("fullstep_strips", cfg, F, u, v, p, shape, -w2, -w2,
-                            even_step)
+    nx, ny = (cfg.grid.nx, cfg.grid.ny) if extents is None else extents
+    shape = (nx + 2 + 2 * w2, ny + 2 + 2 * w2)
+    return _launch_fullstep("fullstep_strips", cfg, F, u, v, p, shape, int(oi0) - w2,
+                            int(oj0) - w2, even_step)
 
 
 def fullstep_dma(cfg: SimConfig, F, u, v, p, even_step: bool):

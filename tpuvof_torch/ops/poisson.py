@@ -28,6 +28,7 @@ from .common import win
 
 __all__ = [
     "poisson_coefficients",
+    "poisson_coefficients_3d",
     "poisson_diagonal_constants",
     "poisson_constants_3d",
     "ap_inv_3d",
@@ -42,8 +43,9 @@ __all__ = [
     "block_max",
     "cell_mean",
     "rhs_3d",
-    "neigh_3d",
-    "rbsor_3d_blocks",
+    "neigh",
+    "jacobi_blocks",
+    "rbsor_blocks",
     "STALL_ITERS",
     "PLATEAU_FACTOR",
 ]
@@ -103,13 +105,26 @@ def ap_inv_3d(classes: dict, ex, ey, ez, dtype, device):
     )
 
 
-def poisson_coefficients(g: Grid2D, dtype, device):
+def _block_index(n: int, ax: int, nd: int, origin: int, device):
+    """Global interior indices origin..origin+n-1 along ``ax``,
+    broadcastable to an nd-dimensional block."""
+    view = [1] * nd
+    view[ax] = n
+    return (torch.arange(n, device=device) + origin).reshape(view)
+
+
+def poisson_coefficients(g: Grid2D, dtype, device, origin=(0, 0), extent=None):
     """Neumann-edge-zeroed coefficients (ae, aw, an, as, ap_inv), each
-    broadcastable to the interior shape (nx, ny)."""
+    broadcastable to the interior shape (nx, ny); or, with ``origin`` and
+    ``extent``, to the block of ``extent`` interior cells whose first cell
+    is interior cell ``origin`` of the grid (a shard of a decomposition:
+    only the grid's walls zero a coefficient). ap_inv is picked from the
+    f64 edge-class constants, the same values on every block."""
+    nx, ny = extent or (g.nx, g.ny)
     dxi2 = float(np.float64(g.dxi) ** 2)
     dyi2 = float(np.float64(g.dyi) ** 2)
-    i = torch.arange(g.nx, device=device)[:, None]
-    j = torch.arange(g.ny, device=device)[None, :]
+    i = _block_index(nx, 0, 2, origin[0], device)
+    j = _block_index(ny, 1, 2, origin[1], device)
 
     def const(x):
         # a fill, not a host-to-device copy, so a CUDA graph can capture it
@@ -129,6 +144,30 @@ def poisson_coefficients(g: Grid2D, dtype, device):
         torch.where(ey, const(c[0, 1]), const(c[0, 0])),
     )
     return ae, aw, an, a_s, ap_inv
+
+
+def poisson_coefficients_3d(g, dtype, device, origin=(0, 0, 0), extent=None):
+    """Neumann-edge-zeroed 7-point coefficients (ae, aw, an, as, af, ab,
+    ap_inv), each broadcastable to the interior (nx, ny, nz), or to a block
+    of it as in ``poisson_coefficients``; the diagonal from the 8 f64
+    edge-class constants (3dvof.py:269-275)."""
+    (cx, cy, cz), classes = poisson_constants_3d(g)
+    n = extent or (g.nx, g.ny, g.nz)
+    i, j, k = (_block_index(n[ax], ax, 3, origin[ax], device) for ax in range(3))
+
+    def const(x):
+        return torch.full((), x, dtype=dtype, device=device)
+
+    zero = const(0.0)
+    ae = torch.where(i == g.nx - 1, zero, const(cx))
+    aw = torch.where(i == 0, zero, const(cx))
+    an = torch.where(j == g.ny - 1, zero, const(cy))
+    a_s = torch.where(j == 0, zero, const(cy))
+    af = torch.where(k == g.nz - 1, zero, const(cz))
+    ab = torch.where(k == 0, zero, const(cz))
+    ap_inv = ap_inv_3d(classes, (i == 0) | (i == g.nx - 1), (j == 0) | (j == g.ny - 1),
+                       (k == 0) | (k == g.nz - 1), dtype, device)
+    return ae, aw, an, a_s, af, ab, ap_inv
 
 
 def divergence_rhs(g: Grid2D, nm: Numerics, u_star, v_star, rho):
@@ -224,7 +263,7 @@ def residual(g: Grid2D, p, rhs, project_nullspace: bool = True):
         - ap * win(p, ri, rj)
     )
     if project_nullspace:
-        r = r - torch.mean(r)
+        r = r - cell_mean(r)
     return torch.max(torch.abs(r))
 
 
@@ -297,33 +336,54 @@ def rhs_3d(g, dt, u_star, v_star, w_star, rho):
     )
 
 
-def neigh_3d(coeffs, p, rhs):
-    """rhs less the six neighbour terms of the 7-point stencil on the
-    interior of ghosted ``p``; coeffs = (ae, aw, an, as, af, ab, ap_inv)."""
-    ae, aw, an, a_s, af, ab, _ = coeffs
-    return (
-        rhs
-        - ae * p[2:, 1:-1, 1:-1]
-        - aw * p[:-2, 1:-1, 1:-1]
-        - an * p[1:-1, 2:, 1:-1]
-        - a_s * p[1:-1, :-2, 1:-1]
-        - af * p[1:-1, 1:-1, 2:]
-        - ab * p[1:-1, 1:-1, :-2]
-    )
+def neigh(coeffs, p, rhs):
+    """rhs less the neighbour terms of the 5-point (2-D) or 7-point (3-D)
+    stencil on the interior of ghosted ``p``; coeffs = (ae, aw, an, as,
+    [af, ab,] ap_inv): each axis's plus and minus coefficients, then
+    ap_inv. The terms are subtracted axis by axis, plus before minus, the
+    serial solvers' order."""
+    nd = p.ndim
+
+    def window(ax, lo, hi):
+        return tuple(slice(lo, hi) if k == ax else slice(1, -1) for k in range(nd))
+
+    out = rhs
+    for ax in range(nd):
+        out = out - coeffs[2 * ax] * p[window(ax, 2, None)] \
+            - coeffs[2 * ax + 1] * p[window(ax, 0, -2)]
+    return out
 
 
-def rbsor_3d_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: float,
-                    max_iter: int, mean_free, exchange=None):
-    """3-D red-black SOR on ghosted blocks: the whole grid as one block,
-    or one block a shard of a decomposition. Against the mean-free rhs,
-    until max|Ap - rhs'| <= the tolerance, the iteration cap or the stall
-    exit. Block k has the coefficients ``coeffs[k]`` and the red mask
-    ``reds[k]`` (red at even global i + j + k). ``mean_free`` takes a list
-    of blocks and subtracts the mean over all of them; ``exchange``
-    refreshes the blocks' ghosts in place after each half sweep. tpuvof
-    loops on the device; here the exit test reads the global residual on
-    the host once per iteration (keep_iterating). Returns new blocks."""
-    I = (slice(1, -1),) * 3
+def jacobi_blocks(ps, rhss, coeffs, n_iter: int, exchange):
+    """n_iter Jacobi sweeps on the ghosted blocks of a decomposition, each
+    block's interior from ``neigh`` with its own coefficients ``coeffs[k]``
+    (ap_inv last), then ``exchange`` of the new blocks' ghosts, in place.
+    Returns new blocks; a block's wall ghosts keep their values."""
+    I = (slice(1, -1),) * ps[0].ndim
+    for _ in range(n_iter):
+        new = []
+        for c, p, rhs in zip(coeffs, ps, rhss):
+            q = p.clone()
+            q[I] = neigh(c, p, rhs) * c[-1]
+            new.append(q)
+        exchange(new)
+        ps = new
+    return ps
+
+
+def rbsor_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: float,
+                 max_iter: int, mean_free, exchange=None):
+    """Red-black SOR on ghosted 2-D or 3-D blocks: the whole grid as one
+    block, or one block a shard of a decomposition. Against the mean-free
+    rhs, until max|Ap - rhs'| <= the tolerance, the iteration cap or the
+    stall exit. Block k has the coefficients ``coeffs[k]`` (``neigh``'s)
+    and the red mask ``reds[k]`` (red at even global index sum).
+    ``mean_free`` takes a list of blocks and subtracts the mean over all of
+    them; ``exchange`` refreshes the blocks' ghosts in place after each
+    half sweep. tpuvof loops on the device; here the exit test reads the
+    global residual on the host once per iteration (keep_iterating).
+    Returns new blocks."""
+    I = (slice(1, -1),) * ps[0].ndim
     rhss = mean_free(rhss)
     tol = effective_tol_blocks(tol, tol_rel, rhss)
     aps = [1.0 / c[-1] for c in coeffs]
@@ -331,7 +391,7 @@ def rbsor_3d_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: f
     def half_sweep(ps, black):
         new = []
         for c, red, p, rhs in zip(coeffs, reds, ps, rhss):
-            gs = neigh_3d(c, p, rhs) * c[-1]
+            gs = neigh(c, p, rhs) * c[-1]
             p_int = p[I]
             upd = p_int + omega * (gs - p_int)
             q = p.clone()
@@ -342,7 +402,7 @@ def rbsor_3d_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: f
         return new
 
     def resid(ps):
-        rs = [neigh_3d(c, p, rhs) - ap * p[I] for c, ap, p, rhs in zip(coeffs, aps, ps, rhss)]
+        rs = [neigh(c, p, rhs) - ap * p[I] for c, ap, p, rhs in zip(coeffs, aps, ps, rhss)]
         return block_max([r.abs() for r in mean_free(rs)]).item()
 
     r = best = resid(ps)
@@ -358,41 +418,15 @@ def rbsor_3d_blocks(ps, rhss, coeffs, reds, omega: float, tol: float, tol_rel: f
 
 
 def _rbsor(g: Grid2D, nm: Numerics, p, rhs):
-    """Red-black SOR against the mean-free rhs, until max|Ap - rhs'| <=
-    the tolerance, the iteration cap, or the stall exit."""
-    rhs = rhs - torch.mean(rhs)
-    tol = effective_tol(nm.sor_tol, nm.sor_tol_rel, rhs).item()
-    ae, aw, an, a_s, ap_inv = poisson_coefficients(g, p.dtype, p.device)
-    ri = (1, g.nx + 1)
-    rj = (1, g.ny + 1)
+    """Red-black SOR against the mean-free rhs (``cell_mean``'s mean, the
+    order a decomposition keeps), until max|Ap - rhs'| <= the tolerance,
+    the iteration cap, or the stall exit: ``rbsor_blocks`` on the grid as
+    one block."""
     i = torch.arange(g.nx, device=p.device)[:, None]
     j = torch.arange(g.ny, device=p.device)[None, :]
-    red = (i + j) % 2 == 0
-    omega = nm.sor_omega
-
-    def half_sweep(p, mask):
-        gs = (
-            rhs
-            - ae * win(p, ri, rj, 1, 0)
-            - aw * win(p, ri, rj, -1, 0)
-            - an * win(p, ri, rj, 0, 1)
-            - a_s * win(p, ri, rj, 0, -1)
-        ) * ap_inv
-        p_int = win(p, ri, rj)
-        upd = p_int + omega * (gs - p_int)
-        p = p.clone()
-        p[1:-1, 1:-1] = torch.where(mask, upd, p_int)
-        return p
-
-    r = best = residual(g, p, rhs).item()
-    it = stall = 0
-    while keep_iterating(it, nm.sor_max_iter, r, tol, best, stall, STALL_ITERS):
-        p = half_sweep(p, red)
-        p = half_sweep(p, ~red)
-        r = residual(g, p, rhs).item()
-        stall = 0 if r < best else stall + 1
-        best = min(best, r)
-        it += 1
+    (p,) = rbsor_blocks([p], [rhs], [poisson_coefficients(g, p.dtype, p.device)],
+                        [(i + j) % 2 == 0], nm.sor_omega, nm.sor_tol, nm.sor_tol_rel,
+                        nm.sor_max_iter, mean_free=lambda xs: [x - cell_mean(x) for x in xs])
     return p
 
 

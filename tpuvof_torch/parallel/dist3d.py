@@ -55,10 +55,8 @@ warning, the port raises: no fallback trades the kernels for plain ops.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..config import Fluid
@@ -70,10 +68,11 @@ from ..ops.fct3d import (SWEEP_ORDER, fct3d_sweep_y, fct3d_sweep_z, sweep_masked
 from ..ops.mg import _red_mask, mg_levels
 from ..ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from ..ops.normals3d import curvature_from_normals_3d, young_normals_3d
-from ..ops.poisson import neigh_3d, rbsor_3d_blocks, rhs_3d
+from ..ops.poisson import jacobi_blocks, poisson_coefficients_3d, rbsor_blocks, rhs_3d
 from ..state import State3D
 from . import mg as pmg
-from .mesh import Mesh
+from .halo import exchange, refresh_, widen
+from .mesh import Mesh, on_device
 
 __all__ = ["Decomp3D", "admission_3d"]
 
@@ -113,11 +112,6 @@ def admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
         why = (f"needs nx/px > W={W} (nx/px={nxl})"
                + (f", ny/py > Wy={Wy} (ny/py={nyl})" if use_pencil else ""))
     return dict(ok=ok, pencil=use_pencil, W=W, nloc=nloc, Wy=Wy, nyE=nyE, why=why)
-
-
-def _on(device: torch.device):
-    """Make ``device`` current for the kernels launched under it."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 @dataclass(frozen=True)
@@ -215,9 +209,6 @@ class Decomp3D:
                                dxi=g.dxi, dyi=g.dyi, dzi=g.dzi)
         self._cache = {}
 
-    def _index(self, xi: int, yi: int) -> int:
-        return xi * self.py + yi
-
     # ---- host-side layout ----
     def scatter_state(self, state: State3D) -> list[State3D]:
         """One (nxl+2, nyl+2, nz+2) block per shard, on its device: its
@@ -245,35 +236,18 @@ class Decomp3D:
         return State3D(F=F, u=u, v=v, w=w, p=p)
 
     # ---- halos, exchanges and the masked wall BCs ----
-    def _halo_(self, arrs: list, W: int, nxl: int, Wy: int, nyl: int) -> None:
-        """Overwrite the (W+1) outermost planes on each x side of each
-        shard's tensor with the neighbour's owned planes, then the (Wy+1)
-        outermost rows on each y side over the full x extent (tpuvof's
-        _refresh_halo; with W = Wy = 0 its one-layer _exchange). Edge shards
-        keep what lies beyond their walls."""
-        def stage(axis, n, w, step, count):
-            for k, (xi, yi) in enumerate(self.coords):
-                pos, dst = (xi, yi)[axis], arrs[k]
-                if pos > 0:
-                    dst.narrow(axis, 0, w + 1).copy_(
-                        arrs[k - step].narrow(axis, n, w + 1), non_blocking=True)
-                if pos < count - 1:
-                    dst.narrow(axis, w + n + 1, w + 1).copy_(
-                        arrs[k + step].narrow(axis, w + 1, w + 1), non_blocking=True)
-
-        if self.px > 1:
-            stage(0, nxl, W, self.py, self.px)
-        if self.py > 1:
-            stage(1, nyl, Wy, 1, self.py)
-
     def _exchange_(self, arrs: list) -> None:
         """The one-layer ghost exchange of one field's ring-layout tensors."""
-        self._halo_(arrs, 0, self.nxl, 0, self.nyl)
+        exchange(arrs, self.px, self.py)
 
-    def _refresh(self, shards: list[State3D], W: int, nxl: int, Wy: int, nyl: int) -> None:
-        """``_halo_`` on every field of the shards."""
+    def _refresh(self, shards: list[State3D], W: int, Wy: int) -> None:
+        """On every field of the shards, the (W+1) outermost planes on each
+        x side from the neighbour's owned planes, then the (Wy+1) outermost
+        rows on each y side over the full x extent (tpuvof's _refresh_halo;
+        with W = Wy = 0 its one-layer _exchange); edge shards keep what lies
+        beyond their walls (halo.refresh_)."""
         for f in range(5):
-            self._halo_([s[f] for s in shards], W, nxl, Wy, nyl)
+            refresh_([s[f] for s in shards], self.px, self.py, (W, Wy))
 
     def _bc_(self, shards: list[State3D]) -> None:
         """The walls in place on the shards that own them (y faces, then x,
@@ -301,38 +275,14 @@ class Decomp3D:
                 a[:, :, -1] = a[:, :, -2]
             w[:, :, 1] = 0.0
             w[:, :, -1] = 0.0
-        self._refresh(shards, 0, self.nxl, 0, self.nyl)
-
-    def _widen_(self, arrs: list, axis: int, w: int) -> list:
-        """Each tensor with w more planes (axis 0) or rows (axis 1) of
-        current data on each side, each taken from the shard that holds it,
-        zeros beyond the walls (tpuvof's _widen / _widen_y, whose one
-        neighbour serves while w <= its extent; here a shard one plane
-        thick widens too)."""
-        n, count = (self.nxl, self.px) if axis == 0 else (self.nyl, self.py)
-        last = n * count + 1  # the global index of the high wall's ghost
-
-        def piece(k, G):
-            # global (ghosted) index G along ``axis``, in shard k's row
-            a = arrs[k]
-            if G < 0 or G > last:
-                return torch.zeros_like(a.narrow(axis, 0, 1))
-            t = min(max((G - 1) // n, 0), count - 1)
-            xi, yi = self.coords[k]
-            src = arrs[self._index(t, yi) if axis == 0 else self._index(xi, t)]
-            return src.narrow(axis, G - t * n, 1).to(a.device)
-
-        out = []
-        for k, (xi, yi) in enumerate(self.coords):
-            base = (xi, yi)[axis] * n  # block plane l holds global base + l
-            lo = [piece(k, base + l) for l in range(-w, 0)]
-            hi = [piece(k, base + n + 2 + l) for l in range(w)]
-            out.append(torch.cat(lo + [arrs[k]] + hi, dim=axis).contiguous())
-        return out
+        self._refresh(shards, 0, 0)
 
     def _widen(self, shards: list[State3D], axis: int, w: int) -> list[State3D]:
-        """``_widen_`` on every field of the shards."""
-        fields = [self._widen_([s[f] for s in shards], axis, w) for f in range(5)]
+        """``halo.widen`` on every field of the shards: w more planes (axis
+        0) or rows (axis 1), each from the shard that holds it, zeros beyond
+        the walls (tpuvof's _widen / _widen_y, whose one neighbour serves
+        while w <= its extent; here a shard one plane thick widens too)."""
+        fields = [widen([s[f] for s in shards], self.px, self.py, axis, w) for f in range(5)]
         return [State3D(*(fields[f][k] for f in range(5))) for k in range(len(shards))]
 
     # ---- the engine ----
@@ -369,7 +319,7 @@ class Decomp3D:
         write into the given ones."""
         if self.backend == "torch":
             return self._step_torch(blocks, phase)
-        self._refresh(blocks, self.W, self.nxl, self.Wy, self.nyl)
+        self._refresh(blocks, self.W, self.Wy)
         if self.hybrid:
             return self._step_hybrid(blocks, phase)
         return [self._step_shard(k, blocks[k], phase) for k in range(len(blocks))]
@@ -387,7 +337,7 @@ class Decomp3D:
         g = self.g
         kw = self.origin(k)
         F, u, v, w, p = block
-        with _on(self.devices[k]):
+        with on_device(self.devices[k]):
             us, vs, ws, rhs = K3.predict3d_rhs(g, self.fl, self.dt, u, v, w, F, self.csf,
                                                **kw)
             p = K3.jacobi3d(g, self.n_jacobi, p, rhs, **kw)
@@ -415,7 +365,7 @@ class Decomp3D:
         g, W, Wy, nxl, nyl = self.g, self.W, self.Wy, self.nxl, self.nyl
         stars, rhss = [], []
         for k, b in enumerate(blocks):
-            with _on(self.devices[k]):
+            with on_device(self.devices[k]):
                 *st, rhs = K3.predict3d_rhs(g, self.fl, self.dt, b.u, b.v, b.w, b.F, self.csf,
                                             **self.origin(k))
             stars.append(st)
@@ -427,10 +377,10 @@ class Decomp3D:
             pj = torch.zeros_like(b.p)
             pj[sx, sy] = p
             pjs.append(pj)
-        self._halo_(pjs, W, nxl, Wy, nyl)
+        refresh_(pjs, self.px, self.py, (W, Wy))
         out = []
         for k, b in enumerate(blocks):
-            with _on(self.devices[k]):
+            with on_device(self.devices[k]):
                 out.append(self._finish_shard(k, b.F, stars[k], pjs[k], phase))
         return out
 
@@ -507,7 +457,7 @@ class Decomp3D:
         if axis == 2 or (axis == 1 and self.py == 1):
             sweep = fct3d_sweep_z if axis == 2 else fct3d_sweep_y
             return [sweep(g, dt, f, c) for f, c in zip(F, vel)]
-        Fw, cw = self._widen_(F, axis, 2), self._widen_(vel, axis, 2)
+        Fw, cw = (widen(a, self.px, self.py, axis, 2) for a in (F, vel))
         out = []
         for (xi, yi), f, c in zip(self.coords, Fw, cw):
             gi0, gj0 = xi * self.nxl - 2 * (axis == 0), yi * self.nyl - 2 * (axis == 1)
@@ -520,33 +470,20 @@ class Decomp3D:
 
     # ---- the distributed pressure solves ----
     def _coeffs(self, k: int, dtype, device):
-        """Shard k's 7-point coefficients (ae, aw, an, as, af, ab, ap_inv)
-        and red mask, cached: the edge coefficients zero only at the global
-        walls, ap_inv formed in ``dtype`` as tpuvof's _poisson_coeffs forms
-        it, the mask (i + j + k) % 2 == 0 at global indices (ops.mg._red_mask
-        at the shard's offsets)."""
+        """Shard k's 7-point coefficients (ae, aw, an, as, af, ab, ap_inv),
+        the serial solver's on its block (only the global walls zero a
+        coefficient, ap_inv from the f64 edge classes), and its red mask
+        (i + j + k) % 2 == 0 at global indices; cached. tpuvof forms the
+        distributed ap_inv in the field's dtype instead, an ulp from the
+        serial one in f32 (PERF.md)."""
         key = (k, dtype, device)
         if key not in self._cache:
-            g, nxl, nyl = self.g, self.nxl, self.nyl
             xi, yi = self.coords[k]
-            i = torch.arange(nxl, device=device).reshape(-1, 1, 1)
-            j = torch.arange(nyl, device=device).reshape(1, -1, 1)
-            kk = torch.arange(g.nz, device=device).reshape(1, 1, -1)
-
-            def const(h):
-                return torch.full((), float(np.float64(h) ** 2), dtype=dtype, device=device)
-
-            zero = torch.zeros((), dtype=dtype, device=device)
-            cx, cy, cz = const(g.dxi), const(g.dyi), const(g.dzi)
-            ae = torch.where((i == nxl - 1) & (xi == self.px - 1), zero, cx)
-            aw = torch.where((i == 0) & (xi == 0), zero, cx)
-            an = torch.where((j == nyl - 1) & (yi == self.py - 1), zero, cy)
-            a_s = torch.where((j == 0) & (yi == 0), zero, cy)
-            af = torch.where(kk == g.nz - 1, zero, cz)
-            ab = torch.where(kk == 0, zero, cz)
-            ap_inv = -1.0 / (ae + aw + an + a_s + ab + af)
-            red = _red_mask((nxl, nyl, g.nz), device, (xi * nxl, yi * nyl, 0))
-            self._cache[key] = ((ae, aw, an, a_s, af, ab, ap_inv), red)
+            origin = (xi * self.nxl, yi * self.nyl, 0)
+            extent = (self.nxl, self.nyl, self.g.nz)
+            self._cache[key] = (
+                poisson_coefficients_3d(self.g, dtype, device, origin, extent),
+                _red_mask(extent, device, origin))
         return self._cache[key]
 
     def _solve_pressure(self, ps: list, rhss: list) -> list:
@@ -554,17 +491,8 @@ class Decomp3D:
         Jacobi with one exchange of p per sweep."""
         if self.pressure_solver != "jacobi":
             return self._solve_upgraded(ps, rhss)
-        I = (slice(1, -1),) * 3
         coeffs = [self._coeffs(k, p.dtype, p.device)[0] for k, p in enumerate(ps)]
-        for _ in range(self.n_jacobi):
-            new = []
-            for c, p, rhs in zip(coeffs, ps, rhss):
-                q = p.clone()
-                q[I] = neigh_3d(c, p, rhs) * c[-1]
-                new.append(q)
-            self._exchange_(new)
-            ps = new
-        return ps
+        return jacobi_blocks(ps, rhss, coeffs, self.n_jacobi, self._exchange_)
 
     def _solve_upgraded(self, ps: list, rhss: list) -> list:
         """rbsor or mg on ring-layout blocks (ghosted p, interior rhs), for
@@ -578,7 +506,7 @@ class Decomp3D:
 
     def _solve_rbsor(self, ps: list, rhss: list) -> list:
         """Red-black SOR over the shards (tpuvof's _solve_pressure_rbsor):
-        the serial solver's loop (ops.poisson.rbsor_3d_blocks) on the
+        the serial solver's loop (ops.poisson.rbsor_blocks) on the
         shards' blocks, with the nullspace projection as a global mean
         (summed in the serial order, parallel/mg._mean_free), the global
         max, red and black at global (i + j + k), and one exchange per
@@ -587,7 +515,7 @@ class Decomp3D:
         spec = pmg.MGDecomp((self.px, self.py, 1))
         npts = g.nx * g.ny * g.nz
         cm = [self._coeffs(k, p.dtype, p.device) for k, p in enumerate(ps)]
-        return rbsor_3d_blocks(ps, rhss, [c for c, _ in cm], [red for _, red in cm],
+        return rbsor_blocks(ps, rhss, [c for c, _ in cm], [red for _, red in cm],
                                self.sor_omega, self.sor_tol, self.sor_tol_rel,
                                self.sor_max_iter,
                                mean_free=lambda xs: pmg._mean_free(spec, xs, npts),

@@ -10,13 +10,14 @@ CPU, form a virtual mesh that runs the same code one shard after another.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "factor2d", "make_mesh"]
+__all__ = ["Mesh", "factor2d", "make_mesh", "on_device"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -64,3 +65,9 @@ def make_mesh(n_devices: int | None = None, axis_names=("mx", "my"),
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
     return Mesh(arr.reshape(shape), axis_names)
+
+
+def on_device(device: torch.device):
+    """Make ``device`` current for the kernels launched under it (a no-op
+    for the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

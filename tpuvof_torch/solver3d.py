@@ -35,8 +35,7 @@ from .ops.fct3d import SWEEP_ORDER, rudman_advect_3d
 from .ops.mg import _red_mask, mg_levels, mg_solve
 from .ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from .ops.normals3d import young_normals_curvature_3d
-from .ops.poisson import (ap_inv_3d, cell_mean, neigh_3d, poisson_constants_3d, rbsor_3d_blocks,
-                          rhs_3d)
+from .ops.poisson import cell_mean, neigh, poisson_coefficients_3d, rbsor_blocks, rhs_3d
 from .state import State3D
 
 __all__ = ["step_3d", "simulate_3d"]
@@ -45,52 +44,25 @@ _BACKENDS = ("torch", "cuda")
 _SOLVERS = ("jacobi", "rbsor", "mg", "auto")
 
 
-def _poisson_coeffs_3d(g: Grid3D, dtype, device):
-    """Neumann-edge-zeroed 7-point coefficients (ae, aw, an, as, af, ab,
-    ap_inv), each broadcastable to the interior (nx, ny, nz); the diagonal
-    from the 8 f64 edge-class constants (3dvof.py:269-275)."""
-    (cx, cy, cz), classes = poisson_constants_3d(g)
-
-    def const(x):
-        return torch.full((), x, dtype=dtype, device=device)
-
-    def axis(n, ax):
-        view = [1, 1, 1]
-        view[ax] = n
-        return torch.arange(n, device=device).reshape(view)
-
-    i, j, k = axis(g.nx, 0), axis(g.ny, 1), axis(g.nz, 2)
-    zero = const(0.0)
-    ae = torch.where(i == g.nx - 1, zero, const(cx))
-    aw = torch.where(i == 0, zero, const(cx))
-    an = torch.where(j == g.ny - 1, zero, const(cy))
-    a_s = torch.where(j == 0, zero, const(cy))
-    af = torch.where(k == g.nz - 1, zero, const(cz))
-    ab = torch.where(k == 0, zero, const(cz))
-    ap_inv = ap_inv_3d(classes, (i == 0) | (i == g.nx - 1), (j == 0) | (j == g.ny - 1),
-                       (k == 0) | (k == g.nz - 1), dtype, device)
-    return ae, aw, an, a_s, af, ab, ap_inv
-
-
 def _solve_pressure_3d(g: Grid3D, dt, n_iter, p, u_star, v_star, w_star, rho):
     """The reference's fixed Jacobi sweeps; returns a new p whose ghosts
     keep p's values."""
     rhs = rhs_3d(g, dt, u_star, v_star, w_star, rho)
-    coeffs = _poisson_coeffs_3d(g, p.dtype, p.device)
+    coeffs = poisson_coefficients_3d(g, p.dtype, p.device)
     ap_inv = coeffs[-1]
     p = p.clone()
     for _ in range(n_iter):
-        p[1:-1, 1:-1, 1:-1] = neigh_3d(coeffs, p, rhs) * ap_inv
+        p[1:-1, 1:-1, 1:-1] = neigh(coeffs, p, rhs) * ap_inv
     return p
 
 
 def _rbsor_3d(g: Grid3D, p, rhs, omega: float, tol: float, max_iter: int,
               tol_rel: float = 0.0):
     """Red-black SOR on (i+j+k) % 2 against the mean-free rhs: the whole
-    grid as the one block of ops.poisson.rbsor_3d_blocks."""
-    (p,) = rbsor_3d_blocks([p], [rhs], [_poisson_coeffs_3d(g, p.dtype, p.device)],
-                           [_red_mask((g.nx, g.ny, g.nz), p.device)], omega, tol, tol_rel,
-                           max_iter, mean_free=lambda xs: [x - cell_mean(x) for x in xs])
+    grid as the one block of ops.poisson.rbsor_blocks."""
+    (p,) = rbsor_blocks([p], [rhs], [poisson_coefficients_3d(g, p.dtype, p.device)],
+                        [_red_mask((g.nx, g.ny, g.nz), p.device)], omega, tol, tol_rel,
+                        max_iter, mean_free=lambda xs: [x - cell_mean(x) for x in xs])
     return p
 
 
