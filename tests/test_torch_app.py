@@ -17,6 +17,7 @@ sweep the colour tables), carried to the port as numpy arrays. Bars:
   bit for bit in the file's dtype; a port resume of a tpuvof checkpoint
   within 1e-12 of tpuvof's uncut eager run.
 """
+import json
 import os
 import subprocess
 import sys
@@ -420,8 +421,8 @@ def test_make_step_fn_matches_simulate(small_run):
         assert torch.equal(x, y)
 
 
-def test_profiling_trace_and_time_steps(small_run, tmp_path):
-    from tpuvof_torch.utils import time_steps, trace
+def test_profiling_trace(small_run, tmp_path):
+    from tpuvof_torch.utils import trace
 
     _, _, tcfg, ts = small_run
     cfg = tcfg.replace(num=tt.Numerics(backend="torch"))
@@ -430,9 +431,9 @@ def test_profiling_trace_and_time_steps(small_run, tmp_path):
     files = os.listdir(tmp_path / "prof")
     assert len(files) == 1 and files[0].endswith(".json")
     assert os.path.getsize(tmp_path / "prof" / files[0]) > 0
-    best, cups, state = time_steps(tt.simulate, cfg, ts, 2, repeats=2)
-    assert best > 0 and cups == 24 * 24 * 2 / best
-    assert torch.isfinite(state.F).all()
+    with open(tmp_path / "prof" / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "tv.simulate" for e in events)
 
 
 def test_app_modules_import_no_jax_nor_matplotlib():

@@ -37,6 +37,8 @@ import time
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 BACKENDS = ["torch", "cuda", "cuda_mono", "cuda_tiled", "cuda_strips"]
 
 
@@ -231,8 +233,9 @@ def run_distributed(args, cfg, state, istep) -> int:
                 return 1
             if not args.no_frames:
                 mode = MODES[vis_idx % len(MODES)]
-                save_frame_png(os.path.join(args.outdir, f"{frame_idx:06d}-{mode}.png"),
-                               render_frame(cfg, state, mode))
+                with span("tv.render"):
+                    save_frame_png(os.path.join(args.outdir, f"{frame_idx:06d}-{mode}.png"),
+                                   render_frame(cfg, state, mode))
                 if args.save_fig:
                     save_contour_png(os.path.join(args.outdir, f"{frame_idx:06d}-f.png"),
                                      state.F, cfg.grid.Lx, cfg.grid.Ly)
@@ -648,15 +651,16 @@ def main(argv=None) -> int:
         if not args.no_frames:
             count = frame_idx
             frame_idx += 1
-            if mode == "vectors":
-                rgb = render_frame(cfg, state, "vof")
-                arrows = arrow_field(interp_velocity(cfg, state), arrow_spacing=4)
-                save_frame_png(os.path.join(args.outdir, f"{count:06d}-{mode}.png"),
-                               rgb, arrows)
-            else:
-                rgb = render_frame(cfg, state, mode)
-                save_frame_png(os.path.join(args.outdir, f"{count:06d}-{mode}.png"),
-                               rgb)
+            with span("tv.render"):
+                if mode == "vectors":
+                    rgb = render_frame(cfg, state, "vof")
+                    arrows = arrow_field(interp_velocity(cfg, state), arrow_spacing=4)
+                    save_frame_png(os.path.join(args.outdir, f"{count:06d}-{mode}.png"),
+                                   rgb, arrows)
+                else:
+                    rgb = render_frame(cfg, state, mode)
+                    save_frame_png(os.path.join(args.outdir, f"{count:06d}-{mode}.png"),
+                                   rgb)
             if args.save_fig:
                 save_contour_png(os.path.join(args.outdir, f"{count:06d}-f.png"),
                                  state.F, cfg.grid.Lx, cfg.grid.Ly)

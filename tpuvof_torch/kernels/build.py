@@ -18,7 +18,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds", "build_log"]
+__all__ = ["load_library", "build_seconds", "library_built", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -59,6 +59,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 _build_seconds = None
+_built = None
 _build_log = ""
 
 
@@ -123,16 +124,16 @@ def _compile(target: Path) -> str:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use into tpuvof_torch/_build/."""
-    global _lib, _build_seconds, _build_log
+    global _lib, _build_seconds, _built, _build_log
     with _lock:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
         _BUILD.mkdir(exist_ok=True)
         target = _BUILD / f"libtpuvof_kernels_{_digest()}.so"
-        t0 = time.perf_counter()
-        if not target.exists():
+        built = not target.exists()
+        if built:
             _build_log = _compile(target)
-        _build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(target))
         for stem, argtypes in _SIGNATURES.items():
             for suffix in ("_f32", "_f64"):
@@ -148,12 +149,22 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = [_I, _I]
             fn.restype = ctypes.c_longlong
         _lib = lib
+        _built = built
+        _build_seconds = time.perf_counter() - t0
         return lib
 
 
 def build_seconds() -> float | None:
-    """Seconds the first load_library() call took (compile included)."""
+    """Seconds the first successful load_library() call took: the sources'
+    digest, the build where this process made the library, its loading
+    and binding. None before the library is loaded."""
     return _build_seconds
+
+
+def library_built() -> bool | None:
+    """Whether this process built the library (False: it loaded one
+    already built); None before the library is loaded."""
+    return _built
 
 
 def build_log() -> str:

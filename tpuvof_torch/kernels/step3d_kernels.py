@@ -37,7 +37,9 @@ synchronising, adds the number of kernels it launched to its entry of
 ``LAUNCHES`` (``jacobi3d`` one per launch of ``jacobi3d_plan(n_iter)``,
 each running several iterations; ``predict3d_rhs`` two with csf, the
 curvature pre-pass and the predictor; the others one), and raises if a
-launch is refused; it never falls back to the plain version.
+launch is refused; it never falls back to the plain version. Its spans
+(``tv.wrap.<name>``, ``tv.launch.<name>``) and first-launch seconds are
+the 2-D wrappers' (step_kernels.py), through the same launch helper.
 
 The plain versions state what the kernels compute, the lean step's
 semantics included: the BC fix of the velocities inside predict, the
@@ -58,7 +60,7 @@ from ..ops.fct3d import axis_scales, shift3, sweep3d
 from ..ops.materials import mix_properties
 from ..ops.normals3d import normalize_normals_3d, young_msum_3d
 from ..ops.poisson import ap_inv_3d, poisson_constants_3d
-from .step_kernels import _checked, _doubles, _on_cpu, _raise_on_error
+from .step_kernels import _checked, _doubles, _launch, _on_cpu
 
 __all__ = [
     "LAUNCHES",
@@ -435,16 +437,19 @@ def predict3d_rhs(g: Grid3D, fl: Fluid, dt, u, v, w, F, csf: bool = False,
     shape = _field_shape("predict3d_rhs", g, F, njl, gj_base)
     if _on_cpu(F):
         return predict3d_rhs_plain(g, fl, dt, u, v, w, F, csf, gi_base, njl, gj_base)
+    return _launch(LAUNCHES, "predict3d_rhs", _predict3d_call,
+                   (g, fl, dt, u, v, w, F, csf, shape, gi_base, njl, gj_base))
+
+
+def _predict3d_call(g, fl, dt, u, v, w, F, csf, shape, gi_base, njl, gj_base):
     lib, fn, stream = _checked("predict3d", shape, u, v, w, F)
     outs = [torch.empty_like(F) for _ in range(4)]
     kappa = torch.empty_like(F) if csf else None
-    status = fn(u.data_ptr(), v.data_ptr(), w.data_ptr(), F.data_ptr(),
-                None if kappa is None else kappa.data_ptr(),
-                *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, njl, gj_base),
-                _predict3d_constants(g, fl, float(dt)), stream)
-    _raise_on_error(lib, "predict3d_rhs", status)
-    LAUNCHES["predict3d_rhs"] += 2 if csf else 1
-    return tuple(outs)
+    c_args = (u.data_ptr(), v.data_ptr(), w.data_ptr(), F.data_ptr(),
+              None if kappa is None else kappa.data_ptr(),
+              *(o.data_ptr() for o in outs), *_vol(shape, g, gi_base, njl, gj_base),
+              _predict3d_constants(g, fl, float(dt)), stream)
+    return lib, fn, c_args, tuple(outs), 2 if csf else 1
 
 
 def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: int = 0,
@@ -455,15 +460,18 @@ def correct3d(g: Grid3D, fl: Fluid, dt, u_star, v_star, w_star, p, F, gi_base: i
     if _on_cpu(F):
         return correct3d_plain(g, fl, dt, u_star, v_star, w_star, p, F, gi_base, njl,
                                gj_base)
+    return _launch(LAUNCHES, "correct3d", _correct3d_call,
+                   (g, fl, dt, u_star, v_star, w_star, p, F, shape, gi_base, njl, gj_base))
+
+
+def _correct3d_call(g, fl, dt, u_star, v_star, w_star, p, F, shape, gi_base, njl, gj_base):
     lib, fn, stream = _checked("correct3d", shape, u_star, v_star, w_star, p, F)
     outs = [torch.empty_like(F) for _ in range(3)]
-    status = fn(u_star.data_ptr(), v_star.data_ptr(), w_star.data_ptr(), p.data_ptr(),
-                F.data_ptr(), *(o.data_ptr() for o in outs),
-                *_vol(shape, g, gi_base, njl, gj_base),
-                _correct3d_constants(g, fl, float(dt)), stream)
-    _raise_on_error(lib, "correct3d", status)
-    LAUNCHES["correct3d"] += 1
-    return tuple(outs)
+    c_args = (u_star.data_ptr(), v_star.data_ptr(), w_star.data_ptr(), p.data_ptr(),
+              F.data_ptr(), *(o.data_ptr() for o in outs),
+              *_vol(shape, g, gi_base, njl, gj_base),
+              _correct3d_constants(g, fl, float(dt)), stream)
+    return lib, fn, c_args, tuple(outs), 1
 
 
 def fct3d_sweep(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
@@ -476,14 +484,17 @@ def fct3d_sweep(g: Grid3D, dt, F, vel, axis: int, mirror_out: bool = False,
     shape = _field_shape("fct3d_sweep", g, F, njl, gj_base)
     if _on_cpu(F):
         return fct3d_sweep_plain(g, dt, F, vel, axis, mirror_out, gi_base, njl, gj_base)
+    return _launch(LAUNCHES, "fct3d_sweep", _fct3d_call,
+                   (g, dt, F, vel, axis, mirror_out, shape, gi_base, njl, gj_base))
+
+
+def _fct3d_call(g, dt, F, vel, axis, mirror_out, shape, gi_base, njl, gj_base):
     lib, fn, stream = _checked("fct3d", shape, F, vel)
     out = torch.empty_like(F)
-    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(),
-                *_vol(shape, g, gi_base, njl, gj_base), axis, int(bool(mirror_out)),
-                _sweep3d_constants(g, float(dt), axis), stream)
-    _raise_on_error(lib, "fct3d_sweep", status)
-    LAUNCHES["fct3d_sweep"] += 1
-    return out
+    c_args = (F.data_ptr(), vel.data_ptr(), out.data_ptr(),
+              *_vol(shape, g, gi_base, njl, gj_base), axis, int(bool(mirror_out)),
+              _sweep3d_constants(g, float(dt), axis), stream)
+    return lib, fn, c_args, out, 1
 
 
 def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0, njl: int | None = None,
@@ -496,12 +507,15 @@ def jacobi3d(g: Grid3D, n_iter: int, p, rhs, gi_base: int = 0, njl: int | None =
     shape = _field_shape("jacobi3d", g, p, njl, gj_base)
     if _on_cpu(p):
         return jacobi3d_plain(g, n_iter, p, rhs, gi_base, njl, gj_base)
+    return _launch(LAUNCHES, "jacobi3d", _jacobi3d_call,
+                   (g, plan, p, rhs, shape, gi_base, njl, gj_base))
+
+
+def _jacobi3d_call(g, plan, p, rhs, shape, gi_base, njl, gj_base):
     lib, fn, stream = _checked("jacobi3d", shape, p, rhs)
     out = torch.empty_like(p)
     tmp = torch.empty_like(p) if len(plan) > 1 else out
-    status = fn(p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                *_vol(shape, g, gi_base, njl, gj_base), len(plan), _levels_array(plan),
-                _jacobi3d_constants(g), stream)
-    _raise_on_error(lib, "jacobi3d", status)
-    LAUNCHES["jacobi3d"] += len(plan)
-    return out
+    c_args = (p.data_ptr(), rhs.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+              *_vol(shape, g, gi_base, njl, gj_base), len(plan), _levels_array(plan),
+              _jacobi3d_constants(g), stream)
+    return lib, fn, c_args, out, len(plan)

@@ -43,6 +43,11 @@ counts nothing. Given CUDA tensors it checks them, allocates its outputs
 and scratch with ``torch.empty``, launches its kernel on the current
 stream without synchronising, adds one to its entry of ``LAUNCHES``, and
 raises if the launch is refused; it never falls back to the plain version.
+Under a profiler, its CUDA branch is the span ``tv.wrap.<name>`` and its
+foreign call into the library ``tv.launch.<name>`` (``<name>`` its
+``LAUNCHES`` key; utils/profiling.py); the host seconds of each entry's
+first launch in the process, which loads the kernel's module under CUDA's
+lazy loading, go to ``FIRST_LAUNCH_S``. The 3-D wrappers share both.
 
 The plain versions are built from tpuvof_torch.ops (the windowed ones
 from ops/window.py). The CPU tests hold them against tpuvof's Pallas
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import numpy as np
 import torch
@@ -63,10 +69,12 @@ from ..ops.materials import mix_properties
 from ..ops.momentum import predict_velocity, update_velocity
 from ..ops.normals import young_normals_curvature
 from ..ops.poisson import divergence_rhs, jacobi_sweeps, poisson_diagonal_constants
+from ..utils.profiling import recording, span
 from .build import load_library
 
 __all__ = [
     "LAUNCHES",
+    "FIRST_LAUNCH_S",
     "PHASE_HALO",
     "STEP_HALO",
     "strips_halo",
@@ -96,6 +104,10 @@ __all__ = [
 LAUNCHES = {name: 0 for name in ("predict", "project", "fct_sweep", "predict_win",
                                  "fct_sweep_win", "fullstep", "fullstep_win",
                                  "fullstep_strips", "fullstep_dma")}
+
+#: Host seconds of each kernel entry's first launch in the process, by its
+#: LAUNCHES key (2-D and 3-D); never reset.
+FIRST_LAUNCH_S: dict[str, float] = {}
 
 #: Dependency radius of one phase kernel (predict, or one FCT sweep): a
 #: block widened by it beyond its ghost ring yields exact phase outputs on
@@ -265,30 +277,53 @@ def _block_shape(name: str, t: torch.Tensor):
     return tuple(t.shape)
 
 
-def _raise_on_error(lib, name: str, status: int) -> None:
+def _launch(counts: dict, name: str, prepare, args: tuple):
+    """A wrapper's CUDA branch, the one way every wrapper (2-D and 3-D)
+    launches its kernel. ``prepare(*args)`` checks the operands and makes
+    the outputs and the entry point's arguments: it returns (lib, fn,
+    c_args, result, kernels). The foreign call ``fn(*c_args)`` then
+    launches ``kernels`` kernels; a refused launch raises; the kernels are
+    added to ``counts[name]`` and ``result`` is returned. The first call
+    of ``name`` in the process is timed into FIRST_LAUNCH_S. While a
+    profiler records, the branch is the span ``tv.wrap.<name>`` and the
+    foreign call in it ``tv.launch.<name>``; with none, the branch pays
+    one check for both."""
+    first = name not in FIRST_LAUNCH_S
+    if recording():
+        with span("tv.wrap." + name):
+            lib, fn, c_args, result, kernels = prepare(*args)
+            t0 = time.perf_counter() if first else 0.0
+            with span("tv.launch." + name):
+                status = fn(*c_args)
+    else:
+        lib, fn, c_args, result, kernels = prepare(*args)
+        t0 = time.perf_counter() if first else 0.0
+        status = fn(*c_args)
     if status != 0:
         msg = lib.tv_error_string(status).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status} ({msg})")
+    if first:
+        FIRST_LAUNCH_S[name] = time.perf_counter() - t0
+    counts[name] += kernels
+    return result
 
 
-def _launch_predict(name, cfg, u, v, F, shape, oi, oj):
+def _predict_call(cfg, u, v, F, shape, oi, oj):
     lib, fn, stream = _checked("predict", shape, u, v, F)
     us = torch.empty_like(F)
     vs = torch.empty_like(F)
     g = cfg.grid
     # rows 0: the library picks the tile height from the block size
-    status = fn(u.data_ptr(), v.data_ptr(), F.data_ptr(), us.data_ptr(), vs.data_ptr(),
-                *shape, oi, oj, g.nx, g.ny, _predict_constants(cfg), 0, stream)
-    _raise_on_error(lib, name, status)
-    LAUNCHES[name] += 1
-    return us, vs
+    c_args = (u.data_ptr(), v.data_ptr(), F.data_ptr(), us.data_ptr(), vs.data_ptr(),
+              *shape, oi, oj, g.nx, g.ny, _predict_constants(cfg), 0, stream)
+    return lib, fn, c_args, (us, vs), 1
 
 
 def predict(cfg: SimConfig, u, v, F):
     """(u*, v*) of the step; counterpart of tpuvof's pallas_predict."""
     if _on_cpu(F):
         return predict_plain(cfg, u, v, F)
-    return _launch_predict("predict", cfg, u, v, F, cfg.grid.shape, 0, 0)
+    return _launch(LAUNCHES, "predict", _predict_call, (cfg, u, v, F, cfg.grid.shape, 0, 0))
 
 
 def predict_win(cfg: SimConfig, u, v, F, oi: int, oj: int):
@@ -297,7 +332,8 @@ def predict_win(cfg: SimConfig, u, v, F, oi: int, oj: int):
     if _on_cpu(F):
         return predict_win_plain(cfg, u, v, F, oi, oj)
     shape = _block_shape("predict_win", F)
-    return _launch_predict("predict_win", cfg, u, v, F, shape, int(oi), int(oj))
+    return _launch(LAUNCHES, "predict_win", _predict_call,
+                   (cfg, u, v, F, shape, int(oi), int(oj)))
 
 
 def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
@@ -305,6 +341,10 @@ def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
     project_pressure_and_correct."""
     if _on_cpu(F):
         return project_plain(cfg, F, u_star, v_star, p, u, v)
+    return _launch(LAUNCHES, "project", _project_call, (cfg, F, u_star, v_star, p, u, v))
+
+
+def _project_call(cfg, F, u_star, v_star, p, u, v):
     g = cfg.grid
     lib, fn, stream = _checked("project", g.shape, F, u_star, v_star, p, u, v)
     p_out = torch.empty_like(p)
@@ -312,13 +352,11 @@ def project(cfg: SimConfig, F, u_star, v_star, p, u, v):
     rhs = torch.empty_like(p)
     u_out = torch.empty_like(u)
     v_out = torch.empty_like(v)
-    status = fn(F.data_ptr(), u_star.data_ptr(), v_star.data_ptr(), p.data_ptr(),
-                u.data_ptr(), v.data_ptr(), p_out.data_ptr(), p_tmp.data_ptr(),
-                rhs.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-                g.nx, g.ny, cfg.num.n_jacobi, _project_constants(cfg), stream)
-    _raise_on_error(lib, "project", status)
-    LAUNCHES["project"] += 1
-    return p_out, u_out, v_out
+    c_args = (F.data_ptr(), u_star.data_ptr(), v_star.data_ptr(), p.data_ptr(),
+              u.data_ptr(), v.data_ptr(), p_out.data_ptr(), p_tmp.data_ptr(),
+              rhs.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+              g.nx, g.ny, cfg.num.n_jacobi, _project_constants(cfg), stream)
+    return lib, fn, c_args, (p_out, u_out, v_out), 1
 
 
 def _sweep_args(cfg: SimConfig, axis: int):
@@ -328,16 +366,13 @@ def _sweep_args(cfg: SimConfig, axis: int):
     return _sweep_constants(dx, dy, nm.dt, nm.fct)
 
 
-def _launch_sweep(name, cfg, F, vel, axis, shape, oi, oj):
+def _sweep_call(cfg, F, vel, axis, shape, oi, oj):
     lib, fn, stream = _checked("fct_sweep", shape, F, vel)
     g, fct = cfg.grid, cfg.num.fct
     out = torch.empty_like(F)
-    status = fn(F.data_ptr(), vel.data_ptr(), out.data_ptr(), *shape, oi, oj,
-                g.nx, g.ny, axis, _sweep_args(cfg, axis), int(fct.full_dv),
-                int(fct.clamp), stream)
-    _raise_on_error(lib, name, status)
-    LAUNCHES[name] += 1
-    return out
+    c_args = (F.data_ptr(), vel.data_ptr(), out.data_ptr(), *shape, oi, oj, g.nx, g.ny,
+              axis, _sweep_args(cfg, axis), int(fct.full_dv), int(fct.clamp), stream)
+    return lib, fn, c_args, out, 1
 
 
 def fct_sweep(cfg: SimConfig, F, vel, axis: int):
@@ -347,7 +382,8 @@ def fct_sweep(cfg: SimConfig, F, vel, axis: int):
         raise ValueError(f"axis must be 0 or 1, not {axis}")
     if _on_cpu(F):
         return fct_sweep_plain(cfg, F, vel, axis)
-    return _launch_sweep("fct_sweep", cfg, F, vel, axis, cfg.grid.shape, 0, 0)
+    return _launch(LAUNCHES, "fct_sweep", _sweep_call,
+                   (cfg, F, vel, axis, cfg.grid.shape, 0, 0))
 
 
 def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
@@ -358,7 +394,8 @@ def fct_sweep_win(cfg: SimConfig, F, vel, axis: int, oi: int, oj: int):
     if _on_cpu(F):
         return fct_sweep_win_plain(cfg, F, vel, axis, oi, oj)
     shape = _block_shape("fct_sweep_win", F)
-    return _launch_sweep("fct_sweep_win", cfg, F, vel, axis, shape, int(oi), int(oj))
+    return _launch(LAUNCHES, "fct_sweep_win", _sweep_call,
+                   (cfg, F, vel, axis, shape, int(oi), int(oj)))
 
 
 #: Block-sized scratch fields the whole-step kernels take.
@@ -377,7 +414,7 @@ def scratch_cells(entry: str, shape, dtype) -> int:
     return int(getattr(load_library(), "tv_fullstep_dma_scratch" + suffix)(e0, e1))
 
 
-def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step, entry="fullstep"):
+def _fullstep_call(entry, cfg, F, u, v, p, shape, oi, oj, even_step):
     lib, fn, stream = _checked(entry, shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
     outs = [torch.empty_like(F) for _ in range(4)]
@@ -385,13 +422,11 @@ def _launch_fullstep(name, cfg, F, u, v, p, shape, oi, oj, even_step, entry="ful
                           device=F.device)
     ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
     out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
-    status = fn(ins, out_ptrs, scratch.data_ptr(), *shape, oi, oj, g.nx, g.ny,
-                nm.n_jacobi, int(bool(even_step)), _predict_constants(cfg),
-                _project_constants(cfg), _sweep_args(cfg, 0), _sweep_args(cfg, 1),
-                int(nm.fct.full_dv), int(nm.fct.clamp), stream)
-    _raise_on_error(lib, name, status)
-    LAUNCHES[name] += 1
-    return tuple(outs)
+    c_args = (ins, out_ptrs, scratch.data_ptr(), *shape, oi, oj, g.nx, g.ny, nm.n_jacobi,
+              int(bool(even_step)), _predict_constants(cfg), _project_constants(cfg),
+              _sweep_args(cfg, 0), _sweep_args(cfg, 1), int(nm.fct.full_dv),
+              int(nm.fct.clamp), stream)
+    return lib, fn, c_args, tuple(outs), 1
 
 
 def fullstep(cfg: SimConfig, F, u, v, p, even_step: bool):
@@ -399,7 +434,8 @@ def fullstep(cfg: SimConfig, F, u, v, p, even_step: bool):
     of tpuvof's pallas_fullstep."""
     if _on_cpu(F):
         return fullstep_plain(cfg, F, u, v, p, even_step)
-    return _launch_fullstep("fullstep", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step)
+    return _launch(LAUNCHES, "fullstep", _fullstep_call,
+                   ("fullstep", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step))
 
 
 def fullstep_win(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):
@@ -408,8 +444,8 @@ def fullstep_win(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):
     if _on_cpu(F):
         return fullstep_win_plain(cfg, F, u, v, p, oi, oj, even_step)
     shape = _block_shape("fullstep_win", F)
-    return _launch_fullstep("fullstep_win", cfg, F, u, v, p, shape, int(oi), int(oj),
-                            even_step)
+    return _launch(LAUNCHES, "fullstep_win", _fullstep_call,
+                   ("fullstep", cfg, F, u, v, p, shape, int(oi), int(oj), even_step))
 
 
 def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool, extents=None,
@@ -425,8 +461,9 @@ def fullstep_strips(cfg: SimConfig, F, u, v, p, even_step: bool, extents=None,
     w2 = strips_halo(cfg)
     nx, ny = (cfg.grid.nx, cfg.grid.ny) if extents is None else extents
     shape = (nx + 2 + 2 * w2, ny + 2 + 2 * w2)
-    return _launch_fullstep("fullstep_strips", cfg, F, u, v, p, shape, int(oi0) - w2,
-                            int(oj0) - w2, even_step)
+    return _launch(LAUNCHES, "fullstep_strips", _fullstep_call,
+                   ("fullstep", cfg, F, u, v, p, shape, int(oi0) - w2, int(oj0) - w2,
+                    even_step))
 
 
 def fullstep_dma(cfg: SimConfig, F, u, v, p, even_step: bool):
@@ -440,5 +477,5 @@ def fullstep_dma(cfg: SimConfig, F, u, v, p, even_step: bool):
         if t.data_ptr() % 16:
             raise ValueError("fullstep_dma: operands must be 16-byte aligned "
                              f"(a tensor starts at {t.data_ptr():#x})")
-    return _launch_fullstep("fullstep_dma", cfg, F, u, v, p, cfg.grid.shape, 0, 0,
-                            even_step, entry="fullstep_dma")
+    return _launch(LAUNCHES, "fullstep_dma", _fullstep_call,
+                   ("fullstep_dma", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step))

@@ -14,6 +14,7 @@ import torch
 
 from .config import SimConfig
 from .state import State
+from .utils.profiling import span
 
 __all__ = ["Metrics", "compute_metrics", "banner", "format_frame"]
 
@@ -29,26 +30,27 @@ class Metrics(NamedTuple):
 
 
 def compute_metrics(cfg: SimConfig, state: State) -> Metrics:
-    g, nm = cfg.grid, cfg.num
-    F, u, v, p = state
-    max_u = u.abs().max()
-    max_v = v.abs().max()
-    div = (u[2:, 1:-1] - u[1:-1, 1:-1]) * g.dxi + (v[1:-1, 2:] - v[1:-1, 1:-1]) * g.dyi
-    finite = (
-        torch.isfinite(F).all()
-        & torch.isfinite(u).all()
-        & torch.isfinite(v).all()
-        & torch.isfinite(p).all()
-    )
-    return Metrics(
-        mass=F[1:-1, 1:-1].sum(),
-        max_u=max_u,
-        max_v=max_v,
-        cfl_u=max_u * nm.dt * g.dxi,
-        cfl_v=max_v * nm.dt * g.dyi,
-        max_div=div.abs().max(),
-        finite=finite,
-    )
+    with span("tv.metrics"):
+        g, nm = cfg.grid, cfg.num
+        F, u, v, p = state
+        max_u = u.abs().max()
+        max_v = v.abs().max()
+        div = (u[2:, 1:-1] - u[1:-1, 1:-1]) * g.dxi + (v[1:-1, 2:] - v[1:-1, 1:-1]) * g.dyi
+        finite = (
+            torch.isfinite(F).all()
+            & torch.isfinite(u).all()
+            & torch.isfinite(v).all()
+            & torch.isfinite(p).all()
+        )
+        return Metrics(
+            mass=F[1:-1, 1:-1].sum(),
+            max_u=max_u,
+            max_v=max_v,
+            cfl_u=max_u * nm.dt * g.dxi,
+            cfl_v=max_v * nm.dt * g.dyi,
+            max_div=div.abs().max(),
+            finite=finite,
+        )
 
 
 def banner(cfg: SimConfig) -> str:
@@ -67,8 +69,9 @@ def banner(cfg: SimConfig) -> str:
 def format_frame(istep: int, dt: float, m: Metrics, mode_name: str) -> str:
     """Per-frame log line (superset of the reference's 2dvof.py:533), as
     tpuvof's; the metrics reach the host in one copy."""
-    mass, max_u, max_v, cfl_u, cfl_v, max_div, finite = torch.stack(
-        [torch.as_tensor(x, dtype=torch.float64) for x in m]).tolist()
+    with span("tv.host_read"):
+        mass, max_u, max_v, cfl_u, cfl_v, max_div, finite = torch.stack(
+            [torch.as_tensor(x, dtype=torch.float64) for x in m]).tolist()
     warn = " [CFL>0.25!]" if cfl_u > 0.25 or cfl_v > 0.25 else ""
     nan = "" if finite else " [NON-FINITE!]"
     return (

@@ -46,6 +46,7 @@ from .ops import (
 )
 from .ops.mg import mg_levels
 from .state import State
+from .utils.profiling import span
 
 __all__ = ["step", "step_pair", "simulate", "simulate_cfl", "make_step_fn",
            "effective_backend", "resolve_auto", "CFL_LIMIT"]
@@ -99,8 +100,9 @@ def effective_backend(cfg: SimConfig) -> str:
 
 
 def _with_bc(state: State) -> State:
-    u, v, F, p = apply_bc(state.u, state.v, state.F, state.p)
-    return State(F=F, u=u, v=v, p=p)
+    with span("tv.bc"):
+        u, v, F, p = apply_bc(state.u, state.v, state.F, state.p)
+        return State(F=F, u=u, v=v, p=p)
 
 
 def step(cfg: SimConfig, state: State, even_step: bool, lean: bool = False) -> State:
@@ -299,15 +301,16 @@ def simulate(cfg: SimConfig, state: State, n_steps: int, istep0: int = 0) -> Sta
     ``istep0`` is the global index of the last step already taken; chunked
     callers must pass it so the sweep-order parity continues as the
     reference's continuous istep counter does."""
-    cfg = resolve_auto(cfg)
-    route = effective_backend(cfg)
-    state = _with_bc(state)
-    even1 = (istep0 + 1) % 2 == 0  # parity of the first step taken here
-    if route == "cuda_strips":
-        return _simulate_strips(cfg, state, n_steps, even1)
-    for k in range(n_steps):
-        state = step(cfg, state, even_step=even1 if k % 2 == 0 else not even1, lean=True)
-    return state
+    with span("tv.simulate"):
+        cfg = resolve_auto(cfg)
+        route = effective_backend(cfg)
+        state = _with_bc(state)
+        even1 = (istep0 + 1) % 2 == 0  # parity of the first step taken here
+        if route == "cuda_strips":
+            return _simulate_strips(cfg, state, n_steps, even1)
+        for k in range(n_steps):
+            state = step(cfg, state, even_step=even1 if k % 2 == 0 else not even1, lean=True)
+        return state
 
 
 CFL_LIMIT = 0.25  # the reference's warning threshold
@@ -321,46 +324,50 @@ def simulate_cfl(cfg: SimConfig, state: State, n_steps: int, istep0: int = 0):
     violations counts every (face, step) above CFL_LIMIT, the warnings the
     reference would print; first_step is the 1-based step of the first, or
     None. The record stays on the device until the end."""
-    cfg = resolve_auto(cfg)
-    g, nm = cfg.grid, cfg.num
-    state = _with_bc(state)
-    even1 = (istep0 + 1) % 2 == 0
-    dev = state.u.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    best = torch.full((), float("-inf"), dtype=state.u.dtype, device=dev)
-    stp, ax, bi, bj, count, first = (torch.zeros((), **i32) for _ in range(6))
-    n1 = state.u.shape[1]
-    for k in range(n_steps):
-        state = step(cfg, state, even_step=even1 if k % 2 == 0 else not even1, lean=True)
-        cu = state.u * (nm.dt * g.dxi)
-        cv = state.v * (nm.dt * g.dyi)
-        ku = torch.argmax(cu)
-        kv = torch.argmax(cv)
-        mu = cu.reshape(-1)[ku]
-        mv = cv.reshape(-1)[kv]
-        use_v = mv > mu
-        m = torch.where(use_v, mv, mu)
-        kk = torch.where(use_v, kv, ku).to(torch.int32)
-        nv = ((cu > CFL_LIMIT).sum() + (cv > CFL_LIMIT).sum()).to(torch.int32)
-        here = torch.full((), k, **i32)
-        first = torch.where((count == 0) & (nv > 0), here, first)
-        better = m > best
-        best = torch.where(better, m, best)
-        stp = torch.where(better, here, stp)
-        ax = torch.where(better, use_v.to(torch.int32), ax)
-        bi = torch.where(better, kk // n1, bi)
-        bj = torch.where(better, kk % n1, bj)
-        count = count + nv
-    nviol = int(count)
-    return state, {
-        "cfl": float(best),
-        "step": istep0 + int(stp) + 1,
-        "axis": "u" if int(ax) == 0 else "v",
-        "i": int(bi),
-        "j": int(bj),
-        "violations": nviol,
-        "first_step": (istep0 + int(first) + 1) if nviol else None,
-    }
+    with span("tv.simulate"):
+        cfg = resolve_auto(cfg)
+        g, nm = cfg.grid, cfg.num
+        state = _with_bc(state)
+        even1 = (istep0 + 1) % 2 == 0
+        dev = state.u.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        best = torch.full((), float("-inf"), dtype=state.u.dtype, device=dev)
+        stp, ax, bi, bj, count, first = (torch.zeros((), **i32) for _ in range(6))
+        n1 = state.u.shape[1]
+        for k in range(n_steps):
+            state = step(cfg, state, even_step=even1 if k % 2 == 0 else not even1,
+                         lean=True)
+            with span("tv.cfl"):
+                cu = state.u * (nm.dt * g.dxi)
+                cv = state.v * (nm.dt * g.dyi)
+                ku = torch.argmax(cu)
+                kv = torch.argmax(cv)
+                mu = cu.reshape(-1)[ku]
+                mv = cv.reshape(-1)[kv]
+                use_v = mv > mu
+                m = torch.where(use_v, mv, mu)
+                kk = torch.where(use_v, kv, ku).to(torch.int32)
+                nv = ((cu > CFL_LIMIT).sum() + (cv > CFL_LIMIT).sum()).to(torch.int32)
+                here = torch.full((), k, **i32)
+                first = torch.where((count == 0) & (nv > 0), here, first)
+                better = m > best
+                best = torch.where(better, m, best)
+                stp = torch.where(better, here, stp)
+                ax = torch.where(better, use_v.to(torch.int32), ax)
+                bi = torch.where(better, kk // n1, bi)
+                bj = torch.where(better, kk % n1, bj)
+                count = count + nv
+        with span("tv.host_read"):
+            nviol = int(count)
+            return state, {
+                "cfl": float(best),
+                "step": istep0 + int(stp) + 1,
+                "axis": "u" if int(ax) == 0 else "v",
+                "i": int(bi),
+                "j": int(bj),
+                "violations": nviol,
+                "first_step": (istep0 + int(first) + 1) if nviol else None,
+            }
 
 
 def make_step_fn(cfg: SimConfig):

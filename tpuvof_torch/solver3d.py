@@ -37,6 +37,7 @@ from .ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from .ops.normals3d import young_normals_curvature_3d
 from .ops.poisson import cell_mean, neigh, poisson_coefficients_3d, rbsor_blocks, rhs_3d
 from .state import State3D
+from .utils.profiling import span
 
 __all__ = ["step_3d", "simulate_3d"]
 
@@ -142,13 +143,15 @@ def _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_o
 
 
 def _with_bc(state: State3D) -> State3D:
-    u, v, w, F, p = apply_bc_3d(state.u, state.v, state.w, state.F, state.p)
-    return State3D(F=F, u=u, v=v, w=w, p=p)
+    with span("tv.bc"):
+        u, v, w, F, p = apply_bc_3d(state.u, state.v, state.w, state.F, state.p)
+        return State3D(F=F, u=u, v=v, w=w, p=p)
 
 
 def _with_bc_(state: State3D) -> State3D:
-    u, v, w, F, p = apply_bc_3d_(state.u, state.v, state.w, state.F, state.p)
-    return State3D(F=F, u=u, v=v, w=w, p=p)
+    with span("tv.bc"):
+        u, v, w, F, p = apply_bc_3d_(state.u, state.v, state.w, state.F, state.p)
+        return State3D(F=F, u=u, v=v, w=w, p=p)
 
 
 def step_3d(g: Grid3D, fl: Fluid, dt: float, n_jacobi: int, state: State3D, phase: int,
@@ -183,18 +186,19 @@ def simulate_3d(g: Grid3D, state: State3D, n_steps: int, dt: float = 4e-6,
     reference's continuous istep counter does. On 'cuda' one BC is applied
     before the first step and one after the last, and the lean kernel step
     runs between them."""
-    g.validate()  # cubic cells only (the 3-D FCT scale factors assume it)
-    _check(backend, pressure_solver)
-    if pressure_solver == "auto":
-        pressure_solver = _resolve_auto_3d(g)
-    fl = fl or Fluid()
-    ph1 = (istep0 % 3 + 1) % 3  # phase of the first step taken here
-    rest = (pressure_solver, sor_omega, sor_tol, sor_max_iter, csf, sor_tol_rel)
-    if backend == "torch":
+    with span("tv.simulate"):
+        g.validate()  # cubic cells only (the 3-D FCT scale factors assume it)
+        _check(backend, pressure_solver)
+        if pressure_solver == "auto":
+            pressure_solver = _resolve_auto_3d(g)
+        fl = fl or Fluid()
+        ph1 = (istep0 % 3 + 1) % 3  # phase of the first step taken here
+        rest = (pressure_solver, sor_omega, sor_tol, sor_max_iter, csf, sor_tol_rel)
+        if backend == "torch":
+            for s in range(n_steps):
+                state = _step_3d_torch(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
+            return state
+        state = _with_bc(state)
         for s in range(n_steps):
-            state = _step_3d_torch(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
-        return state
-    state = _with_bc(state)
-    for s in range(n_steps):
-        state = _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
-    return _with_bc_(state)
+            state = _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
+        return _with_bc_(state)

@@ -1,3 +1,3 @@
-from .profiling import trace, time_steps
+from .profiling import span, trace
 
-__all__ = ["trace", "time_steps"]
+__all__ = ["span", "trace"]

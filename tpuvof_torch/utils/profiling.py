@@ -1,11 +1,30 @@
-"""Tracing and step timing (counterpart of tpuvof/utils/profiling.py).
+"""Tracing (counterpart of tpuvof/utils/profiling.py).
 
 ``trace`` wraps a block in a ``torch.profiler`` trace (CPU activity, and
 CUDA activity when a card is in use) written as a Chrome trace into
-``logdir`` (chrome://tracing, Perfetto); ``time_steps`` measures the
-steady-state wall clock of a simulate call with the warm-up (the kernels'
-first build and launch) excluded and ``torch.cuda.synchronize`` as the
-fence.
+``logdir`` (chrome://tracing, Perfetto).
+
+``span`` marks one of the program's own spans. Every span of the package
+goes through it, and all carry the prefix ``tv.``:
+
+  ====================  ==================================================
+  span                  where
+  ====================  ==================================================
+  tv.simulate           the body of solver.simulate, simulate_cfl and
+                        solver3d.simulate_3d (one per call)
+  tv.bc                 the plain-torch BC passes outside the kernels
+  tv.cfl                simulate_cfl's Courant tracker, one per step
+  tv.wrap.<kernel>      a CUDA wrapper from its CUDA branch to its return
+  tv.launch.<kernel>    the foreign call into the kernel library alone
+  tv.metrics            metrics.compute_metrics
+  tv.host_read          a program read that waits on the device
+  tv.render             the CLI frame's picture and its PNG
+  ====================  ==================================================
+
+A span records only while a profiler records (``--profile-dir``, or any
+caller's ``torch.profiler``); it then lands in the profiler's trace as a
+``cpu_op`` event on the profiler's clock, nested in the span around it.
+With no profiler recording it allocates and records nothing.
 """
 from __future__ import annotations
 
@@ -15,7 +34,22 @@ import time
 
 import torch
 
-__all__ = ["trace", "time_steps"]
+__all__ = ["trace", "span", "recording"]
+
+_OFF = contextlib.nullcontext()
+
+#: Whether a profiler records: the one check behind every span. A path
+#: that runs on every kernel launch tests it before entering a span, so
+#: that with no profiler it pays neither the span's call nor a ``with``.
+recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager recording ``name`` as a span of the running
+    profiler; a shared no-op when none records."""
+    if recording():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -36,23 +70,3 @@ def trace(logdir: str):
         prof.stop()
         prof.export_chrome_trace(
             os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def _fence(state):
-    """Wait until the device has finished the work queued on the state."""
-    if state.F.is_cuda:
-        torch.cuda.synchronize(state.F.device)
-
-
-def time_steps(simulate, cfg, state, n_steps: int, repeats: int = 3):
-    """Returns (best_seconds, cell_updates_per_sec, final_state)."""
-    state = simulate(cfg, state, n_steps)  # warm-up: builds and first launches
-    _fence(state)
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        state = simulate(cfg, state, n_steps)
-        _fence(state)
-        best = min(best, time.perf_counter() - t0)
-    cells = cfg.grid.nx * cfg.grid.ny
-    return best, cells * n_steps / best, state
