@@ -10,8 +10,9 @@ is recorded, and no launch or library counter is set.
 The ``cuda``-marked tests (run on a card: ``python3 -m pytest
 tests/test_torch_tracing.py --noconftest -m cuda``) hold the wrappers'
 spans: one ``tv.wrap.<kernel>`` holding one ``tv.launch.<kernel>`` a
-wrapper call, each kernel's launch call inside its ``tv.launch`` span on
-the profiler's one clock, and the first-launch seconds counted.
+wrapper call, each kernel's launch call (a graph's replay on 'cuda_mono')
+inside its ``tv.launch`` span on the profiler's one clock, and the
+first-launch seconds counted.
 """
 from __future__ import annotations
 
@@ -117,10 +118,11 @@ def _card():
 
 
 def _launch_calls(events) -> dict[int, dict]:
-    """The host's launch calls (cudaLaunchKernel, cudaLaunchCooperativeKernel)
-    by correlation id."""
+    """The host's launch calls (cudaLaunchKernel, cudaLaunchCooperativeKernel,
+    cudaGraphLaunch) by correlation id."""
     return {e["args"]["correlation"]: e for e in events
-            if e.get("cat") == "cuda_runtime" and e["name"].startswith("cudaLaunch")}
+            if e.get("cat") == "cuda_runtime"
+            and e["name"].startswith(("cudaLaunch", "cudaGraphLaunch"))}
 
 
 def _wraps_hold_one_launch(tv) -> list[str]:
@@ -139,7 +141,9 @@ def _wraps_hold_one_launch(tv) -> list[str]:
 def test_mono_spans_share_the_profilers_clock_on_card(tmp_path):
     _card()
     run = _run_2d("cuda_mono", "cuda", torch.float32, 64, 3)
-    run()  # builds or loads the library, and the first launch loads fullstep
+    # builds or loads the library, the first launch loads fullstep, and
+    # simulate captures its graph of a step pair
+    run()
     torch.cuda.synchronize()
     assert K.FIRST_LAUNCH_S["fullstep"] > 0
     assert build.build_seconds() > 0 and build.library_built() is not None
@@ -148,9 +152,10 @@ def test_mono_spans_share_the_profilers_clock_on_card(tmp_path):
         torch.cuda.synchronize()
     events = _events(prof, tmp_path / "t.json")
     tv = _tv(events)
-    assert _wraps_hold_one_launch(tv) == ["fullstep"] * 3
-    launches = [e for e in tv if e["name"] == "tv.launch.fullstep"]
-    assert len(launches) == 3
+    # the pair replayed from the graph, the odd third step through the wrapper
+    assert _wraps_hold_one_launch(tv) == ["fullstep"]
+    launches = [e for e in tv if e["name"].startswith("tv.launch.")]
+    assert [e["name"] for e in launches] == ["tv.launch.fullstep_graph", "tv.launch.fullstep"]
     calls = _launch_calls(events)
     kernels = [e for e in events if e.get("cat") == "kernel" and "fullstep" in e["name"]]
     assert len(kernels) == 3

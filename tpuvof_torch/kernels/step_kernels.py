@@ -40,7 +40,8 @@ laid out by its library (``scratch_cells``).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it and
 counts nothing. Given CUDA tensors it checks them, allocates its outputs
-and scratch with ``torch.empty``, launches its kernel on the current
+and scratch with ``torch.empty`` (``fullstep`` also takes them from its
+caller, checked like its inputs), launches its kernel on the current
 stream without synchronising, adds one to its entry of ``LAUNCHES``, and
 raises if the launch is refused; it never falls back to the plain version.
 Under a profiler, its CUDA branch is the span ``tv.wrap.<name>`` and its
@@ -414,28 +415,77 @@ def scratch_cells(entry: str, shape, dtype) -> int:
     return int(getattr(load_library(), "tv_fullstep_dma_scratch" + suffix)(e0, e1))
 
 
-def _fullstep_call(entry, cfg, F, u, v, p, shape, oi, oj, even_step):
+def _extent(t: torch.Tensor) -> tuple[int, int]:
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _check_buffers(name: str, ins, out, scratch, cells: int) -> None:
+    """Validate a caller's outputs and scratch for a whole-step launch on
+    ``ins``: four outputs of the inputs' shape, dtype and device, a
+    scratch of at least ``cells`` cells of their dtype on their device,
+    all contiguous, and no output or scratch sharing memory with an input
+    or with another of them."""
+    ref = ins[0]
+    if len(out) != 4:
+        raise ValueError(f"{name}: out holds {len(out)} tensors, not 4 (F, u, v, p)")
+    for t in (*out, scratch):
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(f"{name}: out and scratch must share the inputs' device and dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: out and scratch must be contiguous")
+    for t in out:
+        if t.shape != ref.shape:
+            raise ValueError(f"{name}: out shape {tuple(t.shape)} != {tuple(ref.shape)}")
+    if scratch.numel() < cells:
+        raise ValueError(f"{name}: scratch holds {scratch.numel()} cells, not {cells}")
+    written = [_extent(t) for t in (*out, scratch)]
+    others = [_extent(t) for t in ins]
+    for k, (a, b) in enumerate(written):
+        if any(a < d and c < b for c, d in others + written[k + 1:]):
+            raise ValueError(f"{name}: out and scratch may not share memory with the "
+                             "inputs or with each other")
+
+
+def _fullstep_call(entry, cfg, F, u, v, p, shape, oi, oj, even_step, out=None,
+                   scratch=None):
     lib, fn, stream = _checked(entry, shape, F, u, v, p)
     g, nm = cfg.grid, cfg.num
-    outs = [torch.empty_like(F) for _ in range(4)]
-    scratch = torch.empty(scratch_cells(entry, shape, F.dtype), dtype=F.dtype,
-                          device=F.device)
+    cells = scratch_cells(entry, shape, F.dtype)
+    if out is None:
+        out = [torch.empty_like(F) for _ in range(4)]
+        scratch = torch.empty(cells, dtype=F.dtype, device=F.device)
+    else:
+        _check_buffers(entry, (F, u, v, p), out, scratch, cells)
     ins = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in (F, u, v, p)))
-    out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in outs))
+    out_ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in out))
     c_args = (ins, out_ptrs, scratch.data_ptr(), *shape, oi, oj, g.nx, g.ny, nm.n_jacobi,
               int(bool(even_step)), _predict_constants(cfg), _project_constants(cfg),
               _sweep_args(cfg, 0), _sweep_args(cfg, 1), int(nm.fct.full_dv),
               int(nm.fct.clamp), stream)
-    return lib, fn, c_args, tuple(outs), 1
+    return lib, fn, c_args, tuple(out), 1
 
 
-def fullstep(cfg: SimConfig, F, u, v, p, even_step: bool):
+def fullstep(cfg: SimConfig, F, u, v, p, even_step: bool, out=None, scratch=None):
     """(F, u, v, p) after one lean step as one kernel launch; counterpart
-    of tpuvof's pallas_fullstep."""
+    of tpuvof's pallas_fullstep. ``out`` (four tensors like F) and
+    ``scratch`` (at least ``scratch_cells('fullstep', F.shape, F.dtype)``
+    cells), given together, are used in place of new allocations, so that
+    the launch allocates nothing (a CUDA graph's capture); the outputs are
+    then ``out``. Neither may share memory with the inputs."""
+    if (out is None) != (scratch is None):
+        raise ValueError("fullstep: give out and scratch together, or neither")
     if _on_cpu(F):
-        return fullstep_plain(cfg, F, u, v, p, even_step)
+        res = fullstep_plain(cfg, F, u, v, p, even_step)
+        if out is None:
+            return res
+        _check_buffers("fullstep", (F, u, v, p), out, scratch,
+                       scratch_cells("fullstep", F.shape, F.dtype))
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     return _launch(LAUNCHES, "fullstep", _fullstep_call,
-                   ("fullstep", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step))
+                   ("fullstep", cfg, F, u, v, p, cfg.grid.shape, 0, 0, even_step, out, scratch))
 
 
 def fullstep_win(cfg: SimConfig, F, u, v, p, oi: int, oj: int, even_step: bool):

@@ -8,7 +8,9 @@ Step order (identical to the reference):
 The reference increments istep before the step body, so the first step
 runs the odd branch (x then y). ``simulate`` applies the BCs once at entry
 and then runs lean steps (see ``step``), in a Python loop that makes no
-host synchronisation on the fixed-Jacobi routes.
+host synchronisation on the fixed-Jacobi routes; on 'cuda_mono' on a card
+the loop replays a CUDA graph of a step pair instead, so that the host's
+cost of a launch is paid once a call and not once a step.
 
 Routes (``effective_backend``), each tpuvof's namesake:
   'torch'        plain ops (tpuvof's 'xla'), every pressure solver;
@@ -27,7 +29,9 @@ kernel wrappers run their plain versions.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +53,8 @@ from .state import State
 from .utils.profiling import span
 
 __all__ = ["step", "step_pair", "simulate", "simulate_cfl", "make_step_fn",
-           "effective_backend", "resolve_auto", "CFL_LIMIT"]
+           "effective_backend", "resolve_auto", "mono_graph_plan", "MonoPlan",
+           "MONO_GRAPH", "CFL_LIMIT"]
 
 _BACKENDS = ("torch", "cuda", "cuda_mono", "cuda_tiled", "cuda_strips")
 _SOLVERS = ("jacobi", "rbsor", "mg", "auto")
@@ -295,19 +300,157 @@ def step_pair(cfg: SimConfig, state: State, lean: bool = False) -> State:
     return step(cfg, state, even_step=True, lean=lean)
 
 
+#: How often ``simulate``'s 'cuda_mono' loop on a card ran from a CUDA
+#: graph, over the process: graphs captured, steps replayed from one, and
+#: steps launched one by one (a graph's first pair, odd tails, and every
+#: step where no graph is used: one step, or a caller's own capture).
+#: Never reset.
+MONO_GRAPH = {"captures": 0, "graph_steps": 0, "eager_steps": 0}
+
+#: Entries of the mono graphs' cache; the least recently used goes first.
+_MONO_GRAPHS_KEPT = 4
+
+
+class MonoPlan(NamedTuple):
+    """``pairs`` step pairs of parities (``even``, not ``even``), then, for
+    an odd count, one step of parity ``tail`` (None for an even count)."""
+
+    pairs: int
+    even: bool
+    tail: bool | None
+
+
+def mono_graph_plan(route: str, device: torch.device, n_steps: int, capturing: bool,
+                    even1: bool) -> MonoPlan | None:
+    """How ``simulate`` runs ``n_steps`` steps whose first has parity
+    ``even1``: from a CUDA graph of a step pair on the 'cuda_mono' route
+    with a state on a card, at least two steps and no stream capture of
+    the caller's in progress; None where it runs them one by one."""
+    if route != "cuda_mono" or device.type != "cuda" or n_steps < 2 or capturing:
+        return None
+    return MonoPlan(n_steps // 2, even1, even1 if n_steps % 2 else None)
+
+
+class _MonoGraph:
+    """Two resident states ``a`` and ``b`` of one grid, dtype and card, the
+    step's scratch, and a CUDA graph of the step pair fullstep(a -> b,
+    even), fullstep(b -> a, not even): each replay advances ``a`` by two
+    steps in place. ``done`` marks the end of the last call's use of
+    them."""
+
+    def __init__(self, cfg: SimConfig, dtype: torch.dtype, device: torch.device, even: bool):
+        self.cfg, self.even = cfg, even
+        shape = cfg.grid.shape
+        self.a = State(*(torch.empty(shape, dtype=dtype, device=device) for _ in range(4)))
+        self.b = State(*(torch.empty(shape, dtype=dtype, device=device) for _ in range(4)))
+        self.scratch = torch.empty(K.scratch_cells("fullstep", shape, dtype), dtype=dtype,
+                                   device=device)
+        self.graph = None
+        self.done = torch.cuda.Event()
+
+    def load(self, state: State) -> None:
+        """``a`` = the entry state with the BCs applied, once the last
+        call's work on the buffers is done."""
+        ref = self.a.F
+        for t in state:
+            if t.shape != ref.shape or t.dtype != ref.dtype or t.device != ref.device:
+                raise ValueError(f"simulate: the state's fields must be {tuple(ref.shape)} "
+                                 f"{ref.dtype} tensors on {ref.device}")
+        torch.cuda.current_stream().wait_event(self.done)
+        a = self.a
+        with span("tv.bc"):
+            for dst, src in zip(a, state):
+                dst.copy_(src)
+            apply_bc_(a.u, a.v, a.F, a.p)
+
+    def pair(self) -> None:
+        K.fullstep(self.cfg, *self.a, self.even, out=self.b, scratch=self.scratch)
+        K.fullstep(self.cfg, *self.b, not self.even, out=self.a, scratch=self.scratch)
+
+    def capture(self) -> None:
+        """Run the pair once (the kernel's module loads under lazy
+        loading), then capture it on a side stream; the capture runs and
+        counts no kernel."""
+        self.pair()
+        launched = K.LAUNCHES["fullstep"]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.a.F.device)):
+                self.pair()
+        finally:
+            K.LAUNCHES["fullstep"] = launched
+        self.graph = graph
+
+
+_MONO_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+def _simulate_mono_graph(cfg: SimConfig, state: State, plan: MonoPlan) -> State:
+    """``simulate``'s loop by ``plan``: the entry state, BCs applied, goes
+    into the cached state ``a`` of (cfg, dtype, card, parity), a key's
+    first pair runs before its capture, every other pair is one replay,
+    an odd tail one launch, and the result comes back in new tensors."""
+    dev = state.F.device
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"simulate: state on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    key = (cfg, state.F.dtype, dev.index, plan.even)
+    entry = _MONO_GRAPHS.pop(key, None)
+    if entry is None:
+        with span("tv.wrap.fullstep_graph"):
+            entry = _MonoGraph(cfg, state.F.dtype, dev, plan.even)
+    entry.load(state)
+    replays = plan.pairs
+    if entry.graph is None:
+        with span("tv.wrap.fullstep_graph"):
+            entry.capture()
+        MONO_GRAPH["captures"] += 1
+        MONO_GRAPH["eager_steps"] += 2
+        replays -= 1
+    _MONO_GRAPHS[key] = entry
+    while len(_MONO_GRAPHS) > _MONO_GRAPHS_KEPT:
+        _MONO_GRAPHS.popitem(last=False)
+    if replays:
+        with span("tv.launch.fullstep_graph"):
+            for _ in range(replays):
+                entry.graph.replay()
+        K.LAUNCHES["fullstep"] += 2 * replays
+        MONO_GRAPH["graph_steps"] += 2 * replays
+    a = entry.a
+    if plan.tail is None:
+        out = State(*(t.clone() for t in a))
+    else:
+        out = State(*K.fullstep(cfg, *a, plan.tail))
+        MONO_GRAPH["eager_steps"] += 1
+    entry.done.record()
+    return out
+
+
 def simulate(cfg: SimConfig, state: State, n_steps: int, istep0: int = 0) -> State:
     """Advance ``n_steps`` steps: BCs once at entry, then lean steps.
 
     ``istep0`` is the global index of the last step already taken; chunked
     callers must pass it so the sweep-order parity continues as the
-    reference's continuous istep counter does."""
+    reference's continuous istep counter does. On 'cuda_mono' with a state
+    on a card, two steps or more outside a caller's stream capture replay
+    a cached CUDA graph of a step pair (``mono_graph_plan``), the same
+    launches with the same arguments as the step loop; ``MONO_GRAPH``
+    counts the steps each way."""
     with span("tv.simulate"):
         cfg = resolve_auto(cfg)
         route = effective_backend(cfg)
-        state = _with_bc(state)
         even1 = (istep0 + 1) % 2 == 0  # parity of the first step taken here
+        dev = state.F.device
+        plan = mono_graph_plan(route, dev, n_steps,
+                               dev.type == "cuda" and torch.cuda.is_current_stream_capturing(),
+                               even1)
+        if plan is not None:
+            return _simulate_mono_graph(cfg, state, plan)
+        state = _with_bc(state)
         if route == "cuda_strips":
             return _simulate_strips(cfg, state, n_steps, even1)
+        if route == "cuda_mono" and dev.type == "cuda":
+            MONO_GRAPH["eager_steps"] += n_steps
         for k in range(n_steps):
             state = step(cfg, state, even_step=even1 if k % 2 == 0 else not even1, lean=True)
         return state
