@@ -16,6 +16,10 @@ port's Decomp and --three-d --mesh its Decomp3D: --backend torch on any
 mesh whose sizes divide the grid, a 'cuda*' backend on the kernel engines
 (or the hybrid with --pressure-solver rbsor/mg/auto), which exit 2 on a
 mesh too fine for their halo where tpuvof falls back to its XLA engine.
+--three-d --mesh keeps the shards resident on their cards from the first
+step to the last: each card makes its own initial block, and each frame's
+mass and range line comes from per-card reductions; only a VTK frame or a
+checkpoint gathers the whole grid, to the host.
 --plan-mesh N ranks the mesh shapes with the port's planner.
 
 Usage examples:
@@ -25,6 +29,7 @@ Usage examples:
   python -m tpuvof_torch --three-d --nx 200 --steps 1000
   python -m tpuvof_torch --device cpu --backend torch --nx 64 --steps 200
   python -m tpuvof_torch --mesh 2,2 --nx 512 --steps 1000 --backend cuda_mono
+  python -m tpuvof_torch --three-d --nx 1152 --mesh 2,2 --no-frames --steps 2000
   python -m tpuvof_torch --plan-mesh 8 --nx 1024
 """
 from __future__ import annotations
@@ -97,7 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cycle-views", action="store_true",
                    help="advance the view mode every frame (like SPACE in the reference GUI)")
     p.add_argument("--outdir", default="output")
-    p.add_argument("--no-frames", action="store_true", help="metrics only, no PNGs")
+    p.add_argument("--no-frames", action="store_true",
+                   help="metrics only, no PNGs (with --three-d: no VTK volumes; "
+                        "with --three-d --mesh a VTK frame gathers the whole F "
+                        "to the host, 6 GB at 1152^3)")
     p.add_argument("--gif", action="store_true",
                    help="assemble the run's frames into <outdir>/movie.gif "
                         "(replaces the reference's `ti video`/`ti gif` step)")
@@ -155,8 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None, metavar="PX,PY",
                    help="run domain-decomposed over a PXxPY mesh of cards, "
                         "cuda:0 onwards (with --three-d: PX x slabs or PXxPY "
-                        "pencils); the grid must divide evenly. On --device "
-                        "cpu the shards share the CPU")
+                        "pencils, resident on their cards: a VTK frame or a "
+                        "checkpoint gathers the whole grid to the host); the "
+                        "grid must divide evenly. On --device cpu the shards "
+                        "share the CPU")
     p.add_argument("--plan-mesh", type=int, default=0, metavar="N",
                    dest="plan_mesh",
                    help="print the ranked (PX, PY) mesh shapes for this "
@@ -326,24 +336,22 @@ def _mesh_3d(args):
 
 def run_3d(args) -> int:
     from .grid import Grid3D
-    from .io_utils import write_vtk
-    from .solver3d import simulate_3d
-    from .state import init_state_3d
 
     n = args.nx
     g = Grid3D(n, n, n)
     istep0 = 0
+    state = None
     if args.resume:
         from .io_utils import load_checkpoint_3d
 
-        state, istep0, _ = load_checkpoint_3d(args.resume, device=args.device)
+        # a mesh run scatters the checkpoint from the host
+        state, istep0, _ = load_checkpoint_3d(args.resume,
+                                              device="cpu" if args.mesh else args.device)
         if tuple(state.F.shape) != g.shape:
             print(f"error: checkpoint grid {tuple(state.F.shape)} != requested "
                   f"{g.shape}", file=sys.stderr)
             return 2
         print(f">>> resumed from {args.resume} at step {istep0}")
-    else:
-        state = init_state_3d(g, ic=args.ic, device=args.device)
     backend = "torch" if args.backend == "torch" else "cuda"
     dec = None
     if args.mesh:
@@ -360,48 +368,87 @@ def run_3d(args) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+    elif state is None:
+        from .state import init_state_3d
+
+        state = init_state_3d(g, ic=args.ic, device=args.device)
     os.makedirs(args.outdir, exist_ok=True)
     print(f">>> 3-D VOF dam break: {n}^3, dt = {args.dt:4.2e}, "
           f"{args.steps} steps, VTK every {args.frame_every}"
           + (f", decomposed {dec.px}x{dec.py} over {dec.px * dec.py} "
              "devices" if dec else ""))
     t0 = time.time()
-    done = istep0
-    target = istep0 + args.steps
     with _profile_ctx(args):
-        while done < target:
-            k = min(args.frame_every, target - done)
-            if dec is not None:
-                state = dec.simulate(state, k, istep0=done)
-            else:
-                # istep0 keeps the reference's continuous istep % 3 sweep
-                # rotation across frame chunks (and across --resume)
-                state = simulate_3d(g, state, k, args.dt, args.jacobi,
-                                    backend=backend, istep0=done,
-                                    pressure_solver=args.pressure_solver,
-                                    sor_tol=args.sor_tol,
-                                    sor_tol_rel=args.sor_tol_rel,
-                                    csf=args.csf)
-            done += k
-            F = state.F.cpu().numpy()
-            print(f">>> Exporting step-{done:05d} result... "
-                  f"mass={F[1:-1,1:-1,1:-1].sum():.1f} "
-                  f"range=[{F.min():.3f},{F.max():.3f}]")
-            if not args.no_frames:
-                write_vtk(os.path.join(args.outdir, f"step-{done:05d}"),
-                          {"VOF": F})
-            if args.checkpoint_every and done % args.checkpoint_every == 0:
-                from .io_utils import save_checkpoint_3d
-
-                path = os.path.join(args.outdir, f"ckpt_{done:06d}.npz")
-                save_checkpoint_3d(path, g, state, done)
-                print(f">>> checkpoint saved: {path}")
+        if dec is None:
+            _frames_3d(args, g, state, istep0, backend)
+        else:
+            _frames_3d_mesh(args, g, dec, state, istep0)
     if args.profile_dir:
         print(f">>> profiler trace written to {args.profile_dir}")
     wall = time.time() - t0
     print(f">>> {args.steps} steps in {wall:.2f}s "
           f"({n**3 * args.steps / wall:.3e} cell-updates/s)")
     return 0
+
+
+def _export_line(done: int, mass: float, fmin: float, fmax: float) -> str:
+    return (f">>> Exporting step-{done:05d} result... "
+            f"mass={mass:.1f} range=[{fmin:.3f},{fmax:.3f}]")
+
+
+def _frames_3d(args, g, state, done: int, backend: str) -> None:
+    """The serial 3-D frame loop: simulate_3d a frame at a time, F read
+    back for its line and VTK volume, the checkpoints."""
+    from .io_utils import save_checkpoint_3d, write_vtk
+    from .solver3d import simulate_3d
+
+    target = done + args.steps
+    while done < target:
+        k = min(args.frame_every, target - done)
+        # istep0 keeps the reference's continuous istep % 3 sweep
+        # rotation across frame chunks (and across --resume)
+        state = simulate_3d(g, state, k, args.dt, args.jacobi, backend=backend,
+                            istep0=done, pressure_solver=args.pressure_solver,
+                            sor_tol=args.sor_tol, sor_tol_rel=args.sor_tol_rel, csf=args.csf)
+        done += k
+        F = state.F.cpu().numpy()
+        print(_export_line(done, F[1:-1, 1:-1, 1:-1].sum(), F.min(), F.max()))
+        if not args.no_frames:
+            write_vtk(os.path.join(args.outdir, f"step-{done:05d}"), {"VOF": F})
+        if args.checkpoint_every and done % args.checkpoint_every == 0:
+            path = os.path.join(args.outdir, f"ckpt_{done:06d}.npz")
+            save_checkpoint_3d(path, g, state, done)
+            print(f">>> checkpoint saved: {path}")
+
+
+def _frames_3d_mesh(args, g, dec, state, done: int) -> None:
+    """The mesh's 3-D frame loop on resident shards: each card makes its
+    own initial block (or takes its part of a resumed state), the blocks
+    are widened once and advanced a frame at a time; the line comes from
+    per-card reductions (mass summed in float64), and the whole grid is
+    gathered to the host only for a VTK frame or a checkpoint."""
+    from .io_utils import save_checkpoint_3d, write_vtk
+
+    blocks = dec.start(dec.init_shards(args.ic) if state is None else dec.scatter_state(state))
+    del state
+    target = done + args.steps
+    while done < target:
+        k = min(args.frame_every, target - done)
+        blocks = dec.advance(blocks, k, istep0=done)
+        done += k
+        print(_export_line(done, *dec.line(blocks)))
+        vtk = not args.no_frames
+        ckpt = bool(args.checkpoint_every) and done % args.checkpoint_every == 0
+        if vtk or ckpt:
+            whole = dec.finish(blocks, device="cpu")
+            if vtk:
+                write_vtk(os.path.join(args.outdir, f"step-{done:05d}"),
+                          {"VOF": whole.F.numpy()})
+            if ckpt:
+                path = os.path.join(args.outdir, f"ckpt_{done:06d}.npz")
+                save_checkpoint_3d(path, g, whole, done)
+                print(f">>> checkpoint saved: {path}")
+            del whole
 
 
 def run_optimize(args) -> int:

@@ -52,6 +52,20 @@ The CPU tests cannot show this ordering: they run on one device.
 
 Where tpuvof falls back from its Pallas engine to its XLA engine with a
 warning, the port raises: no fallback trades the kernels for plain ops.
+
+Resident driving (the CLI's ``--three-d --mesh``): ``init_shards`` makes
+each shard's initial block on its own device from the global coordinates
+of its planes and rows, ``start`` turns the shards into the engine's
+blocks in place, ``advance`` steps them a frame at a time, ``line`` reduces
+the frame's mass and range on each device, and ``finish`` narrows and
+gathers the whole grid only where a caller needs it. No whole-grid tensor
+is made on the way. ``simulate`` (a whole state in and out) is that path
+with a scatter at entry and a gather at exit.
+
+Tracing (utils.profiling.span): ``tv.simulate`` around ``advance``,
+``tv.halo`` around each halo refresh, ``tv.shard_line`` around ``line``;
+``HALO`` counts the refreshes, the steps and the halo copies over the
+process.
 """
 from __future__ import annotations
 
@@ -69,12 +83,24 @@ from ..ops.mg import _red_mask, mg_levels
 from ..ops.momentum3d import predict_velocity_3d, update_velocity_3d
 from ..ops.normals3d import curvature_from_normals_3d, young_normals_3d
 from ..ops.poisson import jacobi_blocks, poisson_coefficients_3d, rbsor_blocks, rhs_3d
-from ..state import State3D
+from ..state import State3D, init_block_3d
+from ..utils.profiling import span
 from . import mg as pmg
-from .halo import exchange, refresh_, widen
+from .halo import refresh_, widen
 from .mesh import Mesh, on_device
 
-__all__ = ["Decomp3D", "admission_3d"]
+__all__ = ["Decomp3D", "admission_3d", "HALO"]
+
+#: Halo traffic of every Decomp3D over the process, never reset:
+#: ``refreshes`` (calls of the in-place refresh: one a wide-halo step, one
+#: a ghost exchange of the BCs), ``steps`` (steps taken by ``step``),
+#: ``copies`` and ``peer_copies`` (the refreshes' and exchanges'
+#: ``Tensor.copy_`` calls, and those between two devices), ``bytes``
+#: (what they copied).
+HALO = {"refreshes": 0, "steps": 0, "copies": 0, "peer_copies": 0, "bytes": 0}
+
+#: Planes of F a float64 partial sum of ``Decomp3D.line`` covers.
+_LINE_CHUNK = 64
 
 
 def admission_3d(g: Grid3D, px: int, py: int, n_jacobi: int = 10,
@@ -147,10 +173,13 @@ class Decomp3D:
     ``backend='torch'`` runs it.
 
     ``simulate`` takes and returns a whole-grid State3D. Its stages are
-    public for callers that keep the shards resident: ``scatter_state``,
-    ``widen`` (the engine's entry layout), ``advance`` (the steps),
-    ``narrow`` (back to the ring layout) and ``gather_state``. Shards are
-    lists in ``coords`` order, (xi, yi) row-major."""
+    public for callers that keep the shards resident: ``scatter_state``
+    (or ``init_shards``, the initial condition made shard by shard),
+    ``widen`` (the engine's entry layout; ``start`` does it in place),
+    ``advance`` (the steps), ``line`` (the frame's mass and range from
+    per-shard reductions), ``narrow`` (back to the ring layout) and
+    ``gather_state`` (``finish`` does both). Shards are lists in
+    ``coords`` order, (xi, yi) row-major."""
 
     def __init__(self, g: Grid3D, mesh: Mesh, fl: Fluid | None = None, dt: float = 4e-6,
                  n_jacobi: int = 10, backend: str = "cuda", pencil: bool = False,
@@ -220,6 +249,16 @@ class Decomp3D:
                                  .to(dev, copy=True).contiguous() for a in state)))
         return out
 
+    def init_shards(self, ic: int = 1, dtype: torch.dtype = torch.float32) -> list[State3D]:
+        """``scatter_state(init_state_3d(g, ic))`` without the whole grid:
+        each shard's block (owned cells and one ghost layer) made on its
+        device from its planes' and rows' global coordinates
+        (state.init_block_3d)."""
+        return [init_block_3d(self.g, ic, ((xi * self.nxl, xi * self.nxl + self.nxl + 2),
+                                           (yi * self.nyl, yi * self.nyl + self.nyl + 2)),
+                              dev, dtype)
+                for (xi, yi), dev in zip(self.coords, self.devices)]
+
     def gather_state(self, shards: list[State3D], device=None) -> State3D:
         """The whole-grid state (on ``device``, default the first shard's)
         from the shards' owned cells, its ghosts rebuilt by the BCs."""
@@ -238,7 +277,7 @@ class Decomp3D:
     # ---- halos, exchanges and the masked wall BCs ----
     def _exchange_(self, arrs: list) -> None:
         """The one-layer ghost exchange of one field's ring-layout tensors."""
-        exchange(arrs, self.px, self.py)
+        refresh_(arrs, self.px, self.py, counts=HALO)
 
     def _refresh(self, shards: list[State3D], W: int, Wy: int) -> None:
         """On every field of the shards, the (W+1) outermost planes on each
@@ -246,8 +285,10 @@ class Decomp3D:
         rows on each y side over the full x extent (tpuvof's _refresh_halo;
         with W = Wy = 0 its one-layer _exchange); edge shards keep what lies
         beyond their walls (halo.refresh_)."""
-        for f in range(5):
-            refresh_([s[f] for s in shards], self.px, self.py, (W, Wy))
+        HALO["refreshes"] += 1
+        with span("tv.halo"):
+            for f in range(5):
+                refresh_([s[f] for s in shards], self.px, self.py, (W, Wy), counts=HALO)
 
     def _bc_(self, shards: list[State3D]) -> None:
         """The walls in place on the shards that own them (y faces, then x,
@@ -291,13 +332,54 @@ class Decomp3D:
         (tpuvof's XLA engine applies no entry BC). 'cuda': the BCs and the
         ghost exchange, then the resident extended blocks, (nloc+2, nyE+2,
         nz+2) each."""
-        shards = [State3D(*(a.clone() for a in s)) for s in shards]
+        return self.start([State3D(*(a.clone() for a in s)) for s in shards])
+
+    def start(self, shards: list[State3D]) -> list[State3D]:
+        """``widen`` on the shards themselves: their BCs and ghosts are
+        written in place, and on 'cuda' the blocks replace them (drop the
+        shards to free their memory), so a device holds at most two
+        layouts of its shard at once."""
         if self.backend == "torch":
             return shards
         self._bc_(shards)
         if self.pencil:
             shards = self._widen(shards, 1, self.Wy)
         return self._widen(shards, 0, self.W)
+
+    @property
+    def owned(self) -> tuple[slice, slice, slice]:
+        """The index of the owned cells in the engine's blocks (W = Wy = 0:
+        in a shard's ring layout)."""
+        return (slice(self.W + 1, self.W + 1 + self.nxl),
+                slice(self.Wy + 1, self.Wy + 1 + self.nyl), slice(1, self.g.nz + 1))
+
+    def line(self, blocks: list[State3D]) -> tuple[float, float, float]:
+        """The frame line's numbers from per-shard reductions of F over the
+        owned cells: (liquid mass, min F, max F). The mass is summed in
+        float64 on each device, _LINE_CHUNK planes at a time, and the
+        shards' sums are added on the host in shard order. F's ghosts mirror
+        owned cells, so the owned range is the whole field's."""
+        sx, sy, sz = self.owned
+        chunk = _LINE_CHUNK
+        with span("tv.shard_line"):
+            parts = []
+            for k, b in enumerate(blocks):
+                with on_device(self.devices[k]):
+                    F = b.F[:, sy, sz]
+                    mass = torch.zeros((), dtype=torch.float64, device=F.device)
+                    for i in range(sx.start, sx.stop, chunk):
+                        mass += F[i:min(i + chunk, sx.stop)].sum(dtype=torch.float64)
+                    lo, hi = torch.aminmax(F[sx])
+                    parts.append(torch.stack((mass, lo.double(), hi.double())))
+            host = [t.cpu() for t in parts]
+        return (sum(float(t[0]) for t in host), min(float(t[1]) for t in host),
+                max(float(t[2]) for t in host))
+
+    def finish(self, blocks: list[State3D], device=None) -> State3D:
+        """``gather_state(narrow(blocks), device)``: the whole grid, for a
+        caller that needs it (a VTK frame, a checkpoint); ``device="cpu"``
+        keeps it off the cards."""
+        return self.gather_state(self.narrow(blocks), device=device)
 
     def narrow(self, blocks: list[State3D]) -> list[State3D]:
         """Exit: on 'cuda', each block's centre (owned cells and one ghost
@@ -317,6 +399,7 @@ class Decomp3D:
         shard's kernels (tpuvof's _local_step_pallas), or the hybrid
         (_local_step_hybrid). Returns new blocks; the refresh and the BCs
         write into the given ones."""
+        HALO["steps"] += 1
         if self.backend == "torch":
             return self._step_torch(blocks, phase)
         self._refresh(blocks, self.W, self.Wy)
@@ -377,7 +460,7 @@ class Decomp3D:
             pj = torch.zeros_like(b.p)
             pj[sx, sy] = p
             pjs.append(pj)
-        refresh_(pjs, self.px, self.py, (W, Wy))
+        refresh_(pjs, self.px, self.py, (W, Wy), counts=HALO)
         out = []
         for k, b in enumerate(blocks):
             with on_device(self.devices[k]):
@@ -527,12 +610,13 @@ class Decomp3D:
         global step already taken, so the istep % 3 rotation continues
         across chunked calls (first step phase (istep0 + 1) % 3)."""
         ph1 = (istep0 % 3 + 1) % 3
-        for s in range(n_steps):
-            blocks = self.step(blocks, (ph1 + s) % 3)
+        with span("tv.simulate"):
+            for s in range(n_steps):
+                blocks = self.step(blocks, (ph1 + s) % 3)
         return blocks
 
     def simulate(self, state: State3D, n_steps: int, istep0: int = 0) -> State3D:
         """Advance a whole-grid state ``n_steps`` through the mesh; the
         result lies on the state's device."""
-        blocks = self.advance(self.widen(self.scatter_state(state)), n_steps, istep0)
-        return self.gather_state(self.narrow(blocks), device=state.F.device)
+        blocks = self.advance(self.start(self.scatter_state(state)), n_steps, istep0)
+        return self.finish(blocks, device=state.F.device)

@@ -52,14 +52,17 @@ class HaloSpec:
         return self.yi == self.py - 1
 
 
-def refresh_(arrs: list, px: int, py: int, widths=(0, 0), off: int = 0) -> list:
+def refresh_(arrs: list, px: int, py: int, widths=(0, 0), off: int = 0,
+             counts: dict | None = None) -> list:
     """Overwrite, in place, the w+1 outermost planes on each side of each
     shard's block (w = widths[axis], counted from ``off``, the layout's
     unused margin) with the neighbour's owned planes; x stage, then y.
     Along an axis a block holds off, w planes of halo, one ghost plane,
     the owned planes, one ghost plane, w planes of halo and off. With w = 0
     this is the one-cell ghost exchange (``exchange``). The neighbour's
-    planes must be owned ones: w + 1 <= the owned extent. Returns arrs."""
+    planes must be owned ones: w + 1 <= the owned extent. ``counts``, where
+    given, gains each copy: ``copies``, ``peer_copies`` (between two
+    devices) and ``bytes``. Returns arrs."""
     for axis, count, step in ((0, px, py), (1, py, 1)):
         if count == 1:
             continue
@@ -68,12 +71,20 @@ def refresh_(arrs: list, px: int, py: int, widths=(0, 0), off: int = 0) -> list:
         for k, dst in enumerate(arrs):
             pos = (k // py, k % py)[axis]
             if pos > 0:
-                dst.narrow(axis, off, w + 1).copy_(
-                    arrs[k - step].narrow(axis, off + n, w + 1), non_blocking=True)
+                _copy(dst.narrow(axis, off, w + 1),
+                      arrs[k - step].narrow(axis, off + n, w + 1), counts)
             if pos < count - 1:
-                dst.narrow(axis, off + w + n + 1, w + 1).copy_(
-                    arrs[k + step].narrow(axis, off + w + 1, w + 1), non_blocking=True)
+                _copy(dst.narrow(axis, off + w + n + 1, w + 1),
+                      arrs[k + step].narrow(axis, off + w + 1, w + 1), counts)
     return arrs
+
+
+def _copy(dst, src, counts: dict | None) -> None:
+    dst.copy_(src, non_blocking=True)
+    if counts is not None:
+        counts["copies"] += 1
+        counts["peer_copies"] += dst.device != src.device
+        counts["bytes"] += src.numel() * src.element_size()
 
 
 def exchange(arrs: list, px: int, py: int) -> list:

@@ -16,7 +16,8 @@ from .config import SimConfig
 from .grid import Grid2D, Grid3D
 
 __all__ = ["State", "State3D", "init_state", "initial_volume_fraction", "find_area",
-           "find_area_3d", "initial_volume_fraction_3d", "init_state_3d"]
+           "find_area_3d", "dam_break_axes_3d", "initial_volume_fraction_3d", "init_state_3d",
+           "init_block_3d"]
 
 
 class State(NamedTuple):
@@ -113,16 +114,18 @@ def init_state(cfg: SimConfig, ic: int = 1, device="cuda",
     )
 
 
-def find_area_3d(g: Grid3D, cx: float, cy: float, cz: float, r: float) -> np.ndarray:
+def find_area_3d(g: Grid3D, cx: float, cy: float, cz: float, r: float,
+                 window=None) -> np.ndarray:
     """Smoothed per-cell liquid fraction of the complement of a sphere, the
     3-D extension of ``find_area``: cells with all eight corners outside
     get 1.0, fully inside 0.0, mixed cells 0.5 + 0.5*(dist_center -
     r)/(sqrt(3)*dx) clipped to [0, 1]. float32 on the host; (nx+2, ny+2,
-    nz+2)."""
+    nz+2), or the ``window`` of it (see ``initial_volume_fraction_3d``)."""
     dx = np.float32(g.dx)
     g2 = g.as_2d()
-    xc = g2.center_x()[:, None, None]
-    yc = g2.center_y()[None, :, None]
+    (i0, i1), (j0, j1) = window or ((0, g.nx + 2), (0, g.ny + 2))
+    xc = g2.center_x()[i0:i1, None, None]
+    yc = g2.center_y()[None, j0:j1, None]
     k = np.arange(g.nz + 2, dtype=np.float32)
     zc = (((k - 1.0) * np.float32(g.dz) + np.float32(g.dz) / 2)
           .astype(np.float32))[None, None, :]
@@ -152,27 +155,38 @@ def find_area_3d(g: Grid3D, cx: float, cy: float, cz: float, r: float) -> np.nda
     return out.astype(np.float32)
 
 
-def initial_volume_fraction_3d(g: Grid3D, ic: int) -> np.ndarray:
+def dam_break_axes_3d(g: Grid3D, window=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The 3-D dam break's liquid test along each axis, at node coordinates
+    (x in [0, Lx/3], y in [0, Ly/2], z in [0, Lz/3]): three boolean
+    vectors whose outer AND is the block, over the ``window`` of planes
+    and rows (see ``initial_volume_fraction_3d``)."""
+    (i0, i1), (j0, j1) = window or ((0, g.nx + 2), (0, g.ny + 2))
+    xn, yn, zn = g.node_x()[i0:i1], g.node_y()[j0:j1], g.node_z()
+    return ((xn >= 0.0) & (xn <= g.Lx / 3), (yn >= 0.0) & (yn <= g.Ly / 2),
+            (zn >= 0.0) & (zn <= g.Lz / 3))
+
+
+def initial_volume_fraction_3d(g: Grid3D, ic: int, window=None) -> np.ndarray:
     """3-D initial conditions: ic=1 the reference's dam-break block (x in
     [0, Lx/3], y in [0, Ly/2], z in [0, Lz/3], tested against node
     coordinates); ic=2 a gas bubble of radius Lx/12 at (Lx/2, 2r, Lz/2);
     ic=3 a liquid drop at (Lx/2, Ly - 3r, Lz/2) above a pool filling
-    y < 0.37*Ly."""
+    y < 0.37*Ly. ``window`` ((i0, i1), (j0, j1)) gives only those planes
+    and rows of the ghosted grid, every z: the same values as the slice
+    of the whole field, computed from the window's coordinates alone."""
     if ic == 1:
-        xn = g.node_x()[:, None, None]
-        yn = g.node_y()[None, :, None]
-        zn = g.node_z()[None, None, :]
-        cond = ((xn >= 0.0) & (xn <= g.Lx / 3) & (yn >= 0.0) & (yn <= g.Ly / 2)
-                & (zn >= 0.0) & (zn <= g.Lz / 3))
+        mx, my, mz = dam_break_axes_3d(g, window)
+        cond = mx[:, None, None] & my[None, :, None] & mz[None, None, :]
         return np.where(cond, np.float32(1.0), np.float32(0.0))
     elif ic == 2:
         r = g.Lx / 12
-        return find_area_3d(g, g.Lx / 2, 2 * r, g.Lz / 2, r)
+        return find_area_3d(g, g.Lx / 2, 2 * r, g.Lz / 2, r, window)
     elif ic == 3:
         r = g.Lx / 12
         F = (np.float32(1.0)
-             - find_area_3d(g, g.Lx / 2, g.Ly - 3 * r, g.Lz / 2, r)).astype(np.float32)
-        yn = g.node_y()[None, :, None]
+             - find_area_3d(g, g.Lx / 2, g.Ly - 3 * r, g.Lz / 2, r, window)).astype(np.float32)
+        j0, j1 = window[1] if window else (0, g.ny + 2)
+        yn = g.node_y()[None, j0:j1, None]
         return np.where(yn < g.Ly * 0.37, np.float32(1.0), F).astype(np.float32)
     raise ValueError(f"unknown 3-D initial condition ic={ic} (1, 2, or 3)")
 
@@ -184,3 +198,19 @@ def init_state_3d(g: Grid3D, ic: int = 1, device="cuda",
     F = torch.as_tensor(initial_volume_fraction_3d(g, ic), device=device).to(dtype)
     return State3D(F, *(torch.zeros(g.shape, device=device, dtype=dtype)
                         for _ in range(4)))
+
+
+def init_block_3d(g: Grid3D, ic: int, window, device, dtype: torch.dtype = torch.float32
+                  ) -> State3D:
+    """The ``window`` ((i0, i1), (j0, j1)) of ``init_state_3d``'s state,
+    made for that block alone: the dam break on ``device`` from its
+    per-axis tests, the other conditions on the host from the window's
+    coordinates; nothing of the rest of the grid is made."""
+    (i0, i1), (j0, j1) = window
+    if ic == 1:
+        mx, my, mz = (torch.as_tensor(m, device=device) for m in dam_break_axes_3d(g, window))
+        F = (mx[:, None, None] & my[None, :, None] & mz[None, None, :]).to(dtype)
+    else:
+        F = torch.as_tensor(initial_volume_fraction_3d(g, ic, window), device=device).to(dtype)
+    shape = (i1 - i0, j1 - j0, g.nz + 2)
+    return State3D(F, *(torch.zeros(shape, device=device, dtype=dtype) for _ in range(4)))

@@ -10,8 +10,12 @@ goes through it, and all carry the prefix ``tv.``:
   ====================  ==================================================
   span                  where
   ====================  ==================================================
-  tv.simulate           the body of solver.simulate, simulate_cfl and
-                        solver3d.simulate_3d (one per call)
+  tv.simulate           the body of solver.simulate, simulate_cfl,
+                        solver3d.simulate_3d and Decomp3D.advance (one
+                        per call)
+  tv.halo               Decomp3D's halo refresh of its blocks, one per
+                        step (and one per ghost exchange of its BCs)
+  tv.shard_line         Decomp3D.line, the frame's per-shard reductions
   tv.bc                 the plain-torch BC passes outside the kernels
   tv.cfl                simulate_cfl's Courant tracker, one per step
   tv.wrap.<kernel>      a CUDA wrapper from its CUDA branch to its return
