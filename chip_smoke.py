@@ -903,6 +903,13 @@ def time_kernels_3d(K3, g, fl, dt, s, org, tag):
               f"Python); plain {1e3 * t['plain_ms']:.2f} us/call on the device; bound "
               f"{1e3 * t['bound_ms']:.2f} us ({t['bound_by']})")
     times["jacobi3d"]["ms_per_launch"] = times["jacobi3d"]["ms"] / len(jacobi_plan)
+    for depth in sorted(set(jacobi_plan), reverse=True):
+        geo = K3.jacobi3d_geometry(F.shape, depth, F.dtype, "njl" in org)
+        print(f"{tag} jacobi3d launch of {depth} levels on {tuple(F.shape)}: {geo['threads']} "
+              f"threads a CTA, each {geo['run']} k positions, a {geo['rows']} x {geo['cols']} "
+              f"region owning {100 * geo['owned_share']:.1f}%; {geo['resident']} CTAs an SM, "
+              f"grid {geo['grid']}, {geo['chunk']} planes a chunk; computed / owned "
+              f"cell-levels {geo['computed_over_owned']:.3f}")
     xyz = [times.pop(f"fct3d_sweep_{a}") for a in "xyz"]
     times["fct3d_sweep"] = {k: sum(t[k] for t in xyz) / 3 if isinstance(xyz[0][k], float)
                             else xyz[0][k] for k in xyz[0]}

@@ -16,14 +16,21 @@ kernels see the same inputs), each leg:
   (``predict3d_rhs``, ``jacobi3d`` for 10 iterations, ``correct3d``, the
   three sweeps, and the z sweep with ``mirror_out``), ``predict3d_rhs``,
   ``jacobi3d`` and the three sweeps on the 2x2 pencil engine's block of
-  shard (1, 1), the serial step (a step triple, without and with csf), the
+  shard (1, 1), ``jacobi3d`` for 10 iterations on the four-card cell's
+  block (the 2x2 pencil engine's block of shard (1, 1) of a 1152^3 grid,
+  606 x 606 x 1154, random values), the serial step (a step triple,
+  without and with csf), the
   csf route's host-clock ms/step (``simulate_3d(csf=True)``, 100 steps from
   the initial state, best of 3), ``predict3d_rhs`` with
   csf, serial and on the pencil block (and its curvature pre-pass
   ``kappa3d_kernel`` alone, from torch.profiler's device activity where it
   shows one), and, in
   a tree whose plan has a depth (``JACOBI_LEVELS``), ``jacobi3d`` at every
-  depth up to it;
+  depth up to it on the three blocks (the whole grid, the small and the
+  large pencil block), and, in a tree that reports it
+  (``jacobi3d_geometry``), the launch of each depth on the whole grid and
+  the large pencil block: its CTAs, planes a chunk and the cell-levels its
+  threads compute over the block's;
 - the first A and B legs also write every output of ``predict3d_rhs``
   (csf off and on), ``jacobi3d`` (1, 2, 3 and 10 iterations) and
   ``fct3d_sweep`` (x, y and z, with and without ``mirror_out``, at a
@@ -40,7 +47,9 @@ kernels see the same inputs), each leg:
   function, ptxas's registers, stack frame and spill stores and loads
   (``-Xptxas -v``) and the SASS instruction count (``cuobjdump``), and the
   launch shape of ``predict3d_kernel``, ``jacobi3d_kernel`` and each
-  sweep's kernel (threads and shared bytes a CTA, CTAs resident an SM).
+  sweep's kernel (threads and shared bytes a CTA, CTAs resident an SM; for
+  a ``jacobi3d_kernel`` that reports them, the k positions a thread
+  computes, the region's rows and columns and its owned share).
 
 It prints one line per leg, the comparison, a table of the four legs, and
 the card's name and power limit; ``--out`` also writes the legs as JSON.
@@ -63,6 +72,8 @@ DEVELOP_STEPS = 20
 SLAB = (40, 50)  # (gi_base, nloc) of the i-slab
 PENCIL_SHARD = (1, 1)  # of the 2x2 engine: gi_base = gj_base = 86
 PENCIL_SHAPE = (130, 130, 202)
+BIG_N = 1152  # the four-card cell's grid: its 2x2 engine's block of shard (1, 1)
+BIG_SHAPE = (606, 606, 1154)
 N_ITERS = (1, 2, 3, 10)
 SOURCES = ("predict3d.cu", "correct3d.cu", "fct3d.cu", "jacobi3d.cu")
 DT_SWEEP = 4e-4  # the sweeps' dump: Courant numbers up to ~0.3, the limiter fires
@@ -206,12 +217,16 @@ def launch_shapes(lib, sass: dict, depth: int | None) -> dict:
         for suffix, t in (("_f32", "f"), ("_f64", "d")):
             label = f"{kern} {suffix[1:]}"
             if hasattr(lib, stem + suffix):
-                shape = (ctypes.c_int * 3)()
+                # room for jacobi3d's eight (a tree whose export has three
+                # leaves the rest 0)
+                shape = (ctypes.c_int * 8)()
                 args = (0, 0, shape) if kern == "predict3d" else (0, depth, shape)
                 if getattr(lib, stem + suffix)(*args) != 0:
                     raise RuntimeError(f"{stem}{suffix} failed")
-                threads, smem, ctas = shape
+                threads, smem, ctas, run, rows, cols, own_k, own_j = shape
                 out[label] = [threads, smem, ctas, ctas * threads / 2048]
+                if run:  # k positions a thread, region rows x columns, owned share
+                    out[label] += [run, f"{rows}x{cols}", own_k * own_j / (rows * cols)]
             else:
                 regs = [v["regs"] for k, v in sass.items()
                         if k.startswith(f"{kern}_kernel<{t}Lb0")]
@@ -232,6 +247,34 @@ def launch_shapes(lib, sass: dict, depth: int | None) -> dict:
                         if k.startswith(f"fct3d_kernel<{t}Li{axis}E")]
                 out[label] = [256, 0, *occupancy(max(regs), 256, 0)] if regs else None
     return out
+
+
+def jacobi_geometry(K3, depth: int) -> dict:
+    """{block: [CTAs along k, j, l, planes a chunk, computed over owned
+    cell-levels]} of jacobi3d at ``depth`` levels a launch, f32, on the
+    whole 202^3 grid and the large pencil block, from a tree that reports
+    its launch (``jacobi3d_geometry``); {} from one that does not."""
+    if not hasattr(K3, "jacobi3d_geometry"):
+        return {}
+    out = {}
+    for label, shape, pencil in (("grid", (N + 2,) * 3, False), ("big pencil", BIG_SHAPE, True)):
+        geo = K3.jacobi3d_geometry(shape, depth, pencil=pencil)
+        out[label] = [*geo["grid"], geo["chunk"], geo["computed_over_owned"]]
+    return out
+
+
+def big_pencil(torch, tt):
+    """(grid, p, rhs, origin) of the four-card cell's block (2x2 engine, shard
+    (1, 1) of a BIG_N^3 grid), f32, random values: the Jacobi's time does
+    not depend on them."""
+    from tpuvof_torch.parallel import Decomp3D, make_mesh
+
+    g = tt.Grid3D(BIG_N, BIG_N, BIG_N)
+    dec = Decomp3D(g, make_mesh(devices=[torch.device("cuda")] * 4))
+    org = dec.origin(dec.coords.index(PENCIL_SHARD))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p, rhs = (torch.randn(BIG_SHAPE, device="cuda", generator=gen) for _ in range(2))
+    return g, p, rhs, org
 
 
 def blocks_of(tt, g, s, dtype):
@@ -368,15 +411,27 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
         kappa = profiled_us(torch, call, 20, "kappa3d_kernel")
         if kappa is not None:
             res["us"][f"{label}kappa3d_kernel (profiler)"] = kappa
+    gb, pb, rb, orgb = big_pencil(torch, tt)
+
+    def big():
+        return K3.jacobi3d(gb, 10, pb, rb, **orgb)
+
+    # 3 calls a graph: each call's two 1.7 GB blocks
+    res["us"]["big pencil jacobi3d (10)"] = 1e3 * device_ms(torch, big, 3)
     if hasattr(K3, "JACOBI_LEVELS"):  # the Jacobi at each depth a launch
         chosen = K3.JACOBI_LEVELS
+        res["geometry"] = {}
         for depth in range(1, chosen + 1):
             K3.JACOBI_LEVELS = depth
             res["us"][f"jacobi3d (10) depth {depth}"] = 1e3 * device_ms(
                 torch, timed["jacobi3d (10)"], 20)
             res["us"][f"pencil jacobi3d (10) depth {depth}"] = 1e3 * device_ms(
                 torch, timed["pencil jacobi3d (10)"], 20)
+            res["us"][f"big pencil jacobi3d (10) depth {depth}"] = 1e3 * device_ms(
+                torch, big, 3)
+            res["geometry"][depth] = jacobi_geometry(K3, depth)
         K3.JACOBI_LEVELS = chosen
+    del pb, rb
     if sass:
         res["sass"] = sass_counts(build, pkg / "csrc")
         res["occupancy"] = launch_shapes(build.load_library(), res["sass"],
@@ -454,6 +509,12 @@ def main() -> int:
     for name in sorted(set(legs[1]["us"]) - set(names)):
         print(f"  {name:22s} B only: " + " / ".join(
             f"{r['us'][name]:.2f}" for r in legs if name in r["us"]))
+    for lab, res in (("A", legs[0]), ("B", legs[1])):
+        for depth, geo in res.get("geometry", {}).items():
+            for block, (gx, gy, gz, lc, ratio) in geo.items():
+                print(f"jacobi3d launch {lab} depth {depth} {block}: {gx} x {gy} x {gz} CTAs "
+                      f"({gx * gy * gz}), {lc} planes a chunk, computed / owned cell-levels "
+                      f"{ratio:.3f}")
     if args.sass:
         def row(r):
             if r is None:

@@ -449,6 +449,48 @@ def test_tiled_kernels3d_edge_shapes_match_plain_on_card():
             assert K3.LAUNCHES["fct3d_sweep"] == 6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [150, 151])
+def test_jacobi3d_regions_and_pencils_match_plain_on_card(nz):
+    """jacobi3d (n_iter 1 to 12) against its plain version, f64 (1e-12) and
+    f32 (1e-4), on a 13 x 17 x nz grid whose nz + 2 columns span three of
+    the kernel's regions, the last one ragged (at nz 151 by an odd count,
+    so that a thread's run of k positions straddles the array's end), on
+    i-slabs of it with the low and the high x wall mid-block, and on pencil
+    blocks with the low and the high y wall mid-block (gj_base -4 and 6,
+    rows past ny + 1); at every depth its launch (jacobi3d_geometry) covers
+    the block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    nx, ny = 13, 17
+    g = tt.Grid3D(nx, ny, nz, Ly=0.1 * ny / nx, Lz=0.1 * nz / nx)
+    *_, p = _card_state(g, 31)
+    rhs = torch.as_tensor(np.random.default_rng(32).normal(0, 1e3, g.shape), device="cuda")
+    big = [torch.nn.functional.pad(a, (0, 0, 0, 0, 4, 4)) for a in (p, rhs)]
+    wide = [torch.nn.functional.pad(a, (0, 0, 4, 4)) for a in (p, rhs)]
+    blocks = [("grid", (p, rhs), {}),
+              ("slab low wall", [a[:12] for a in big], {"gi_base": -4}),
+              ("slab high wall", [a[9:] for a in big], {"gi_base": 5})]
+    for r0, njl in ((0, 12), (10, 14)):
+        blocks.append((f"pencil rows {r0}", [a[:, r0:r0 + njl + 2] for a in wide],
+                       {"njl": njl, "gj_base": r0 - 4}))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        for tag, block, org in blocks:
+            pb, rb = (a.to(dtype).contiguous() for a in block)
+            for depth in range(1, K3.JACOBI_LEVELS + 1):  # the launch covers the block
+                geo = K3.jacobi3d_geometry(pb.shape, depth, dtype, "njl" in org)
+                (gk, gj, gl), n0, n1, n2 = geo["grid"], *pb.shape
+                assert gk * geo["own_cols"] >= n2 and gj * geo["own_rows"] >= n1
+                assert gl * geo["chunk"] >= n0 and geo["computed_over_owned"] >= 1
+            K3.reset_launch_counts()
+            for n_iter in range(1, 13):
+                got = K3.jacobi3d(g, n_iter, pb, rb, **org)
+                want = K3.jacobi3d_plain(g, n_iter, pb, rb, **org)
+                assert _rel(got.cpu(), want.cpu()) <= tol, (tag, dtype, n_iter)
+            torch.cuda.synchronize()
+            assert K3.LAUNCHES["jacobi3d"] == sum(len(K3.jacobi3d_plan(n)) for n in range(1, 13))
+
+
 def _check_sweeps_on_card(g, F, vels, tol, tag, **org):
     """The three sweeps with and without mirror_out against their plain
     versions on one block."""

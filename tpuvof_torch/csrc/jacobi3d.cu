@@ -19,18 +19,21 @@
 // bound. The TPU kernel keeps p resident across its iterations for the same
 // reason (jacobi3d.py:1-8).
 //
-// What this design does: temporal blocking, a 2.5-D wavefront. Each launch
-// runs NLEV (1..kLevelsMax) exact Jacobi levels. A CTA of 32 (k) x ROWS (j)
-// threads covers a (j, k) region and owns its inner part, NLEV cells in
-// from each side (overlapped tiling: the rim is recomputed by the
+// What the design does: temporal blocking, a 2.5-D wavefront. Each launch
+// runs NLEV (1..kLevelsMax) exact Jacobi levels. A CTA of 32 lanes (k) x
+// ROWS warps (j) covers a (j, k) region and owns its inner part, NLEV cells
+// in from each side (overlapped tiling: the rim is recomputed by the
 // neighbouring CTAs, as level t is exact only t cells in from the region's
 // edge), and marches along l over a chunk of planes plus NLEV planes of
-// halo on each side. At step s the thread of column (j, k) has p at plane
-// s (level 0, loaded a step ahead) and computes level t at plane s - t for
-// t = 1..NLEV: the e and w neighbours are its own level t-1 at planes
-// s-t+1 and s-t-1 (three registers a level), the n, s, f, b neighbours are
-// level t-1 at plane s-t in shared memory (written at step s-1; two
-// buffers a level, so one barrier a step), and rhs at plane s-t is a
+// halo on each side. Each lane computes a run of RUN consecutive k
+// positions. At step s the run has p at plane s (level 0, loaded a step
+// ahead) and computes level t at plane s - t for t = 1..NLEV: the e and w
+// neighbours are its own level t-1 at planes s-t+1 and s-t-1 (three
+// registers a position and level), the f and b neighbours of the run's
+// inner positions are its own level t-1 at plane s-t and those of its ends
+// the next lanes' (a warp shuffle each), the n and s neighbours are level
+// t-1 at plane s-t in shared memory (written at step s-1, one access a run;
+// two buffers a level, so one barrier a step), and rhs at plane s-t is a
 // register ring. Level NLEV goes to the output. Every level holds the ghost
 // positions at 0 exactly as plane_ghost, row_ghost and col_ghost classify
 // them (the block's edge planes and rows too), so a halo never feeds a
@@ -41,15 +44,32 @@
 // into launches of at most JACOBI_LEVELS = 4 levels of near-equal depth,
 // ping-ponging two buffers: (4, 3, 3) for the step's 10. Each launch must
 // still read p and rhs and write p, so the plan's floor is 3 x 29.5 = 88.6
-// us at 200^3 f32. Measured on the H100 (scripts/torch_ab3d.py, every
-// depth): ~333 us at depth 4 against the parent's ~537; depth 3 ~335, 5
-// ~432 (39 registers: one 1024-thread CTA an SM, where depth 4's 32 allow
-// two). At ROWS = 32 the kernel issues about as many instructions as the
-// SMs can (~170 a thread and step at depth 4, estimated from the SASS
-// counts of the depths; 56% of the cells on owned positions): it is bound
-// by the recomputed rim and the per-level instructions, not by bytes. An
-// earlier form with ROWS = 16 took ~500 us (the rim is 2 x NLEV of 16
-// rows).
+// us at 200^3 f32 (and 3 x 5.1 GB / 3.35 TB/s = 4.56 ms on the four-card
+// cell's 606 x 606 x 1154 block).
+//
+// What bounds it: the instructions a cell and level, and the rim they are
+// spent on, not bytes. The previous design (one k position a thread, 32 x 32
+// regions, two CTAs an SM) issued ~170 instructions a thread and step at
+// depth 4 with 56% of the computed cells owned: ~332 us at 200^3, 13.4 ms
+// on the 606 x 606 x 1154 block. A run of RUN = 2 pays the shared reads,
+// the shuffles, the ghost and edge bits and the address arithmetic once for
+// two positions, and widens the region to 64 x 32 (66% owned at depth 4);
+// it takes 46-61 registers at depths 2-5 in f32 (no spills), so one
+// 1024-thread CTA an SM. A ghost is zeroed by a mask (keep), not by a
+// select, which the compiler turned into a branch around each cell's
+// arithmetic (8% slower at 200^3). Measured on the H100
+// (scripts/torch_ab3d.py; H100 80GB HBM3, 700 W), (4, 3, 3): ~251 us at
+// 200^3 (2.8x the floor) and ~8.93 ms on the pencil block (2.0x). A
+// launch's time a step an SM is ~0.67 us and ~0.17 a level (the pencil
+// block: depth 3 1.18, depth 4 1.35 us): the step's fixed part (the loads a
+// step ahead, ~35 register moves of the rotations, the barrier) now weighs
+// about as much as the levels' instructions (~40 a run and level, 26 of
+// them the two cells' arithmetic). Measured and dropped: loading two steps
+// ahead (within 1.5%: the loads' latency is hidden), unrolling the march 2-4
+// times to drop the rotations (slower on the pencil block; depth 5 spills),
+// the plane ghost as a uniform branch (depth 3 4% faster, depth 4 6%
+// slower). RUN 4 was not built: its state (~80 registers) passes the 64 a
+// 1024-thread CTA allows.
 //
 // The ghost positions of a slab or a pencil (local planes 0 and n0-1, a
 // pencil's rows 0 and n1-1, and any position at or beyond a global wall)
@@ -81,111 +101,190 @@ __device__ __forceinline__ bool col_ghost(const tv::Vol& g, int k) {
   return k <= 0 || k >= g.nz + 1;
 }
 
-// The CTA: kJK columns (k, one per lane) by ROWS rows (j, one per warp):
-// 32 in f32, 16 in f64 (whose registers would spill at 1024 threads); at
-// most kLevelsMax levels a launch, the depth NLEV a template argument so
-// that each depth's loop over levels unrolls to exactly its levels. A
-// level's plane in shared memory has a border of one cell on each side that
-// nothing writes, so every thread reads its four in-plane neighbours
-// without a bounds test (a cell that reads the border is not exact, as it
-// is not with any value there).
-constexpr int kJK = 32;
+// The CTA: 32 lanes along k by ROWS warps along j; each lane computes a
+// run of RUN consecutive k positions, so a region is 32 RUN columns by ROWS
+// rows: in f32 RUN 2 and 32 rows (64 x 32), in f64 RUN 1 and 16 rows (32 x
+// 16, as before: twice the registers a value). At most kLevelsMax levels a
+// launch, the depth NLEV a template argument so that each depth's loop over
+// levels unrolls to exactly its levels. A level's plane in shared memory has
+// a border row above and below that nothing writes, so every thread reads
+// its n and s neighbours without a bounds test; the f and b neighbours are
+// the run's own registers, and at a run's ends the next lane's (a warp
+// shuffle: lanes 0 and 31 get their own value back, at the region's edge,
+// where a cell is not exact with any value).
+constexpr int kLanes = 32;
 constexpr int kLevelsMax = 5;
-constexpr int kPitch = kJK + 2;
 
 template <typename T, int NLEV>
 struct Depth {
+  static constexpr int run = sizeof(T) == 4 ? 2 : 1;
   static constexpr int rows = sizeof(T) == 4 ? 32 : 16;
-  static constexpr int threads = kJK * rows;
-  static constexpr int level = (rows + 2) * kPitch;
-  // two buffers of levels 0 .. NLEV-1 over the region and its border
+  static constexpr int threads = kLanes * rows;
+  static constexpr int cols = kLanes * run;
+  // the owned part: NLEV cells in from each side of the region
+  static constexpr int own_k = cols - 2 * NLEV;
+  static constexpr int own_j = rows - 2 * NLEV;
+  static constexpr int level = (rows + 2) * cols;
+  // two buffers of levels 0 .. NLEV-1 over the region and its border rows
   static constexpr size_t smem = sizeof(T) * 2 * NLEV * level;
+};
+
+// x where m is all ones, +0 where it is 0: a ghost's select as one bitwise
+// and, which the compiler does not turn into a branch around the cell's
+// arithmetic (a branch a cell costs more than the cell's select).
+template <typename T>
+struct Mask;
+template <>
+struct Mask<float> {
+  using type = unsigned;
+};
+template <>
+struct Mask<double> {
+  using type = unsigned long long;
+};
+__device__ __forceinline__ float keep(float x, unsigned m) {
+  return __uint_as_float(__float_as_uint(x) & m);
+}
+__device__ __forceinline__ double keep(double x, unsigned long long m) {
+  return __longlong_as_double(__double_as_longlong(x) & m);
+}
+
+// A run's values, moved to and from shared memory in one access.
+template <typename T, int RUN>
+struct alignas(sizeof(T) * RUN) Run {
+  T v[RUN];
 };
 
 template <typename T, bool PENCIL, int NLEV>
 __global__ void __launch_bounds__(Depth<T, NLEV>::threads)
     jacobi3d_kernel(const T* __restrict__ src, const T* __restrict__ rhs, T* __restrict__ dst,
                     const tv::Vol block, const J3Params<T> q, const int lc) {
-  constexpr int kRows = Depth<T, NLEV>::rows;
-  constexpr int kLevel = Depth<T, NLEV>::level;
+  using D = Depth<T, NLEV>;
+  constexpr int V = D::run;
+  constexpr int kCols = D::cols;
+  constexpr int kLevel = D::level;
+  using R = Run<T, V>;
+  using M = typename Mask<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const buf = reinterpret_cast<T*>(smem);  // [2][NLEV][kRows + 2][kPitch]
+  T* const buf = reinterpret_cast<T*>(smem);  // [2][NLEV][ROWS + 2][kCols]
   const tv::Vol g = tv::rows<PENCIL>(block);
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int me = (ty + 1) * kPitch + tx + 1;
-  const int k = blockIdx.x * (kJK - 2 * NLEV) - NLEV + tx;
-  const int j = blockIdx.y * (kRows - 2 * NLEV) - NLEV + ty;
+  const int me = (ty + 1) * kCols + tx * V;
+  const int k0 = blockIdx.x * D::own_k - NLEV + tx * V;
+  const int j = blockIdx.y * D::own_j - NLEV + ty;
   const int l0 = blockIdx.z * lc;
   const int l1 = min(l0 + lc, g.n0);
-  const bool in_plane = j >= 0 && j < g.n1 && k >= 0 && k < g.n2;
-  const bool owner = in_plane && tx >= NLEV && tx < kJK - NLEV && ty >= NLEV && ty < kRows - NLEV;
-  const bool rc_ghost = row_ghost(g, j) || col_ghost(g, k);
+  const bool row_in = j >= 0 && j < g.n1;
+  const bool row_owned = ty >= NLEV && ty < D::rows - NLEV;
+  const bool rg = row_ghost(g, j);
   const int gj = j + g.gj_base;
   const int ey = gj == 1 || gj == g.ny;
-  const int ez = k == 1 || k == g.nz;
-  const T ap_inner = q.ap_inv[0][ey][ez], ap_xedge = q.ap_inv[1][ey][ez];
+  // per position of the run: in the array, owned, a ghost row or column
+  // (and its mask: 0 there), and its diagonal off and on an x edge
+  bool in[V], owner[V], rc_ghost[V];
+  M rc_live[V];
+  T ap_inner[V], ap_xedge[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int k = k0 + v;
+    const int c = tx * V + v;
+    const int ez = k == 1 || k == g.nz;
+    in[v] = row_in && k >= 0 && k < g.n2;
+    owner[v] = in[v] && row_owned && c >= NLEV && c < kCols - NLEV;
+    rc_ghost[v] = rg || col_ghost(g, k);
+    rc_live[v] = rc_ghost[v] ? M(0) : ~M(0);
+    ap_inner[v] = q.ap_inv[0][ey][ez];
+    ap_xedge[v] = q.ap_inv[1][ey][ez];
+  }
   const long long plane = static_cast<long long>(g.n1) * g.n2;
-  const long long col = in_plane ? static_cast<long long>(j) * g.n2 + k : 0;
-  for (int i = ty * kJK + tx; i < 2 * NLEV * kLevel; i += kJK * kRows) buf[i] = T(0);
+  // the run's first position in a plane (read only where in[v])
+  const long long col = static_cast<long long>(j) * g.n2 + k0;
+  for (int i = ty * kLanes + tx; i < 2 * NLEV * kLevel; i += D::threads) buf[i] = T(0);
 
   // level 0 (p, 0 at the ghosts) and rhs of plane s, loaded one step ahead
-  T p_at = T(0), r_at = T(0);
+  T p_at[V], r_at[V];
   bool ghost_at = true, xedge_at = false;
   auto fetch = [&](int s) {
     const int gi = s + g.gi_base;
+    const bool plane_in = s >= 0 && s < g.n0;
     ghost_at = plane_ghost(g, s);
     xedge_at = gi == 1 || gi == g.nx;
-    p_at = r_at = T(0);
-    if (in_plane && s >= 0 && s < g.n0) {
-      r_at = rhs[s * plane + col];
-      if (!rc_ghost && !ghost_at) p_at = src[s * plane + col];
+    const long long at = s * plane + col;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool read = plane_in && in[v];
+      r_at[v] = read ? rhs[at + v] : T(0);
+      p_at[v] = read && !rc_ghost[v] && !ghost_at ? src[at + v] : T(0);
     }
   };
-  // c[t]: level t of this column at the last three planes it reached
-  // (m-1, m, m+1 of level t+1's plane m); r[t]: rhs at plane s - t; bit t
-  // of ghost_bits / xedge_bits: plane s - t is a ghost plane / on an x edge
-  T c[NLEV][3] = {};
-  T r[NLEV + 1] = {};
+  // c[t]: level t of the run at the last three planes it reached (m-1, m,
+  // m+1 of level t+1's plane m); r[t]: rhs at plane s - t; bit t of
+  // ghost_bits / xedge_bits: plane s - t is a ghost plane / on an x edge
+  T c[NLEV][3][V] = {};
+  T r[NLEV + 1][V] = {};
   unsigned ghost_bits = 0, xedge_bits = 0;
   T* put = buf;
   T* got = buf + NLEV * kLevel;
   fetch(l0 - NLEV);
   __syncthreads();
   for (int s = l0 - NLEV; s < l1 + NLEV; ++s) {
-    const T p0 = p_at;
+    R p0;
 #pragma unroll
-    for (int t = NLEV; t > 0; --t) r[t] = r[t - 1];
-    r[0] = r_at;
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int t = NLEV; t > 0; --t) r[t][v] = r[t - 1][v];
+      r[0][v] = r_at[v];
+      p0.v[v] = p_at[v];
+      c[0][0][v] = c[0][1][v];
+      c[0][1][v] = c[0][2][v];
+      c[0][2][v] = p_at[v];
+    }
     ghost_bits = ghost_bits << 1 | ghost_at;
     xedge_bits = xedge_bits << 1 | xedge_at;
     fetch(s + 1);
-    c[0][0] = c[0][1];
-    c[0][1] = c[0][2];
-    c[0][2] = p0;
-    put[me] = p0;
+    *reinterpret_cast<R*>(put + me) = p0;
 #pragma unroll
     for (int t = 1; t <= NLEV; ++t) {
       const T* const nb = got + (t - 1) * kLevel + me;
-      // the neighbours: e, w along i, n, s along j, f, b along k
-      const T e = c[t - 1][2];
-      const T w = c[t - 1][0];
-      const T n = nb[kPitch];
-      const T so = nb[-kPitch];
-      const T f = nb[1];
-      const T b = nb[-1];
-      const T val = rc_ghost || (ghost_bits >> t & 1u)
-                        ? T(0)
-                        : (r[t] - q.cx * e - q.cx * w - q.cy * n - q.cy * so - q.cz * f -
-                           q.cz * b) *
-                              (xedge_bits >> t & 1u ? ap_xedge : ap_inner);
+      // the neighbours: e, w along i, n, s along j, f, b along k; level
+      // t-1 at plane s-t is the middle of c[t-1] and, in shared memory,
+      // the n and s rows
+      const R n = *reinterpret_cast<const R*>(nb + kCols);
+      const R so = *reinterpret_cast<const R*>(nb - kCols);
+      const T* const mid = c[t - 1][1];
+      const T lo = __shfl_up_sync(0xffffffffu, mid[V - 1], 1);
+      const T hi = __shfl_down_sync(0xffffffffu, mid[0], 1);
+      const M plane_live = ghost_bits >> t & 1u ? M(0) : ~M(0);
+      const bool xedge_t = xedge_bits >> t & 1u;
+      R val;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T e = c[t - 1][2][v];
+        const T w = c[t - 1][0][v];
+        const T f = v + 1 < V ? mid[v + 1 < V ? v + 1 : v] : hi;
+        const T b = v > 0 ? mid[v > 0 ? v - 1 : v] : lo;
+        val.v[v] = keep((r[t][v] - q.cx * e - q.cx * w - q.cy * n.v[v] - q.cy * so.v[v] -
+                         q.cz * f - q.cz * b) *
+                            (xedge_t ? ap_xedge[v] : ap_inner[v]),
+                        rc_live[v] & plane_live);
+      }
       if (t == NLEV) {
         const int m = s - NLEV;
-        if (owner && m >= l0 && m < l1) dst[m * plane + col] = val;
+        if (m >= l0 && m < l1) {
+          const long long at = m * plane + col;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            if (owner[v]) dst[at + v] = val.v[v];
+          }
+        }
       } else {
-        c[t][0] = c[t][1];
-        c[t][1] = c[t][2];
-        c[t][2] = val;
-        put[t * kLevel + me] = val;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          c[t][0][v] = c[t][1][v];
+          c[t][1][v] = c[t][2][v];
+          c[t][2][v] = val.v[v];
+        }
+        *reinterpret_cast<R*>(put + t * kLevel + me) = val;
       }
     }
     T* const was = put;
@@ -196,7 +295,8 @@ __global__ void __launch_bounds__(Depth<T, NLEV>::threads)
 }
 
 // The kernel of one (type, mode, depth), with its shared memory granted and
-// the CTAs it keeps resident on an SM (asked once a device).
+// the CTAs it keeps resident on an SM (asked once a device), and its grid
+// on a block: one CTA a region and chunk of planes.
 template <typename T, bool PENCIL, int NLEV>
 struct Jacobi {
   using D = Depth<T, NLEV>;
@@ -211,23 +311,48 @@ struct Jacobi {
       return n;
     });
   }
+  // the grid on a block of n0 planes of n1 x n2, and its chunk length
+  static dim3 grid(int n0, int n1, int n2, int* lc) {
+    const int tiles_k = (n2 + D::own_k - 1) / D::own_k;
+    const int tiles_j = (n1 + D::own_j - 1) / D::own_j;
+    // a chunk runs 2 NLEV steps of halo planes
+    *lc = tv::plane_chunk(n0, tiles_k * tiles_j, resident(), 2 * NLEV);
+    return dim3(tiles_k, tiles_j, (n0 + *lc - 1) / *lc);
+  }
   static int launch(const T* src, const T* rhs, T* dst, tv::Vol g, const J3Params<T>& q,
                     cudaStream_t stream) {
-    constexpr int own_k = kJK - 2 * NLEV, own_j = D::rows - 2 * NLEV;
-    const int tiles_k = (g.n2 + own_k - 1) / own_k;
-    const int tiles_j = (g.n1 + own_j - 1) / own_j;
-    // a chunk runs 2 NLEV steps of halo planes
-    const int lc = tv::plane_chunk(g.n0, tiles_k * tiles_j, resident(), 2 * NLEV);
-    const dim3 grid(tiles_k, tiles_j, (g.n0 + lc - 1) / lc);
-    jacobi3d_kernel<T, PENCIL, NLEV><<<grid, dim3(kJK, D::rows), D::smem, stream>>>(
+    int lc = 0;
+    const dim3 grid_ = grid(g.n0, g.n1, g.n2, &lc);
+    jacobi3d_kernel<T, PENCIL, NLEV><<<grid_, dim3(kLanes, D::rows), D::smem, stream>>>(
         src, rhs, dst, g, q, lc);
     return static_cast<int>(cudaGetLastError());
   }
-  // threads a CTA, shared bytes a CTA, CTAs resident per SM
+  // threads a CTA, shared bytes a CTA, CTAs resident per SM, the run,
+  // the region's rows and columns, its owned columns and rows
   static void shape(int* out) {
     out[0] = D::threads;
     out[1] = static_cast<int>(D::smem);
     out[2] = resident();
+    out[3] = D::run;
+    out[4] = D::rows;
+    out[5] = D::cols;
+    out[6] = D::own_k;
+    out[7] = D::own_j;
+  }
+  // the launch on a block of n0 x n1 x n2: CTAs along k, j and l, the
+  // chunk length; ratio: the cell-levels its threads compute (every
+  // position of every region, at every step of every chunk and its halo)
+  // over the block's cells' levels
+  static void geometry(int n0, int n1, int n2, int* out, double* ratio) {
+    int lc = 0;
+    const dim3 gr = grid(n0, n1, n2, &lc);
+    out[0] = static_cast<int>(gr.x);
+    out[1] = static_cast<int>(gr.y);
+    out[2] = static_cast<int>(gr.z);
+    out[3] = lc;
+    const double steps = n0 + 2.0 * NLEV * gr.z;  // a tile's steps over its chunks
+    *ratio = static_cast<double>(gr.x) * gr.y * D::rows * D::cols * steps /
+             (static_cast<double>(n0) * n1 * n2);
   }
 };
 
@@ -281,6 +406,20 @@ int depth_shape(int nlev, int* out) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool PENCIL>
+int depth_geometry(int n0, int n1, int n2, int nlev, int* out, double* ratio) {
+  if (n0 < 1 || n1 < 1 || n2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (nlev) {
+    case 1: Jacobi<T, PENCIL, 1>::geometry(n0, n1, n2, out, ratio); break;
+    case 2: Jacobi<T, PENCIL, 2>::geometry(n0, n1, n2, out, ratio); break;
+    case 3: Jacobi<T, PENCIL, 3>::geometry(n0, n1, n2, out, ratio); break;
+    case 4: Jacobi<T, PENCIL, 4>::geometry(n0, n1, n2, out, ratio); break;
+    case 5: Jacobi<T, PENCIL, 5>::geometry(n0, n1, n2, out, ratio); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // p, rhs: inputs; out: output; tmp: scratch (unused with one launch); all
@@ -311,11 +450,27 @@ extern "C" int tv_jacobi3d_f64(const void* p, const void* rhs, void* out, void* 
 }
 
 // The Jacobi's launch shape at nlev levels a launch: out = {threads a CTA,
-// shared bytes a CTA, CTAs resident per SM}.
+// shared bytes a CTA, CTAs resident per SM, the run (k positions a
+// thread), the region's rows and columns, its owned columns and rows}.
 extern "C" int tv_jacobi3d_shape_f32(int pencil, int nlev, int* out) {
   return pencil ? depth_shape<float, true>(nlev, out) : depth_shape<float, false>(nlev, out);
 }
 
 extern "C" int tv_jacobi3d_shape_f64(int pencil, int nlev, int* out) {
   return pencil ? depth_shape<double, true>(nlev, out) : depth_shape<double, false>(nlev, out);
+}
+
+// The Jacobi's launch at nlev levels on a block of n0 x n1 x n2 (n2 = nz +
+// 2): out = {CTAs along k, along j, chunks of planes, planes a chunk};
+// ratio = the cell-levels its threads compute over the block's.
+extern "C" int tv_jacobi3d_grid_f32(int n0, int n1, int n2, int pencil, int nlev, int* out,
+                                    double* ratio) {
+  return pencil ? depth_geometry<float, true>(n0, n1, n2, nlev, out, ratio)
+                : depth_geometry<float, false>(n0, n1, n2, nlev, out, ratio);
+}
+
+extern "C" int tv_jacobi3d_grid_f64(int n0, int n1, int n2, int pencil, int nlev, int* out,
+                                    double* ratio) {
+  return pencil ? depth_geometry<double, true>(n0, n1, n2, nlev, out, ratio)
+                : depth_geometry<double, false>(n0, n1, n2, nlev, out, ratio);
 }

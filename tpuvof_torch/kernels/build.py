@@ -48,6 +48,7 @@ _SIGNATURES = {
     "tv_jacobi3d": [_P] * 4 + _VOL + [_I, ctypes.POINTER(_I), _D, _P],
     "tv_predict3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_jacobi3d_shape": [_I, _I, ctypes.POINTER(_I)],
+    "tv_jacobi3d_grid": [_I] * 5 + [ctypes.POINTER(_I), _D],
     "tv_fct3d_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fullstep_shape": [_I, _I, ctypes.POINTER(_I)],
     "tv_fullstep_dma_shape": [_I, _I, ctypes.POINTER(_I)],

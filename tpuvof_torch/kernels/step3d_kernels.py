@@ -60,6 +60,7 @@ from ..ops.fct3d import axis_scales, shift3, sweep3d
 from ..ops.materials import mix_properties
 from ..ops.normals3d import normalize_normals_3d, young_msum_3d
 from ..ops.poisson import ap_inv_3d, poisson_constants_3d
+from .build import load_library
 from .step_kernels import _checked, _doubles, _launch, _on_cpu
 
 __all__ = [
@@ -70,6 +71,7 @@ __all__ = [
     "fct3d_sweep",
     "jacobi3d",
     "jacobi3d_plan",
+    "jacobi3d_geometry",
     "JACOBI_LEVELS",
     "predict3d_rhs_plain",
     "correct3d_plain",
@@ -103,6 +105,36 @@ def jacobi3d_plan(n_iter: int) -> tuple[int, ...]:
     n_launch = -(-n_iter // JACOBI_LEVELS)
     depth, deeper = divmod(n_iter, n_launch)
     return tuple(depth + 1 if i < deeper else depth for i in range(n_launch))
+
+
+def jacobi3d_geometry(shape, nlev: int, dtype=torch.float32, pencil: bool = False) -> dict:
+    """How ``jacobi3d`` launches at ``nlev`` levels a launch on the current
+    card for a block of ``shape`` (n0, n1, nz+2), from the kernel library
+    (a CUDA card only): its CTA (``threads``, shared bytes ``smem``, CTAs
+    ``resident`` an SM), each thread's ``run`` of k positions, the region
+    (``rows`` x ``cols``) and its owned part (``own_rows`` x ``own_cols``,
+    ``owned_share`` of it), the ``grid`` of CTAs (along k, j, l), the planes
+    a ``chunk``, and ``computed_over_owned``: the cell-levels its threads
+    compute, every region position at every step of every chunk and its
+    halo, over the block's."""
+    lib = load_library()
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    shape_out = (ctypes.c_int * 8)()
+    grid_out = (ctypes.c_int * 4)()
+    ratio = ctypes.c_double()
+    n0, n1, n2 = (int(n) for n in shape)
+    for rc in (getattr(lib, "tv_jacobi3d_shape" + suffix)(int(pencil), nlev, shape_out),
+               getattr(lib, "tv_jacobi3d_grid" + suffix)(n0, n1, n2, int(pencil), nlev,
+                                                         grid_out, ctypes.byref(ratio))):
+        if rc != 0:
+            raise RuntimeError(f"jacobi3d_geometry({tuple(shape)}, {nlev}): "
+                               f"{lib.tv_error_string(rc).decode()}")
+    threads, smem, resident, run, rows, cols, own_cols, own_rows = shape_out
+    return {"threads": threads, "smem": smem, "resident": resident, "run": run,
+            "rows": rows, "cols": cols, "own_rows": own_rows, "own_cols": own_cols,
+            "owned_share": own_rows * own_cols / (rows * cols),
+            "grid": tuple(grid_out[:3]), "chunk": grid_out[3],
+            "computed_over_owned": ratio.value}
 
 
 @functools.lru_cache(maxsize=32)
