@@ -1778,13 +1778,13 @@ def shard_kernel_cases(tt, K, s):
     mesh = virtual_mesh(tt, (2, 2), s.F.device)
     cfg = tt.dam_break_2d(N_MAIN, num=tt.Numerics(backend="cuda_mono"))
     full = tt.Decomp(cfg, mesh)
-    strips = tt.Decomp(cfg, mesh, engine="strips")
+    strips = tt.Decomp(cfg.replace(num=tt.Numerics(backend="cuda_strips")), mesh)
     hybrid = tt.Decomp(cfg.replace(num=tt.Numerics(backend="cuda", pressure_solver="mg")), mesh)
     shards = full.scatter_state(s)
     ext = full.widen(shards)
     pad = strips.widen(shards)
     off = strips.W2 - strips.W
-    strips._refresh(pad, off)
+    strips._refresh(pad, strips.W, strips.W, off)
     for b in pad:
         for a in b:
             for sl in ((slice(0, off),), (slice(-off, None),), (slice(None), slice(0, off)),
@@ -1900,7 +1900,7 @@ def run_decomp_path(tt, K, label, dec, s0, steps, want_launches, serial_end, tag
     step_ms = 1e3 * min(secs) / steps
     dev_ms = device_ms(lambda: dec.advance(blocks, 2), 2) / 2
     off = dec.W2 - dec.W if dec.engine == "strips" else 0
-    halo_ms = device_ms(lambda: dec._refresh(blocks, off), 10)
+    halo_ms = device_ms(lambda: dec._refresh(blocks, dec.W, dec.W, off), 10)
     print(f"{tag} {label} {n}^2 x{steps} f32 on {dec.px}x{dec.py} ({dec.engine}): best "
           f"{min(secs):.4f} s of {[round(t, 4) for t in secs]}, {n * n * steps / min(secs):.4e} "
           f"cell-updates/s, {step_ms:.4f} ms/step; device alone {dev_ms:.4f} ms/step, idle "
@@ -2619,10 +2619,12 @@ def main() -> int:
         best = min(runs)
         step_ms = 1e3 * best / steps
         lean = S3._step_3d_torch if label == "torch" else S3._step_3d_cuda_lean
+        nm3 = S3.numerics_3d(g3, dt=dt3, n_jacobi=10, backend="torch" if label == "torch"
+                             else "cuda")
 
-        def triple(lean=lean, csf=csf):
+        def triple(lean=lean, csf=csf, nm3=nm3):
             for ph in (1, 2, 0):
-                lean(g3, fl, dt3, 10, s3dev, ph, "jacobi", 1.7, 1e-3, 200, csf, 0.0)
+                lean(g3, fl, nm3, csf, s3dev, ph)
 
         dev_ms = device_ms(triple, 1 if label == "torch" else 5) / 3
         print(f"{tag} 3-D {label} path {N3_MAIN}^3 x{steps} f32: best {best:.4f} s of "

@@ -385,9 +385,11 @@ def leg(tree: str, sass: bool, dump: str | None) -> dict:
         timed[f"pencil fct3d_sweep {'xyz'[axis]}"] = (
             lambda axis=axis, vel=vel: K3.fct3d_sweep(g, dt, Fp, vel, axis, **org))
 
+    nm = S3.numerics_3d(g, dt=dt, n_jacobi=10)
+
     def triple(csf=False):
         for ph in (1, 2, 0):
-            S3._step_3d_cuda_lean(g, fl, dt, 10, s, ph, "jacobi", 1.7, 1e-3, 200, csf, 0.0)
+            S3._step_3d_cuda_lean(g, fl, nm, csf, s, ph)
 
     def csf_route():
         torch.cuda.synchronize()

@@ -293,12 +293,18 @@ def test_chunked_with_istep0_matches_continuous(backend):
 
 
 def test_backend_and_solver_names_are_checked():
+    """simulate_3d, step_3d and Decomp3D reject the same bad backend and
+    solver names with the same errors (solver3d.numerics_3d)."""
     g = tt.Grid3D(8, 8, 8)
     s = tt.init_state_3d(g, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tt.simulate_3d(g, s, 1, backend="cuda_mono")
-    with pytest.raises(ValueError):
-        tt.step_3d(g, tt.Fluid(), DT, 10, s, 1, pressure_solver="cg")
+    mesh = tt.make_mesh(2, ("mx",), [torch.device("cpu")] * 2)
+    for name, bad, err in (("backend", "cuda_mono", NotImplementedError),
+                           ("pressure_solver", "cg", ValueError)):
+        for run in (lambda kw: tt.simulate_3d(g, s, 1, **kw),
+                    lambda kw: tt.step_3d(g, tt.Fluid(), DT, 10, s, 1, **kw),
+                    lambda kw: tt.Decomp3D(g, mesh, n_jacobi=2, **kw)):
+            with pytest.raises(err, match=repr(bad)):
+                run({name: bad})
 
 
 def test_convert_carries_grid_fluid_and_state():

@@ -153,7 +153,7 @@ def test_hybrid_thin_blocks_raise():
 
 def test_engine_force_with_upgraded_solver_raises():
     with pytest.raises(ValueError, match="HYBRID"):
-        Decomp(_cfg("mg"), _mesh(2, 2), engine="full")
+        Decomp(_cfg("mg"), _mesh(2, 2), tile=16)
 
 
 def test_dist_hybrid_other_ics_and_odd_steps():

@@ -188,7 +188,7 @@ def test_distributed_strips_matches_serial():
     s0 = _state(_cfg(64))
     want = tt.simulate(_cfg(64, "cuda_mono"), s0, 5)
     for px, py in ((2, 2), (1, 2), (2, 1)):
-        dec = Decomp(_cfg(64, "cuda_mono"), _mesh(px, py), engine="strips")
+        dec = Decomp(_cfg(64, "cuda_strips"), _mesh(px, py))
         assert (dec.engine, dec.W, dec.W2) == ("strips", 22, 24)
         blocks = dec.widen(dec.scatter_state(s0))
         off = dec.W2 - dec.W
@@ -218,25 +218,24 @@ def test_shard_tile_validation():
 
 
 def test_shard_engine_routing_and_validation():
-    """Each backend reaches its engine, engine= forces one, and a forced
-    engine that cannot run raises instead of degrading; the trajectory
-    through the backend-routed strips engine equals the serial one."""
+    """Each backend reaches its engine, tile= takes the tiled one from any
+    whole-step backend, and an engine that cannot run raises instead of
+    degrading; the trajectory through the strips engine equals the serial
+    one."""
     mesh = _mesh(2, 2)
     routes = {"torch": "torch", "cuda": "full", "cuda_mono": "full", "cuda_tiled": "tiled",
               "cuda_strips": "strips"}
     for backend, engine in routes.items():
         assert Decomp(_cfg(64, backend), mesh).engine == engine
-    for engine in ("full", "tiled", "strips"):
-        assert Decomp(_cfg(64, "cuda_strips"), mesh, engine=engine).engine == engine
-    with pytest.raises(ValueError, match="unknown shard engine"):
-        Decomp(_cfg(64, "cuda"), mesh, engine="pencil")
-    with pytest.raises(ValueError, match="tiled engine"):
-        Decomp(_cfg(64, "cuda"), mesh, engine="strips", tile=16)
+        if backend != "torch":
+            assert Decomp(_cfg(64, backend), mesh, tile=16).engine == "tiled"
     with pytest.raises(ValueError, match="backend='torch' runs the plain engine"):
-        Decomp(_cfg(64), mesh, engine="full")
+        Decomp(_cfg(64), mesh, tile=16)
     # thinner than the W = 22 halo: raise, naming the engine that runs it
     with pytest.raises(ValueError, match=r"strips engine needs nx/px > W=22.*backend='torch'"):
-        Decomp(_cfg(64, "cuda_mono"), _mesh(4, 1), engine="strips")
+        Decomp(_cfg(64, "cuda_strips"), _mesh(4, 1))
+    with pytest.raises(ValueError, match=r"tiled engine needs nx/px > W=22.*backend='torch'"):
+        Decomp(_cfg(64, "cuda_mono"), _mesh(4, 1), tile=16)
     with pytest.raises(ValueError, match="ny/py > W=22"):
         Decomp(_cfg(16, "cuda"), _mesh(1, 2))
     with pytest.raises(NotImplementedError, match="bc_between_sweeps"):
@@ -258,10 +257,10 @@ def test_strips_run_any_block_height():
 
 
 def test_forced_engine_with_rbsor_raises():
-    cfg = _cfg(64, "cuda_mono", pressure_solver="rbsor")
-    for kw in ({"engine": "strips"}, {"tile": 16}):
+    for backend in ("cuda_mono", "cuda_strips"):
+        cfg = _cfg(64, backend, pressure_solver="rbsor")
         with pytest.raises(ValueError, match="HYBRID"):
-            Decomp(cfg, _mesh(2, 2), **kw)
+            Decomp(cfg, _mesh(2, 2), tile=16)
 
 
 def test_distributed_matches_serial_from_non_bc_consistent_state():
@@ -320,15 +319,87 @@ def test_distributed_rbsor_with_cuda_backend_runs_hybrid(loop_tests):
 
 
 def test_chunked_with_istep0_and_public_stages():
-    """Chunks with istep0 continue the sweep parity; widen, advance,
-    narrow and make_simulate compose to simulate."""
+    """Chunks with istep0 continue the sweep parity; widen, advance, narrow
+    and gather_state compose to simulate, and so do start, advance and
+    finish; widen leaves its shards as they were."""
     cfg = _cfg(64, "cuda_mono")
     s0 = _state(cfg)
     dec = Decomp(cfg, _mesh(2, 2))
     whole = dec.simulate(s0, 5)
     _assert_equal(dec.simulate(dec.simulate(s0, 2), 3, istep0=2), whole)
-    run = dec.make_simulate()
-    _assert_equal(dec.gather_state(run(run(dec.scatter_state(s0), 3), 2, 3)), whole)
+    shards = dec.scatter_state(s0)
+    kept = [tt.State(*(a.clone() for a in s)) for s in shards]
+    blocks = dec.advance(dec.advance(dec.widen(shards), 3), 2, 3)
+    _assert_equal(dec.gather_state(dec.narrow(blocks)), whole)
+    for a, b in zip(shards, kept):
+        _assert_equal(a, b)
+    _assert_equal(dec.finish(dec.advance(dec.start(shards), 5)), whole)
+
+
+#: The engines on a 2x2 mesh: (backend, n, Decomp's keywords, Numerics'
+#: keywords); 64^2 gives the whole-step engines their W = 22 halos.
+ENGINES = {
+    "torch": ("torch", 16, {}, {}),
+    "full": ("cuda_mono", 64, {}, {}),
+    "tiled": ("cuda_mono", 64, {"tile": 16}, {}),
+    "strips": ("cuda_strips", 64, {}, {}),
+    "hybrid": ("cuda", 16, {}, dict(pressure_solver="mg", sor_tol=1e-8, sor_max_iter=2000)),
+}
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_resident_frames_equal_simulate(engine):
+    """The CLI's mesh loop: ``start`` once, ``advance`` a frame at a time
+    with istep0 (both parities at a frame's start), ``finish`` after each
+    frame; the last frame's state equals ``simulate`` over the same steps
+    bit for bit: the entry BC a frame no longer takes changes nothing."""
+    backend, n, kw, num = ENGINES[engine]
+    cfg = _cfg(n, backend, **num)
+    s0 = _state(cfg)
+    dec = Decomp(cfg, _mesh(2, 2), **kw)
+    assert dec.engine == engine
+    blocks, done = dec.start(dec.scatter_state(s0)), 0
+    for k in (1, 2, 2):
+        blocks = dec.advance(blocks, k, done)
+        done += k
+        got = dec.finish(blocks, device=s0.F.device)
+    _assert_equal(got, dec.simulate(s0, done))
+
+
+def test_spans_and_halo_counter_under_a_profiler(tmp_path):
+    """Under torch.profiler the 2-D Decomp records one tv.simulate an
+    advance call and one tv.halo a step of a kernel engine, its blocks the
+    same bit for bit as without it; HALO gains each step and the bytes
+    the refresh's geometry predicts, with no peer copy on one device."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuvof_torch.parallel import dist3d
+
+    cfg = _cfg(64, "cuda_mono")
+    dec = Decomp(cfg, _mesh(2, 2))
+    s0 = _state(cfg)
+    plain = dec.advance(dec.start(dec.scatter_state(s0)), 2)
+    blocks = dec.start(dec.scatter_state(s0))
+    before = dict(dist3d.HALO)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        blocks = dec.advance(blocks, 2)
+    after = dict(dist3d.HALO)
+    for a, b in zip(plain, blocks):
+        _assert_equal(a, b)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X" and e["name"].startswith("tv.")]
+    assert names.count("tv.simulate") == 1 and names.count("tv.halo") == 2
+    assert after["steps"] - before["steps"] == 2
+    assert after["refreshes"] - before["refreshes"] == 2
+    assert after["peer_copies"] == before["peer_copies"]
+    # each shard: one x copy of W+1 rows and one y copy of W+1 columns of
+    # the (nxl+2W+2)^2 block, for four fields
+    band = (dec.W + 1) * (dec.nxl + 2 * dec.W + 2)
+    assert after["bytes"] - before["bytes"] == 2 * 4 * 4 * 2 * band * 8
 
 
 # ---- on a card: each engine on a virtual 2x2 mesh on cuda:0 ----

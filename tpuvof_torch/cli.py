@@ -200,8 +200,9 @@ def _profile_ctx(args):
 
 
 def run_distributed(args, cfg, state, istep) -> int:
-    """Domain-decomposed run: scatter once, step in frame-sized chunks on
-    the resident shards, gather per frame for metrics/PNGs."""
+    """Domain-decomposed run: scatter and start the engine's blocks once,
+    advance them in frame-sized chunks, and gather each frame's state
+    (``finish``) for its metrics and PNGs."""
     from .io_utils import save_contour_png, save_frame_png
     from .metrics import banner, compute_metrics, format_frame
     from .parallel import Decomp
@@ -216,8 +217,7 @@ def run_distributed(args, cfg, state, istep) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     px, py = dec.px, dec.py
-    run = dec.make_simulate()
-    shards = dec.scatter_state(state)
+    blocks = dec.start(dec.scatter_state(state))
 
     os.makedirs(args.outdir, exist_ok=True)
     print(banner(cfg))
@@ -233,9 +233,9 @@ def run_distributed(args, cfg, state, istep) -> int:
     with _profile_ctx(args):
         while istep < target_step:
             n = min(args.frame_every, target_step - istep)
-            shards = run(shards, n, istep)  # istep0: parity continues
+            blocks = dec.advance(blocks, n, istep)  # istep0: parity continues
             istep += n
-            state = dec.gather_state(shards, device=state.F.device)
+            state = dec.finish(blocks, device=state.F.device)
             m = compute_metrics(cfg, state)
             print(format_frame(istep, cfg.num.dt, m, "vof"))
             if not bool(m.finite):

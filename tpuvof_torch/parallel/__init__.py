@@ -1,7 +1,7 @@
 """Scale-out layer (counterpart of tpuvof/parallel): device meshes, halo
 exchange, the distributed 2-D and 3-D engines (one controller driving one
-tensor per shard), the distributed multigrid they share, and the mesh
-planner."""
+tensor per shard) on the shard driver and the distributed multigrid they
+share, and the mesh planner."""
 from .dist import Decomp, admission_2d
 from .dist3d import Decomp3D, admission_3d
 from .halo import HaloSpec, exchange

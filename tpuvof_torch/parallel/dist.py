@@ -6,8 +6,8 @@ from one controller, as Decomp3D does: one set of tensors per shard on its
 mesh device, halos moved by ``Tensor.copy_`` (parallel/halo.py), the x
 stage on every shard before the y stage on any. Given CPU devices, the
 kernel wrappers run their plain versions, which is how the CPU tests drive
-it. Five shard engines; the config picks one and ``admission_2d`` says
-whether it runs:
+it. The driver and the solves are parallel/shards.py's. Five shard
+engines; the config picks one and ``admission_2d`` says whether it runs:
 
 ``'torch'`` (``backend='torch'``; tpuvof's XLA engine, _local_step): the
 plain ops on a local grid (the local extents with the global spacing) and
@@ -30,19 +30,19 @@ follows. The block is cut back once at exit. tpuvof's VMEM envelope is not
 ported: the port's kernel runs any block, so these backends always take
 this engine where the halo comes from one neighbour.
 
-``'tiled'`` (``'cuda_tiled'`` or ``tile=``; tpuvof's
-_local_step_pallas_tiled): the same resident blocks; each tile's window,
-sliced from the step's entry state, goes through ``fullstep_win`` and the
-tile keeps its (T+2)-wide centre. The default tile is the serial route's
-rule on the local block (solver.TILE_ROWS rows where they divide, else the
-whole block); tpuvof's pick_tile_2d sizes VMEM and is not ported.
+``'tiled'`` (``'cuda_tiled'``, or ``tile=`` on a whole-step backend;
+tpuvof's _local_step_pallas_tiled): the same resident blocks; each tile's
+window, sliced from the step's entry state, goes through ``fullstep_win``
+and the tile keeps its (T+2)-wide centre. The default tile is the serial
+route's rule on the local block (solver.TILE_ROWS rows where they divide,
+else the whole block); tpuvof's pick_tile_2d sizes VMEM and is not ported.
 
-``'strips'`` (``'cuda_strips'`` or ``engine='strips'``; tpuvof's
-_local_step_pallas_strips): the block sits at (W2, W2) of a layout padded
-by W2 = strips_halo, whose W+1 bands are refreshed at offset W2 - W; one
-``fullstep_strips`` launch per shard. The margins outside the bands are
-never rewritten (the kernel sanitizes them at load). tpuvof's ``tx``
-restricts the TPU's strip height and is dropped.
+``'strips'`` (``'cuda_strips'``; tpuvof's _local_step_pallas_strips):
+the block sits at (W2, W2) of a layout padded by W2 = strips_halo, whose
+W+1 bands are refreshed at offset W2 - W; one ``fullstep_strips`` launch
+per shard. The margins outside the bands are never rewritten (the kernel
+sanitizes them at load). tpuvof's ``tx`` restricts the TPU's strip height
+and is dropped.
 
 ``'hybrid'`` (any ``'cuda*'`` backend with rbsor, mg or auto; tpuvof's
 _local_step_hybrid): ``predict_win`` on blocks widened by PHASE_HALO,
@@ -56,8 +56,6 @@ kernel engine's halo), the port raises ValueError naming
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from ..config import SimConfig
@@ -65,20 +63,17 @@ from ..grid import Grid2D
 from ..kernels import step_kernels as K
 from ..ops import apply_bc_, clamp01, divergence_rhs, mix_properties
 from ..ops.common import embed2, merge_interior
-from ..ops.mg import _red_mask
 from ..ops.momentum import correct_velocity_interior, predict_velocity_interior
 from ..ops.normals import curvature_from_normals, young_normals
-from ..ops.poisson import jacobi_blocks, poisson_coefficients, rbsor_blocks
 from ..ops.window import sweep_values
 from ..solver import TILE_ROWS, effective_backend, resolve_auto
 from ..state import State
-from . import mg as pmg
-from .halo import HaloSpec, exchange, refresh_, widen
+from ..utils.profiling import span
+from .halo import HaloSpec, refresh_, widen
 from .mesh import Mesh, on_device
+from .shards import HALO, Shards
 
 __all__ = ["Decomp", "admission_2d"]
-
-_ENGINES = (None, "full", "strips", "tiled")
 
 
 def admission_2d(g: Grid2D, px: int, py: int, W: int) -> dict:
@@ -108,21 +103,7 @@ def admission_2d(g: Grid2D, px: int, py: int, W: int) -> dict:
                 nxl=nxl, nyl=nyl, nxE=nxl + 2 * W, nyE=nyl + 2 * W)
 
 
-@dataclass(frozen=True)
-class _LocalGrid:
-    """A shard's grid for the plain ops: the local extents, with the global
-    spacing copied, not derived again (a spacing recomputed from a local
-    length would not round the same)."""
-
-    nx: int
-    ny: int
-    dx: float
-    dy: float
-    dxi: float
-    dyi: float
-
-
-class Decomp:
+class Decomp(Shards):
     """Domain decomposition of a SimConfig over a 2-axis device mesh.
 
     ``cfg.num.backend`` and ``cfg.num.pressure_solver`` pick the shard
@@ -130,57 +111,45 @@ class Decomp:
     'cuda*' backend runs 'full' ('cuda', 'cuda_mono'), 'tiled'
     ('cuda_tiled') or 'strips' ('cuda_strips') with the fixed Jacobi, and
     the hybrid with rbsor, mg or auto (mg where the global grid coarsens,
-    else rbsor). ``engine='full' | 'tiled' | 'strips'`` and ``tile=T`` (an
-    int, or (Tx, Ty)) force a whole-step engine; they raise where it cannot
-    run, with a residual-driven solver, and on backend 'torch'.
+    else rbsor). ``tile=T`` (an int, or (Tx, Ty)) runs the tiled engine
+    with tiles of T; it raises where that cannot run, with a
+    residual-driven solver, and on backend 'torch'.
 
     ``simulate`` takes and returns a whole-grid State. Its stages are public
-    for callers that keep the shards resident: ``scatter_state`` (one
-    ghost-ringed block per shard), ``widen`` (the engine's entry layout),
-    ``advance`` (the steps), ``narrow`` (back to the ring layout) and
-    ``gather_state``; ``make_simulate`` composes the middle three. Shards
-    are lists in ``coords`` order, (xi, yi) row-major."""
+    for callers that keep the shards resident (parallel/shards.py):
+    ``scatter_state``, ``start`` (``widen`` on copies), ``advance``,
+    ``narrow`` (back to the ring layout) and ``gather_state`` (``finish``
+    does both)."""
 
-    def __init__(self, cfg: SimConfig, mesh: Mesh, tile: int | tuple[int, int] | None = None,
-                 engine: str | None = None):
+    _state = State
+
+    def __init__(self, cfg: SimConfig, mesh: Mesh, tile: int | tuple[int, int] | None = None):
         cfg = resolve_auto(cfg)
         effective_backend(cfg)  # the serial routes' checks of backend and solver
         if cfg.num.bc_between_sweeps:
             raise NotImplementedError(
                 "bc_between_sweeps=True (the FCT test variant's mid-sweep mirror) is "
                 "serial only: no shard engine mirrors F between its sweeps")
-        if engine not in _ENGINES:
-            raise ValueError(f"unknown shard engine {engine!r}")
-        if len(mesh.axis_names) != 2:
+        if mesh.devices.ndim != 2:
             raise ValueError("Decomp expects a 2-D mesh (axes for x and y)")
-        g = cfg.grid
         self.cfg = cfg
-        self.px, self.py = mesh.devices.shape
-        if g.nx % self.px or g.ny % self.py:
-            raise ValueError(f"grid {g.nx}x{g.ny} not divisible by mesh {self.px}x{self.py}: "
-                             "every engine needs nx % px == ny % py == 0, backend='torch' too")
-        self.nxl, self.nyl = g.nx // self.px, g.ny // self.py
-        self.coords = [(xi, yi) for xi in range(self.px) for yi in range(self.py)]
+        self._place(cfg.grid, mesh, cfg.num)
         self.halos = [HaloSpec(self.px, self.py, xi, yi) for xi, yi in self.coords]
-        self.devices = [mesh.devices[xi, yi] for xi, yi in self.coords]
-        self.gl = _LocalGrid(nx=self.nxl, ny=self.nyl, dx=g.dx, dy=g.dy, dxi=g.dxi, dyi=g.dyi)
         self.W = self.W2 = 0
         self.tile = None
-        self.engine = self._route(tile, engine)
-        self._cache = {}
+        self.engine = self._route(tile)
 
-    def _route(self, tile, engine) -> str:
+    def _route(self, tile) -> str:
         nm, g = self.cfg.num, self.cfg.grid
-        forced = engine is not None or tile is not None
         if nm.backend == "torch":
-            if forced:
-                raise ValueError(f"engine={engine!r}, tile={tile!r} force a kernel engine; "
+            if tile is not None:
+                raise ValueError(f"tile={tile!r} runs the tiled kernel engine; "
                                  "backend='torch' runs the plain engine")
             return "torch"
         if nm.pressure_solver != "jacobi":
-            if forced:
+            if tile is not None:
                 raise ValueError(
-                    f"engine={engine!r}, tile={tile!r} force a whole-step engine but "
+                    f"tile={tile!r} runs the tiled whole-step engine but "
                     f"pressure_solver={nm.pressure_solver!r} runs the HYBRID shard step "
                     "(phase kernels around the distributed solve); the whole-step engines "
                     "run the fixed-iteration Jacobi")
@@ -193,10 +162,8 @@ class Decomp:
                     "port does not fall back)")
             self.W = K.PHASE_HALO
             return "hybrid"
-        pick = engine or ("tiled" if tile is not None else
-                          {"cuda_tiled": "tiled", "cuda_strips": "strips"}.get(nm.backend, "full"))
-        if tile is not None and pick != "tiled":
-            raise ValueError(f"tile={tile!r} runs the tiled engine, not engine={engine!r}")
+        pick = "tiled" if tile is not None else \
+            {"cuda_tiled": "tiled", "cuda_strips": "strips"}.get(nm.backend, "full")
         adm = admission_2d(g, self.px, self.py, K.STEP_HALO(self.cfg))
         if not adm["ok"]:
             raise ValueError(
@@ -225,50 +192,31 @@ class Decomp:
         xi, yi = self.coords[k]
         return xi * self.nxl - w, yi * self.nyl - w
 
-    # ---- host-side layout ----
-    def scatter_state(self, state: State) -> list[State]:
-        """One (nxl+2, nyl+2) block per shard, on its device: its owned
-        cells and one ghost ring (the neighbours' cells, as an exchange
-        would leave them)."""
-        out = []
-        for (xi, yi), dev in zip(self.coords, self.devices):
-            i0, j0 = xi * self.nxl, yi * self.nyl
-            out.append(State(*(a[i0:i0 + self.nxl + 2, j0:j0 + self.nyl + 2]
-                               .to(dev, copy=True).contiguous() for a in state)))
-        return out
+    @staticmethod
+    def _phase(istep: int) -> bool:
+        """Whether global step ``istep`` is even: its sweep order."""
+        return istep % 2 == 0
 
-    def gather_state(self, shards: list[State], device=None) -> State:
-        """The whole-grid state (on ``device``, default the first shard's)
-        from the shards' owned cells, its ghost ring rebuilt by the real
-        BCs: a blanket mirror would put nonzero values on the wall faces the
-        BCs zero (u's x-ghost row, v's y-ghost column)."""
-        g = self.cfg.grid
-        ref = shards[0].F
-        device = ref.device if device is None else torch.device(device)
-        fields = [torch.zeros(g.shape, dtype=ref.dtype, device=device) for _ in range(4)]
-        for (xi, yi), s in zip(self.coords, shards):
-            i0, j0 = xi * self.nxl, yi * self.nyl
-            for out, blk in zip(fields, s):
-                out[i0 + 1:i0 + self.nxl + 1, j0 + 1:j0 + self.nyl + 1] = blk[1:-1, 1:-1]
-        F, u, v, p = fields
-        u, v, F, p = apply_bc_(u, v, F, p)
+    @staticmethod
+    def _whole_bc(s: State) -> State:
+        u, v, F, p = apply_bc_(s.u, s.v, s.F, s.p)
         return State(F=F, u=u, v=v, p=p)
 
     # ---- halos and the masked wall BCs ----
-    def _exchange(self, arrs: list) -> None:
-        exchange(arrs, self.px, self.py)
-
     def _extend(self, arrs: list, w: int) -> list:
         """Each ring-layout block widened by w on every side, x then y (the
         corners from the diagonal neighbours), zeros beyond the walls."""
         return widen(widen(arrs, self.px, self.py, 0, w), self.px, self.py, 1, w)
 
-    def _refresh(self, blocks: list[State], off: int = 0) -> None:
-        """The W+1 outer bands of every field of the resident blocks, in
-        place, from the neighbours' owned cells (tpuvof's _refresh_halo_2d;
-        at offset ``off`` its _refresh_halo_strips)."""
-        for f in range(4):
-            refresh_([b[f] for b in blocks], self.px, self.py, (self.W, self.W), off)
+    def _refresh(self, blocks: list[State], W: int, Wy: int, off: int = 0) -> None:
+        """The W+1 outer planes along x and Wy+1 along y of every field of
+        the resident blocks, in place, from the neighbours' owned cells
+        (tpuvof's _refresh_halo_2d; at offset ``off`` its
+        _refresh_halo_strips)."""
+        HALO["refreshes"] += 1
+        with span("tv.halo"):
+            for f in range(4):
+                refresh_([b[f] for b in blocks], self.px, self.py, (W, Wy), off, counts=HALO)
 
     def _bc_(self, u: list, v: list, F: list, p: list, rho: list | None = None) -> None:
         """The wall BCs in place on the shards that own a wall (j boundaries
@@ -301,12 +249,12 @@ class Decomp:
             self._exchange(a)
 
     # ---- the engine ----
-    def widen(self, shards: list[State]) -> list[State]:
-        """Entry, on copies of the shards: the BCs and the ghost exchange,
-        as serial ``simulate`` applies the BCs at entry; then, for 'full'
-        and 'tiled', the resident extended blocks (nxl+2W+2, nyl+2W+2), and
-        for 'strips' the padded layout (nxl+2+2*W2, nyl+2+2*W2)."""
-        shards = [State(*(a.clone() for a in s)) for s in shards]
+    def start(self, shards: list[State]) -> list[State]:
+        """The engine's entry layout, written over the shards: the BCs and
+        the ghost exchange, as serial ``simulate`` applies the BCs at entry;
+        then, for 'full' and 'tiled', the resident extended blocks
+        (nxl+2W+2, nyl+2W+2), and for 'strips' the padded layout
+        (nxl+2+2*W2, nyl+2+2*W2)."""
         F, u, v, p = (list(f) for f in zip(*shards))
         self._bc_(u, v, F, p)
         if self.engine in ("full", "tiled"):
@@ -327,13 +275,13 @@ class Decomp:
         return [State(*(a[sx, sy].contiguous() for a in b)) for b in blocks]
 
     def step(self, blocks: list[State], even_step: bool) -> list[State]:
-        """One step of the engine on its blocks (``widen``'s layout); returns
+        """One step of the engine on its blocks (``start``'s layout); returns
         new blocks. The halo refresh and the BCs write into the given ones,
-        which leaves a state the last step or ``widen`` made as it was."""
+        which leaves a state the last step or ``start`` made as it was."""
         return getattr(self, f"_step_{self.engine}")(blocks, even_step)
 
     def _step_full(self, blocks: list[State], even: bool) -> list[State]:
-        self._refresh(blocks)
+        self._refresh(blocks, self.W, self.W)
         out = []
         for k, b in enumerate(blocks):
             with on_device(self.devices[k]):
@@ -346,7 +294,7 @@ class Decomp:
         read the step's entry values. The tiles' (T+2)-wide centres cover
         the ring layout; the outer bands keep their entry values, which is
         all the next refresh needs (it copies owned cells only)."""
-        self._refresh(blocks)
+        self._refresh(blocks, self.W, self.W)
         W, (tx, ty) = self.W, self.tile
         ex, ey = tx + 2 * W + 2, ty + 2 * W + 2
         out = []
@@ -365,7 +313,7 @@ class Decomp:
         return out
 
     def _step_strips(self, blocks: list[State], even: bool) -> list[State]:
-        self._refresh(blocks, self.W2 - self.W)
+        self._refresh(blocks, self.W, self.W, self.W2 - self.W)
         out = []
         for k, b in enumerate(blocks):
             oi, oj = self.origin(k, 0)
@@ -454,7 +402,7 @@ class Decomp:
         rho = [mix_properties(cfg.fluid, f)[0] for f in F]
         self._bc_(u, v, F, p, rho)
         rhss = [divergence_rhs(self.gl, cfg.num, *a) for a in zip(u_star, v_star, rho)]
-        p = self._solve_upgraded(p, rhss)
+        p = self._solve_pressure(p, rhss)
         u, v = self._correct(u, v, u_star, v_star, p, rho)
         self._bc_(u, v, F, p, rho)
         for axis in (1, 0) if even else (0, 1):
@@ -468,71 +416,3 @@ class Decomp:
         F = [clamp01(f) for f in F]
         self._bc_(u, v, F, p, rho)
         return [State(*s) for s in zip(F, u, v, p)]
-
-    # ---- the distributed pressure solves ----
-    def _coeffs(self, k: int, dtype, device):
-        """Shard k's 5-point coefficients (ae, aw, an, as, ap_inv), the
-        serial solver's on its block (only the global walls zero a
-        coefficient, ap_inv from the f64 edge classes), and its red mask
-        (i + j) % 2 == 0 at global indices; cached. tpuvof forms the
-        distributed ap_inv in the field's dtype instead, an ulp from the
-        serial one in f32, which can part an f32 rbsor's trip count from
-        the serial one and with it p (PERF.md)."""
-        key = (k, dtype, device)
-        if key not in self._cache:
-            xi, yi = self.coords[k]
-            origin, extent = (xi * self.nxl, yi * self.nyl), (self.nxl, self.nyl)
-            self._cache[key] = (
-                poisson_coefficients(self.cfg.grid, dtype, device, origin, extent),
-                _red_mask(extent, device, origin))
-        return self._cache[key]
-
-    def _solve_pressure(self, ps: list, rhss: list) -> list:
-        """The torch engine's solve: the residual-driven rungs, or the fixed
-        Jacobi with one exchange of p per sweep."""
-        if self.cfg.num.pressure_solver != "jacobi":
-            return self._solve_upgraded(ps, rhss)
-        coeffs = [self._coeffs(k, p.dtype, p.device)[0] for k, p in enumerate(ps)]
-        return jacobi_blocks(ps, rhss, coeffs, self.cfg.num.n_jacobi, self._exchange)
-
-    def _solve_upgraded(self, ps: list, rhss: list) -> list:
-        """rbsor or mg on ring-layout blocks (ghosted p, interior rhs); new
-        ghosted blocks. rbsor is the serial solver's loop
-        (ops.poisson.rbsor_blocks) on the shards' blocks, with the
-        nullspace projection as a global mean summed in the serial order
-        (parallel/mg._mean_free), the global max, red and black at global
-        i + j, and one exchange per half sweep; mg is parallel/mg.py's."""
-        g, nm = self.cfg.grid, self.cfg.num
-        spec = pmg.MGDecomp((self.px, self.py))
-        if nm.pressure_solver == "mg":
-            return pmg.mg_solve_dist(spec, ps, rhss, (g.dxi**2, g.dyi**2), nm.sor_tol,
-                                     nm.sor_max_iter, tol_rel=nm.sor_tol_rel)
-        cm = [self._coeffs(k, p.dtype, p.device) for k, p in enumerate(ps)]
-        return rbsor_blocks(ps, rhss, [c for c, _ in cm], [red for _, red in cm],
-                            nm.sor_omega, nm.sor_tol, nm.sor_tol_rel, nm.sor_max_iter,
-                            mean_free=lambda xs: pmg._mean_free(spec, xs, g.nx * g.ny),
-                            exchange=self._exchange)
-
-    # ---- driving ----
-    def advance(self, blocks: list[State], n_steps: int, istep0: int = 0) -> list[State]:
-        """``n_steps`` steps on the engine's blocks; ``istep0`` is the last
-        global step already taken, so the sweep parity continues across
-        chunked calls (the first step is even iff istep0 + 1 is)."""
-        even1 = (istep0 + 1) % 2 == 0
-        for s in range(n_steps):
-            blocks = self.step(blocks, even1 if s % 2 == 0 else not even1)
-        return blocks
-
-    def make_simulate(self):
-        """``run(shards, n_steps, istep0=0)``: ring-layout shards in, ring-
-        layout shards out (tpuvof's jitted blocked-array program)."""
-        def run(shards: list[State], n_steps: int, istep0: int = 0) -> list[State]:
-            return self.narrow(self.advance(self.widen(shards), n_steps, istep0))
-
-        return run
-
-    def simulate(self, state: State, n_steps: int, istep0: int = 0) -> State:
-        """Advance a whole-grid state ``n_steps`` through the mesh; the
-        result lies on the state's device."""
-        shards = self.make_simulate()(self.scatter_state(state), n_steps, istep0)
-        return self.gather_state(shards, device=state.F.device)

@@ -25,9 +25,11 @@ plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .config import Fluid
+from .config import Fluid, Numerics
 from .grid import Grid3D
 from .kernels import step3d_kernels as K3
 from .ops import apply_bc_3d, apply_bc_3d_, clamp01, mix_properties
@@ -73,28 +75,36 @@ def _resolve_auto_3d(g: Grid3D) -> str:
     return "mg" if len(mg_levels((g.nx, g.ny, g.nz))) >= 2 else "rbsor"
 
 
-def _check(backend: str, pressure_solver: str) -> None:
-    if backend not in _BACKENDS:
+def numerics_3d(g: Grid3D, **settings) -> Numerics:
+    """The 3-D step's settings as one value: ``config.Numerics`` of the
+    given dt, n_jacobi, backend, pressure_solver and sor_* fields, with the
+    backend and the solver checked and 'auto' resolved. ``step_3d``,
+    ``simulate_3d`` and Decomp3D take their settings through it."""
+    nm = Numerics(**settings)
+    if nm.backend not in _BACKENDS:
         raise NotImplementedError(
-            f"backend={backend!r} is not a 3-D backend of the port; it has "
+            f"backend={nm.backend!r} is not a 3-D backend of the port; it has "
             f"{_BACKENDS} (tpuvof's 'xla' and 'pallas')")
-    if pressure_solver not in _SOLVERS:
-        raise ValueError(f"unknown pressure_solver {pressure_solver!r}; "
+    if nm.pressure_solver not in _SOLVERS:
+        raise ValueError(f"unknown pressure_solver {nm.pressure_solver!r}; "
                          f"expected one of {_SOLVERS}")
+    if nm.pressure_solver == "auto":
+        nm = dataclasses.replace(nm, pressure_solver=_resolve_auto_3d(g))
+    return nm
 
 
-def _solve_residual(g, p, rhs, pressure_solver, sor_omega, sor_tol, sor_max_iter,
-                    sor_tol_rel):
+def _solve_residual(g, p, rhs, nm: Numerics):
     """The residual-driven rungs on an interior-shaped rhs."""
-    if pressure_solver == "rbsor":
-        return _rbsor_3d(g, p, rhs, sor_omega, sor_tol, sor_max_iter, tol_rel=sor_tol_rel)
-    return mg_solve(p, rhs, (g.dxi**2, g.dyi**2, g.dzi**2), sor_tol, sor_max_iter,
-                    tol_rel=sor_tol_rel)
+    if nm.pressure_solver == "rbsor":
+        return _rbsor_3d(g, p, rhs, nm.sor_omega, nm.sor_tol, nm.sor_max_iter,
+                         tol_rel=nm.sor_tol_rel)
+    return mg_solve(p, rhs, (g.dxi**2, g.dyi**2, g.dzi**2), nm.sor_tol, nm.sor_max_iter,
+                    tol_rel=nm.sor_tol_rel)
 
 
-def _step_3d_torch(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega,
-                   sor_tol, sor_max_iter, csf, sor_tol_rel) -> State3D:
+def _step_3d_torch(g, fl, nm: Numerics, csf: bool, state, phase) -> State3D:
     F, u, v, w, p = state
+    dt = nm.dt
     rho, nu = mix_properties(fl, F)
     if csf:
         kappa = young_normals_curvature_3d(g, F)[3]
@@ -102,12 +112,10 @@ def _step_3d_torch(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega
         kappa = torch.zeros_like(F)  # surface tension inert, as in the reference
     u_star, v_star, w_star = predict_velocity_3d(g, fl, dt, u, v, w, F, rho, nu, kappa)
     u, v, w, F, p, rho = apply_bc_3d(u, v, w, F, p, rho)
-    if pressure_solver == "jacobi":
-        p = _solve_pressure_3d(g, dt, n_jacobi, p, u_star, v_star, w_star, rho)
+    if nm.pressure_solver == "jacobi":
+        p = _solve_pressure_3d(g, dt, nm.n_jacobi, p, u_star, v_star, w_star, rho)
     else:
-        rhs = rhs_3d(g, dt, u_star, v_star, w_star, rho)
-        p = _solve_residual(g, p, rhs, pressure_solver, sor_omega, sor_tol, sor_max_iter,
-                            sor_tol_rel)
+        p = _solve_residual(g, p, rhs_3d(g, dt, u_star, v_star, w_star, rho), nm)
     u, v, w = update_velocity_3d(g, dt, u, v, w, u_star, v_star, w_star, p, rho)
     u, v, w, F, p, rho = apply_bc_3d(u, v, w, F, p, rho)
     F = rudman_advect_3d(g, dt, F, u, v, w, phase)
@@ -117,8 +125,30 @@ def _step_3d_torch(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega
     return State3D(F=F, u=u, v=v, w=w, p=p)
 
 
-def _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega,
-                       sor_tol, sor_max_iter, csf, sor_tol_rel) -> State3D:
+def lean_predict_3d(g, fl, nm: Numerics, csf: bool, state, **origin):
+    """The lean step's first half on a whole grid or, given the block
+    origin (the kernels' ``gi_base``, ``njl``, ``gj_base``), on a shard's
+    extended block: predict3d_rhs, then with the fixed Jacobi its
+    jacobi3d. Returns ((u*, v*, w*), p, rhs), p the solved one under
+    'jacobi' and the entry one otherwise, for the caller's solve."""
+    F, u, v, w, p = state
+    *stars, rhs = K3.predict3d_rhs(g, fl, nm.dt, u, v, w, F, csf, **origin)
+    if nm.pressure_solver == "jacobi":
+        p = K3.jacobi3d(g, nm.n_jacobi, p, rhs, **origin)
+    return stars, p, rhs
+
+
+def lean_finish_3d(g, fl, nm: Numerics, F, stars, p, phase: int, **origin) -> State3D:
+    """The lean step's second half: correct3d, then the three sweeps in
+    the ``phase`` rotation, the last with mirror_out."""
+    vels = K3.correct3d(g, fl, nm.dt, *stars, p, F, **origin)
+    for idx, ax in enumerate(SWEEP_ORDER[phase]):
+        F = K3.fct3d_sweep(g, nm.dt, F, vels[ax], ax, idx == 2, **origin)
+    u, v, w = vels
+    return State3D(F=F, u=u, v=v, w=w, p=p)
+
+
+def _step_3d_cuda_lean(g, fl, nm: Numerics, csf: bool, state, phase) -> State3D:
     """One step on the kernels from a state whose ghosts are as the
     previous lean step (or a BC) left them (tpuvof's
     _step_3d_pallas_padded). Every per-step BC of the 'torch' route is
@@ -127,19 +157,10 @@ def _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_o
     writes zero off its update ranges, the first two sweeps read the stale
     F mirrors and the last writes fresh ones (mirror_out). A BC after the
     last lean step restores the velocity and pressure ghosts."""
-    F, u, v, w, p = state
-    u_star, v_star, w_star, rhs = K3.predict3d_rhs(g, fl, dt, u, v, w, F, csf=csf)
-    if pressure_solver == "jacobi":
-        p = K3.jacobi3d(g, n_jacobi, p, rhs)
-    else:
-        p = _solve_residual(g, p, rhs[1:-1, 1:-1, 1:-1], pressure_solver, sor_omega,
-                            sor_tol, sor_max_iter, sor_tol_rel)
-    u, v, w = K3.correct3d(g, fl, dt, u_star, v_star, w_star, p, F)
-    vels = (u, v, w)
-    order = SWEEP_ORDER[phase]
-    for idx, ax in enumerate(order):
-        F = K3.fct3d_sweep(g, dt, F, vels[ax], ax, mirror_out=idx == 2)
-    return State3D(F=F, u=u, v=v, w=w, p=p)
+    stars, p, rhs = lean_predict_3d(g, fl, nm, csf, state)
+    if nm.pressure_solver != "jacobi":
+        p = _solve_residual(g, p, rhs[1:-1, 1:-1, 1:-1], nm)
+    return lean_finish_3d(g, fl, nm, state.F, stars, p, phase)
 
 
 def _with_bc(state: State3D) -> State3D:
@@ -162,15 +183,12 @@ def step_3d(g: Grid3D, fl: Fluid, dt: float, n_jacobi: int, state: State3D, phas
     reference pre-increments istep, so the first step runs phase 1). On
     'cuda' the lean kernel step runs between a BC at entry and one at
     exit. The entry state is not modified."""
-    _check(backend, pressure_solver)
-    if pressure_solver == "auto":
-        pressure_solver = _resolve_auto_3d(g)
-    args = (g, fl, dt, n_jacobi, state, phase, pressure_solver, sor_omega, sor_tol,
-            sor_max_iter, csf, sor_tol_rel)
-    if backend == "torch":
-        return _step_3d_torch(*args)
-    args = args[:4] + (_with_bc(state),) + args[5:]
-    return _with_bc_(_step_3d_cuda_lean(*args))
+    nm = numerics_3d(g, dt=dt, n_jacobi=n_jacobi, backend=backend,
+                     pressure_solver=pressure_solver, sor_omega=sor_omega, sor_tol=sor_tol,
+                     sor_max_iter=sor_max_iter, sor_tol_rel=sor_tol_rel)
+    if nm.backend == "torch":
+        return _step_3d_torch(g, fl, nm, csf, state, phase)
+    return _with_bc_(_step_3d_cuda_lean(g, fl, nm, csf, _with_bc(state), phase))
 
 
 def simulate_3d(g: Grid3D, state: State3D, n_steps: int, dt: float = 4e-6,
@@ -188,17 +206,14 @@ def simulate_3d(g: Grid3D, state: State3D, n_steps: int, dt: float = 4e-6,
     runs between them."""
     with span("tv.simulate"):
         g.validate()  # cubic cells only (the 3-D FCT scale factors assume it)
-        _check(backend, pressure_solver)
-        if pressure_solver == "auto":
-            pressure_solver = _resolve_auto_3d(g)
+        nm = numerics_3d(g, dt=dt, n_jacobi=n_jacobi, backend=backend,
+                         pressure_solver=pressure_solver, sor_omega=sor_omega,
+                         sor_tol=sor_tol, sor_max_iter=sor_max_iter, sor_tol_rel=sor_tol_rel)
         fl = fl or Fluid()
-        ph1 = (istep0 % 3 + 1) % 3  # phase of the first step taken here
-        rest = (pressure_solver, sor_omega, sor_tol, sor_max_iter, csf, sor_tol_rel)
-        if backend == "torch":
-            for s in range(n_steps):
-                state = _step_3d_torch(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
-            return state
-        state = _with_bc(state)
-        for s in range(n_steps):
-            state = _step_3d_cuda_lean(g, fl, dt, n_jacobi, state, (ph1 + s) % 3, *rest)
-        return _with_bc_(state)
+        lean = nm.backend != "torch"
+        step = _step_3d_cuda_lean if lean else _step_3d_torch
+        if lean:
+            state = _with_bc(state)
+        for istep in range(istep0 + 1, istep0 + n_steps + 1):
+            state = step(g, fl, nm, csf, state, istep % 3)
+        return _with_bc_(state) if lean else state

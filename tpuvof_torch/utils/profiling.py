@@ -11,10 +11,11 @@ goes through it, and all carry the prefix ``tv.``:
   span                  where
   ====================  ==================================================
   tv.simulate           the body of solver.simulate, simulate_cfl,
-                        solver3d.simulate_3d and Decomp3D.advance (one
-                        per call)
-  tv.halo               Decomp3D's halo refresh of its blocks, one per
-                        step (and one per ghost exchange of its BCs)
+                        solver3d.simulate_3d and the advance of Decomp
+                        and Decomp3D (one per call)
+  tv.halo               a decomposition's halo refresh of its blocks, one
+                        per step of a wide-halo engine (and in 3-D one per
+                        ghost exchange of its BCs)
   tv.shard_line         Decomp3D.line, the frame's per-shard reductions
   tv.bc                 the plain-torch BC passes outside the kernels
   tv.cfl                simulate_cfl's Courant tracker, one per step
